@@ -1,0 +1,80 @@
+"""Residual blocks: BasicBlock (ResNet v1) and NonBottleneck1D (ERFNet
+factorised 3x1/1x3), counterparts of nicr_mtsa_tpu/models/blocks.py.
+Inference only: NonBottleneck1D's channel dropout is the identity."""
+from typing import Optional
+
+import torch.nn as nn
+
+from .common import BatchNorm, Conv2d, ConvNormAct, get_activation
+
+KNOWN_BLOCKS = ('basicblock', 'nonbottleneck1d')
+
+
+def get_block_name(name: Optional[str] = None) -> str:
+    name = (name or 'nonbottleneck1d').lower()
+    if name not in KNOWN_BLOCKS:
+        raise ValueError(f"Unknown block: '{name}'")
+    return name
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, n_in: int, planes: int, stride: int = 1,
+                 use_downsample: bool = False, dilation: int = 1,
+                 norm: str = 'batchnorm', act: str = 'relu',
+                 generator=None):
+        super().__init__()
+        self.conv1 = Conv2d(n_in, planes, 3, stride, generator=generator)
+        self.norm1 = BatchNorm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, generator=generator)
+        self.norm2 = BatchNorm(planes)
+        self.downsample = (
+            ConvNormAct(n_in, planes, 1, stride=stride, norm=norm,
+                        act=None, generator=generator)
+            if use_downsample else None)
+        self.act = get_activation(act)
+
+    def forward(self, x):
+        out = self.act(self.norm1(self.conv1(x)))
+        out = self.norm2(self.conv2(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.act(out + identity)
+
+
+class NonBottleneck1D(nn.Module):
+    def __init__(self, n_in: int, planes: int, stride: int = 1,
+                 use_downsample: bool = False, dilation: int = 1,
+                 norm: str = 'batchnorm', act: str = 'relu',
+                 generator=None):
+        super().__init__()
+        d = dilation
+        g = generator
+        self.conv1_1 = Conv2d(n_in, planes, (3, 1), (stride, 1),
+                              padding=(1, 0), use_bias=True, generator=g)
+        self.conv1_2 = Conv2d(planes, planes, (1, 3), (1, stride),
+                              padding=(0, 1), generator=g)
+        self.norm1 = BatchNorm(planes)
+        self.conv2_1 = Conv2d(planes, planes, (3, 1), padding=(d, 0),
+                              dilation=(d, 1), use_bias=True, generator=g)
+        self.conv2_2 = Conv2d(planes, planes, (1, 3), padding=(0, d),
+                              dilation=(1, d), generator=g)
+        self.norm2 = BatchNorm(planes)
+        self.downsample = (
+            ConvNormAct(n_in, planes, 1, stride=stride, norm=norm,
+                        act=None, generator=g)
+            if use_downsample else None)
+        self.act = get_activation(act)
+
+    def forward(self, x):
+        act = self.act
+        out = act(self.conv1_1(x))
+        out = act(self.norm1(self.conv1_2(out)))
+        out = act(self.conv2_1(out))
+        out = self.norm2(self.conv2_2(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return act(out + identity)
+
+
+def make_block(block_type: str, **kwargs) -> nn.Module:
+    cls = {'basicblock': BasicBlock,
+           'nonbottleneck1d': NonBottleneck1D}[get_block_name(block_type)]
+    return cls(**kwargs)

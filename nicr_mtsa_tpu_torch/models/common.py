@@ -1,0 +1,157 @@
+"""Shared model building blocks: conv, BatchNorm, ConvNormAct,
+SqueezeAndExcitation (counterpart of nicr_mtsa_tpu/models/common.py).
+
+Parameters stay float32; every module casts its weights to the dtype
+of its input (once, then cached), as the flax modules compute in a
+threaded `dtype` with f32 masters. Submodule and parameter names
+follow the flax names (`conv`, `norm`, `fc1`, ...) so
+utils/flax_weights.py maps the trees mechanically. Initialisation:
+He fan-out normal for convs (torch's kaiming_normal_(mode='fan_out',
+nonlinearity='relu')), BN identity."""
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+KNOWN_NORMALIZATIONS = ('bn', 'batchnorm')
+KNOWN_ACTIVATIONS = ('relu', 'silu', 'swish')
+
+_Pair = Union[int, Tuple[int, int]]
+
+
+def _pair(v: _Pair) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def cached_weight(module: nn.Module, name: str, dtype, build=None):
+    """Parameter or buffer `name` of `module`, passed through `build`
+    and cast to `dtype`, cached until it is modified in place or moved:
+    a forward pass would otherwise launch one cast per weight (about
+    1200 copies per serving request)."""
+    p = getattr(module, name)
+    if p is None:
+        return None
+    key = (dtype, p.device, p.data_ptr(), p._version)
+    cache = module.__dict__.setdefault('_weight_cache', {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            t = (p if build is None else build(p)).to(dtype).detach()
+        hit = cache[name] = (key, t)
+    return hit[1]
+
+
+def get_activation(name: Optional[str] = None):
+    name = (name or 'relu').lower()
+    if name not in KNOWN_ACTIVATIONS:
+        raise ValueError(f"Unknown activation: '{name}'")
+    return F.relu if name == 'relu' else F.silu
+
+
+def check_normalization(name: Optional[str] = None) -> str:
+    name = (name or 'batchnorm').lower()
+    if name not in KNOWN_NORMALIZATIONS:
+        raise ValueError(f"Unsupported normalization in this port: "
+                         f"'{name}'")
+    return 'batchnorm'
+
+
+class Conv2d(nn.Module):
+    """NCHW conv with explicit (torch-style) padding; weight OIHW."""
+
+    def __init__(self, n_in: int, n_out: int, kernel_size: _Pair = 3,
+                 stride: _Pair = 1, padding: Optional[_Pair] = None,
+                 dilation: _Pair = 1, groups: int = 1,
+                 use_bias: bool = False, generator=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        dh, dw = _pair(dilation)
+        if padding is None:
+            padding = (kh // 2 + dh - 1, kw // 2 + dw - 1)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = (dh, dw)
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.empty(n_out, n_in // groups, kh, kw))
+        self.bias = (nn.Parameter(torch.zeros(n_out)) if use_bias
+                     else None)
+        std = math.sqrt(2.0 / (n_out * kh * kw))
+        with torch.no_grad():
+            self.weight.normal_(0.0, std, generator=generator)
+
+    def forward(self, x):
+        dt = x.dtype
+        return F.conv2d(x, cached_weight(self, 'weight', dt),
+                        cached_weight(self, 'bias', dt), self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over the channel axis (eps 1e-5, as the flax
+    `Norm`); running statistics are buffers."""
+
+    def __init__(self, n_channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(n_channels))
+        self.bias = nn.Parameter(torch.zeros(n_channels))
+        self.register_buffer('running_mean', torch.zeros(n_channels))
+        self.register_buffer('running_var', torch.ones(n_channels))
+
+    def forward(self, x):
+        dt = x.dtype
+        return F.batch_norm(
+            x, cached_weight(self, 'running_mean', dt),
+            cached_weight(self, 'running_var', dt),
+            cached_weight(self, 'weight', dt),
+            cached_weight(self, 'bias', dt), False, 0.0, self.eps)
+
+
+class ConvNormAct(nn.Module):
+    """conv -> norm -> act; `norm=None` gives the conv a bias."""
+
+    def __init__(self, n_in: int, n_out: int, kernel_size: int = 1,
+                 stride: int = 1, dilation: int = 1,
+                 norm: Optional[str] = 'batchnorm',
+                 act: Optional[str] = 'relu', generator=None):
+        super().__init__()
+        self.conv = Conv2d(n_in, n_out, kernel_size, stride,
+                           dilation=dilation, use_bias=norm is None,
+                           generator=generator)
+        self.norm = None
+        if norm is not None:
+            check_normalization(norm)
+            self.norm = BatchNorm(n_out)
+        self.act = get_activation(act) if act is not None else None
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        if self.act is not None:
+            x = self.act(x)
+        return x
+
+
+class SqueezeAndExcitation(nn.Module):
+    """GAP -> 1x1 reduce -> act -> 1x1 expand -> sigmoid -> scale."""
+
+    def __init__(self, n_channels: int, reduction: int = 16,
+                 act: str = 'relu', generator=None):
+        super().__init__()
+        n_red = n_channels // reduction
+        assert n_red > 0
+        self.fc1 = Conv2d(n_channels, n_red, 1, use_bias=True,
+                          generator=generator)
+        self.fc2 = Conv2d(n_red, n_channels, 1, use_bias=True,
+                          generator=generator)
+        self.act = get_activation(act)
+
+    def forward(self, x):
+        w = x.mean(dim=(2, 3), keepdim=True)
+        w = self.act(self.fc1(w))
+        w = torch.sigmoid(self.fc2(w))
+        return x * w

@@ -1,0 +1,113 @@
+"""Dense decoder ladder (counterpart of nicr_mtsa_tpu/models/decoders/
+base.py DenseDecoderModule / DenseDecoderBase), inference only: each
+step is ConvNormAct 3x3 + n residual blocks + 2x upsampling, followed
+by skip fusion. Returns `(main, side_outputs)` with no side outputs."""
+from typing import Tuple
+
+import torch.nn as nn
+
+from ..blocks import make_block
+from ..common import ConvNormAct
+from ..encoder_decoder_fusion import (EncoderDecoderFusion,
+                                      parse_encoder_decoder_fusion)
+from ..upsampling import Upsampling
+
+
+def plan_dense_ladder(downsampling_in: int, downsamplings: Tuple[int, ...],
+                      fusion_downsamplings: Tuple[int, ...]):
+    """Per-step {do_upsampling, fusion_ds} and the side-output
+    downscales (reference dense_base.py:128-200)."""
+    assert sorted(downsamplings, reverse=True) == list(downsamplings)
+    assert all(d <= downsampling_in for d in downsamplings)
+    cur = downsampling_in
+    modules, downscales = [], []
+    for ds in downsamplings:
+        up = ds < cur
+        if up:
+            downscales.append(cur)
+            cur = ds
+        modules.append({
+            'do_upsampling': up,
+            'fusion_ds': cur if cur in fusion_downsamplings else -1})
+    return modules, tuple(downscales)
+
+
+class DenseDecoderModule(nn.Module):
+    def __init__(self, n_in: int, n_channels: int,
+                 block: str = 'nonbottleneck1d', n_blocks: int = 3,
+                 norm: str = 'batchnorm', act: str = 'relu',
+                 upsampling=None, generator=None):
+        super().__init__()
+        self.conv = ConvNormAct(n_in, n_channels, 3, norm=norm, act=act,
+                                generator=generator)
+        self.n_blocks = n_blocks
+        for i in range(n_blocks):
+            self.add_module(f'block{i}', make_block(
+                block, n_in=n_channels, planes=n_channels, stride=1,
+                use_downsample=False, norm=norm, act=act,
+                generator=generator))
+        self.upsample = (Upsampling(upsampling, n_channels)
+                         if upsampling is not None else None)
+
+    def forward(self, x):
+        x = self.conv(x)
+        for i in range(self.n_blocks):
+            x = getattr(self, f'block{i}')(x)
+        if self.upsample is not None:
+            x = self.upsample(x)
+        return x
+
+
+class DenseDecoderBase(nn.Module):
+    def __init__(self, n_channels_in: int = 512, downsampling_in: int = 32,
+                 n_channels: Tuple[int, ...] = (512, 256, 128),
+                 downsamplings: Tuple[int, ...] = (16, 8, 4),
+                 block: str = 'nonbottleneck1d', n_blocks: int = 3,
+                 fusion: str = 'add-rgb',
+                 fusion_n_channels: Tuple[int, ...] = (),
+                 fusion_downsamplings: Tuple[int, ...] = (16, 8, 4),
+                 norm: str = 'batchnorm', act: str = 'relu',
+                 upsampling: str = 'learned-3x3-zeropad',
+                 prediction_upsampling: str = 'learned-3x3-zeropad',
+                 generator=None):
+        super().__init__()
+        assert len(fusion_n_channels) == len(fusion_downsamplings)
+        self.downsamplings = tuple(downsamplings)
+        self.prediction_upsampling = prediction_upsampling
+        self.norm, self.act = norm, act
+        plan, _ = plan_dense_ladder(downsampling_in, self.downsamplings,
+                                    tuple(fusion_downsamplings))
+        fusion_cfg = parse_encoder_decoder_fusion(fusion)
+        self._fusion_ds = []
+        n_prev = n_channels_in
+        fusion_idx = 0
+        for i, (n_out, p) in enumerate(zip(n_channels, plan)):
+            self.add_module(f'module{i}', DenseDecoderModule(
+                n_prev, n_out, block=block, n_blocks=n_blocks, norm=norm,
+                act=act,
+                upsampling=upsampling if p['do_upsampling'] else None,
+                generator=generator))
+            fds = p['fusion_ds']
+            if fds != -1:
+                self.add_module(f'fusion{fusion_idx}', EncoderDecoderFusion(
+                    fusion_n_channels[fusion_idx], n_out, norm=norm, act=act,
+                    generator=generator, **fusion_cfg))
+                fusion_idx += 1
+            self._fusion_ds.append(fds)
+            n_prev = n_out
+        self.n_channels_last = n_prev
+
+    def apply_task_head(self, x):
+        raise NotImplementedError
+
+    def forward(self, x, skips):
+        """x: (context_features, context_branches); skips:
+        {str(ds): {modality: tensor}}. Returns (main, ())."""
+        x, _ = x
+        fusion_idx = 0
+        for i, fds in enumerate(self._fusion_ds):
+            x = getattr(self, f'module{i}')(x)
+            if fds != -1:
+                x = getattr(self, f'fusion{fusion_idx}')(skips[str(fds)], x)
+                fusion_idx += 1
+        return self.apply_task_head(x), ()

@@ -1,0 +1,95 @@
+"""Task heads (counterpart of nicr_mtsa_tpu/models/decoders/heads.py).
+
+- `TaskHead`: 3x3 conv -> n x2 prediction upsamplings; with
+  `defer_last_upsampling='all'` both upsamplings of a two-step head are
+  returned as a DeferredUpsampling2 (same parameters).
+- `InstanceHead`: shared 3x3 ConvNormAct split into centre (sigmoid),
+  offset (tanh) and orientation (unit length) convs; the concatenated
+  raw maps are upsampled jointly before the activations."""
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..common import Conv2d, ConvNormAct
+from ..upsampling import DeferredUpsampling2, Upsampling
+
+
+def unit_length(x, epsilon: float = 1e-7, dim: int = 1):
+    """Normalise vectors along `dim` (channels) to unit length."""
+    return x / (torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+                + epsilon)
+
+
+class TaskHead(nn.Module):
+    def __init__(self, n_in: int, n_channels_out: int,
+                 upsampling: str = 'learned-3x3-zeropad',
+                 n_upsamplings: int = 0, defer_last_upsampling=False,
+                 generator=None):
+        super().__init__()
+        if defer_last_upsampling is True:
+            raise ValueError(
+                "defer_last_upsampling=True (the single 2x finisher) is "
+                "not ported yet; use False or 'all'")
+        self.defer_all = defer_last_upsampling == 'all'
+        if self.defer_all:
+            assert n_upsamplings == 2, n_upsamplings
+        self.n_upsamplings = n_upsamplings
+        k = 3 if n_upsamplings else 1
+        self.conv = Conv2d(n_in, n_channels_out, k, use_bias=True,
+                           generator=generator)
+        for i in range(n_upsamplings):
+            self.add_module(f'upsample_{i}',
+                            Upsampling(upsampling, n_channels_out))
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.defer_all:
+            u0, u1 = self.upsample_0, self.upsample_1
+            return DeferredUpsampling2(x=x, kernel1=u0.weight,
+                                       bias1=u0.bias, kernel2=u1.weight,
+                                       bias2=u1.bias)
+        for i in range(self.n_upsamplings):
+            x = getattr(self, f'upsample_{i}')(x)
+        return x
+
+
+class InstanceHead(nn.Module):
+    def __init__(self, n_in: int, n_channels_per_task: int = 32,
+                 with_orientation: bool = False, norm: str = 'batchnorm',
+                 act: str = 'relu', upsampling='learned-3x3-zeropad',
+                 n_upsamplings: int = 0, generator=None):
+        super().__init__()
+        n_tasks = 3 if with_orientation else 2
+        npt = self.npt = n_channels_per_task
+        self.with_orientation = with_orientation
+        self.n_upsamplings = n_upsamplings
+        self.shared_conv = ConvNormAct(n_in, n_tasks * npt, 3, norm=norm,
+                                       act=act, generator=generator)
+        k = 3 if n_upsamplings else 1
+        self.conv_center = Conv2d(npt, 1, k, use_bias=True,
+                                  generator=generator)
+        self.conv_offset = Conv2d(npt, 2, k, use_bias=True,
+                                  generator=generator)
+        self.conv_orientation: Optional[Conv2d] = None
+        if with_orientation:
+            self.conv_orientation = Conv2d(npt, 2, k, use_bias=True,
+                                           generator=generator)
+        n_cat = 1 + 2 + (2 if with_orientation else 0)
+        for i in range(n_upsamplings):
+            self.add_module(f'upsample_{i}', Upsampling(upsampling, n_cat))
+
+    def forward(self, x):
+        npt = self.npt
+        x = self.shared_conv(x)
+        outs = [self.conv_center(x[:, 0:npt]),
+                self.conv_offset(x[:, npt:2 * npt])]
+        if self.with_orientation:
+            outs.append(self.conv_orientation(x[:, 2 * npt:3 * npt]))
+        cat = torch.cat(outs, dim=1)
+        for i in range(self.n_upsamplings):
+            cat = getattr(self, f'upsample_{i}')(cat)
+        result = [torch.sigmoid(cat[:, 0:1]), torch.tanh(cat[:, 1:3])]
+        if self.with_orientation:
+            result.append(unit_length(cat[:, 3:5]))
+        return tuple(result)

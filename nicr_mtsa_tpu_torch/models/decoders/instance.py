@@ -1,0 +1,21 @@
+"""Dense instance decoder with centre/offset(/orientation) head
+(counterpart of nicr_mtsa_tpu/models/decoders/instance.py)."""
+from math import log2
+
+from .base import DenseDecoderBase
+from .heads import InstanceHead
+
+
+class InstanceDecoder(DenseDecoderBase):
+    def __init__(self, n_channels_per_task: int = 32,
+                 with_orientation: bool = False, generator=None, **kwargs):
+        super().__init__(generator=generator, **kwargs)
+        self.task_head = InstanceHead(
+            self.n_channels_last, n_channels_per_task=n_channels_per_task,
+            with_orientation=with_orientation, norm=self.norm,
+            act=self.act, upsampling=self.prediction_upsampling,
+            n_upsamplings=int(log2(self.downsamplings[-1])),
+            generator=generator)
+
+    def apply_task_head(self, x):
+        return self.task_head(x)

@@ -1,0 +1,134 @@
+"""Learned-3x3-zeropad x2 upsampling and its deferred two-stage form
+(counterpart of nicr_mtsa_tpu/models/upsampling.py).
+
+`learned-3x3-zeropad` is nearest x2 followed by a zero-padded depthwise
+3x3 conv. Its fused form is one input-dilated depthwise conv with a
+4x4 kernel built from the 3x3 one by exact adds (`_phase_combine`);
+here that conv is a `conv_transpose2d` with the flipped 4x4 kernel.
+
+`DeferredUpsampling2` carries the semantic head's two prediction
+upsamplings as data, so postprocessing can fuse them with the argmax
+and score reduction (ops/cuda/finisher4x.py). `finisher4x_logits_exact`
+is the dense form with that kernel's exact rounding order. All
+tensors here are NCHW; depthwise kernels are (C, 1, 3, 3)."""
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .common import cached_weight
+
+_BILINEAR_KERNEL = ((0.0625, 0.1250, 0.0625),
+                    (0.1250, 0.2500, 0.1250),
+                    (0.0625, 0.1250, 0.0625))
+
+
+class DeferredUpsampling2(NamedTuple):
+    """Two chained learned-3x3-zeropad x2 upsamplings captured as data."""
+    x: torch.Tensor                  # (B, C, H, W) quarter-res logits
+    kernel1: torch.Tensor            # (C, 1, 3, 3) f32
+    bias1: Optional[torch.Tensor]    # (C,) f32 or None
+    kernel2: torch.Tensor
+    bias2: Optional[torch.Tensor]
+
+
+def _phase_combine(k, dim: int):
+    """Kernel axis of 3 -> the 4 zeropad-x2 phase rows
+    [K0, K0+K1, K1+K2, K2], built with exact adds (never a matmul)."""
+    k0, k1, k2 = (k.narrow(dim, i, 1) for i in range(3))
+    return torch.cat([k0, k0 + k1, k1 + k2, k2], dim=dim)
+
+
+def fused_zeropad_2x_kernel(kernel):
+    """(C, 1, 3, 3) depthwise kernel -> the fused (C, 1, 4, 4) kernel
+    of the input-dilated one-conv form; rows first, then columns, in
+    f32 (the JAX package's order)."""
+    return _phase_combine(_phase_combine(kernel.float(), 2), 3)
+
+
+def _round(t, dt):
+    """Round f32 values to the compute dtype and back to f32."""
+    return t.to(dt).float()
+
+
+def _bias_f32(bias, C, dt, device):
+    if bias is None:
+        return torch.zeros(1, C, 1, 1, device=device)
+    return _round(bias, dt).view(1, C, 1, 1)
+
+
+def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2):
+    """Dense (B, C, 4H, 4W) logits with the 4x finisher's exact
+    numerics: per output phase, the four taps multiplied and summed in
+    f32 in (a, b) order; rounded to x's dtype; the (rounded) bias added
+    in f32; at stage 1 the zero-pad ring of stage 2 applied after the
+    bias; rounded again. Returns x's dtype."""
+    B, C, H, W = x.shape
+    dt = x.dtype
+    k1t = _round(fused_zeropad_2x_kernel(kernel1)[:, 0], dt)  # (C, 4, 4)
+    k2t = _round(fused_zeropad_2x_kernel(kernel2)[:, 0], dt)
+    b1 = _bias_f32(bias1, C, dt, x.device)
+    b2 = _bias_f32(bias2, C, dt, x.device)
+    xp = F.pad(x, (1, 1, 1, 1)).float()
+
+    def tap(k, i, j):
+        return k[:, i, j].view(1, C, 1, 1)
+
+    # stage 1 incl. the stage-2 halo ring: phase (py, px) at H+1 rows
+    # and W+1 cols lands on inter[2r + 1 - py, 2s + 1 - px]
+    inter = x.new_empty((B, C, 2 * H + 2, 2 * W + 2), dtype=torch.float32)
+    for py in (0, 1):
+        for px in (0, 1):
+            acc = None
+            for a in (0, 1):
+                for b in (0, 1):
+                    t = tap(k1t, 2 * a + py, 2 * b + px) \
+                        * xp[:, :, a:a + H + 1, b:b + W + 1]
+                    acc = t if acc is None else acc + t
+            inter[:, :, 1 - py::2, 1 - px::2] = acc
+    inter = _round(inter, dt) + b1
+    inter[:, :, 0] = 0.0
+    inter[:, :, -1] = 0.0
+    inter[:, :, :, 0] = 0.0
+    inter[:, :, :, -1] = 0.0
+    inter = _round(inter, dt)
+
+    # stage 2: phase (qy, qx) reads inter[qy + c + u, qx + d + v]
+    out = x.new_empty((B, C, 4 * H, 4 * W))
+    for qy in (0, 1):
+        for qx in (0, 1):
+            acc = None
+            for c in (0, 1):
+                for d in (0, 1):
+                    t = tap(k2t, 2 * c + qy, 2 * d + qx) \
+                        * inter[:, :, qy + c:qy + c + 2 * H,
+                                qx + d:qx + d + 2 * W]
+                    acc = t if acc is None else acc + t
+            out[:, :, qy::2, qx::2] = (_round(acc, dt) + b2).to(dt)
+    return out
+
+
+class Upsampling(nn.Module):
+    """learned-3x3-zeropad x2 upsampling (nearest x2 + zero-padded
+    depthwise 3x3 + bias, as one conv_transpose2d with the flipped fused
+    4x4 kernel); weight (C, 1, 3, 3) initialised to the bilinear kernel,
+    bias zero."""
+
+    def __init__(self, mode: str, n_channels: int, use_bias: bool = True):
+        super().__init__()
+        if mode != 'learned-3x3-zeropad':
+            raise ValueError(f"Unsupported upsampling in this port: "
+                             f"'{mode}'")
+        k = torch.tensor(_BILINEAR_KERNEL, dtype=torch.float32)
+        self.weight = nn.Parameter(
+            k.view(1, 1, 3, 3).repeat(n_channels, 1, 1, 1))
+        self.bias = (nn.Parameter(torch.zeros(n_channels)) if use_bias
+                     else None)
+
+    def forward(self, x):
+        dt = x.dtype
+        kt = cached_weight(self, 'weight', dt,
+                           lambda w: fused_zeropad_2x_kernel(w).flip(2, 3))
+        return F.conv_transpose2d(x, kt, cached_weight(self, 'bias', dt),
+                                  stride=2, padding=1, groups=x.shape[1])

@@ -1,0 +1,117 @@
+"""Isolation of the PyTorch/CUDA port (nicr_mtsa_tpu_torch): it and
+chip_smoke.py import neither JAX (jax, flax, optax) nor the JAX
+package; its CUDA kernel wrappers never fall back to the plain version
+for a CUDA tensor; chip_smoke.py fails without a card or without the
+rest of the repo."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / 'nicr_mtsa_tpu_torch'
+FORBIDDEN = ('jax', 'flax', 'optax', 'jaxlib', 'nicr_mtsa_tpu')
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + '.') for f in FORBIDDEN)
+
+
+def _sources():
+    return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        'import importlib, pkgutil, sys\n'
+        'import nicr_mtsa_tpu_torch as p\n'
+        'for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):\n'
+        '    importlib.import_module(m.name)\n'
+        'bad = [n for n in sys.modules if n in ("jax", "flax", "optax")\n'
+        '       or n == "nicr_mtsa_tpu" or n.startswith("nicr_mtsa_tpu.")\n'
+        '       or n.startswith(("jax.", "flax.", "optax."))]\n'
+        'print(len([n for n in sys.modules\n'
+        '           if n.startswith("nicr_mtsa_tpu_torch")]))\n'
+        'assert not bad, bad\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) > 25      # every submodule imported
+
+
+@pytest.mark.parametrize('path', _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or '']
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f'{path.name}:{node.lineno} imports {bad}'
+
+
+def _no_library(monkeypatch, tmp_path, module):
+    """Pretend CPU tensors are CUDA tensors and that no kernel library
+    is built and nvcc is absent."""
+    from nicr_mtsa_tpu_torch.ops.cuda import _build
+    monkeypatch.setattr(module, 'is_cuda_tensor', lambda t: True)
+    monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path)
+    monkeypatch.setattr(_build, '_LIBS', {})
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path / 'no-cuda'))
+    monkeypatch.setattr(shutil, 'which', lambda name: None)
+
+
+def test_finisher_raises_without_library(monkeypatch, tmp_path):
+    from nicr_mtsa_tpu_torch.ops.cuda import finisher4x as fin
+    _no_library(monkeypatch, tmp_path, fin)
+    x = torch.zeros(1, 3, 2, 2)
+    k = torch.zeros(3, 1, 3, 3)
+    before = fin.upsample4x_argmax_score.launches
+    with pytest.raises(RuntimeError, match='nvcc'):
+        fin.upsample4x_argmax_score(x, k, None, k, None)
+    assert fin.upsample4x_argmax_score.launches == before
+
+
+def test_grouping_raises_without_library(monkeypatch, tmp_path):
+    from nicr_mtsa_tpu_torch.ops.cuda import grouping as grp
+    _no_library(monkeypatch, tmp_path, grp)
+    before = grp.group_pixels_kernel.launches
+    with pytest.raises(RuntimeError, match='nvcc'):
+        grp.group_pixels_kernel(
+            torch.zeros(1, 8), torch.zeros(1, 8), torch.zeros(1, 2, 2),
+            torch.ones(1, 2, dtype=torch.bool),
+            torch.ones(1, 8, dtype=torch.bool))
+    assert grp.group_pixels_kernel.launches == before
+
+
+def _run_chip_smoke(cwd):
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    env['CUDA_VISIBLE_DEVICES'] = ''
+    return subprocess.run([sys.executable, 'chip_smoke.py'], cwd=str(cwd),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_card():
+    res = _run_chip_smoke(ROOT)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / 'chip_smoke.py', tmp_path / 'chip_smoke.py')
+    res = _run_chip_smoke(tmp_path)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
