@@ -1,24 +1,37 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--requests N] [--profile]
+    python3 chip_smoke.py [--requests N] [--steps N] [--profile]
 
-Drives the port's serving path (nicr_mtsa_tpu_torch) end to end on the
-card, in phases; any failure exits non-zero and prints no result:
+Drives the port (nicr_mtsa_tpu_torch) end to end on the card, in
+phases; any failure exits non-zero and prints no result:
 
 1. report the card (nvidia-smi name and power limit), build every CUDA
    kernel from nicr_mtsa_tpu_torch/ops/cuda/csrc (one nvcc per source,
    in parallel), pin f32 convs and matmuls to full precision;
 2. hold each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (finisher idx exact and score within rtol
-   1e-5; grouping ids and min_d2 exact) and time both (median of CUDA
-   event timings); check that centre selection and the merge resolve
-   tied inputs on the card exactly as on the CPU;
+   the shapes its path gives it (idx, ids, min_d2 and counts exact,
+   scores within rtol 1e-5; the intersection also against
+   torch.bincount), tied and edge inputs included, and time both
+   (median of CUDA event timings); check that centre selection and the
+   merge resolve tied inputs on the card exactly as on the CPU;
 3. serve the full-width `emsanet-bench` EMSANet (2x ResNet-34 NBt1D,
    480 x 640, bf16, random weights from a seed) on B=8 uint8/uint16
    requests, with the launch counters set to 0 just before and read
-   just after: both kernels must have run;
+   just after: the finisher and the grouping must have run;
 4. run the same pipeline in f32 on one frame on the card and on the
-   CPU with identical weights: semantic_idx must agree on >= 99.9 %.
+   CPU with identical weights: semantic_idx must agree on >= 99.9 %;
+5. run the fused eval step of `bench.py --eval` (the same model with
+   the semantic upsampling in the head, 40 classes of which 8 things,
+   top-k 64, segment table 128) on a synthetic B=8 batch (480 x 640,
+   ground truth at 512 x 512), three timed rounds of N steps with the
+   metric states carried across steps and the counters set to 0 just
+   before: the crop+resize+reduce, the score/argmax reduce and the
+   intersection histogram must have run in every step (1, 1 and 2
+   launches a step), and mIoU, PQ and the scene accuracy from the
+   states must lie in [0, 1];
+6. postprocess and update the metric states of the card's raw eval
+   outputs (B=2) on the card and on the CPU: integer states equal,
+   float sums within rtol 1e-5.
 
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
@@ -37,6 +50,12 @@ import torch
 # cores and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+SERVING_KERNELS = ('finisher4x', 'grouping')
+# launches of each eval kernel in one fused eval step: the working- and
+# the full-resolution semantic reduce, and one intersection histogram
+# for each of the two PQ helpers (panoptic, instance)
+EVAL_KERNELS = {'resize_reduce': 1, 'semantic_reduce': 1,
+                'intersection': 2}
 
 
 def fail(msg: str) -> None:
@@ -172,6 +191,154 @@ def check_grouping(grp, report):
           flush=True)
 
 
+def _eval_logits(seed):
+    """(8, 40, 480, 640) bf16 logits, NCHW and channels-last (the
+    layout of the eval model's head on the card)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    x = (torch.randn(8, 40, 480, 640, device='cuda', generator=g) * 3
+         ).to(torch.bfloat16)
+    return x, x.contiguous(memory_format=torch.channels_last)
+
+
+def _tied_logits():
+    """Classes 2 and 5 equal and largest everywhere: 2 must win."""
+    xt = torch.zeros(2, 8, 48, 64, device='cuda', dtype=torch.bfloat16)
+    xt[:, 2] = 1.5
+    xt[:, 5] = 1.5
+    return xt
+
+
+def _same(name, got, want):
+    (i_k, s_k), (i_r, s_r) = got, want
+    n_bad = int((i_k != i_r).sum())
+    if n_bad:
+        fail(f'{name}: {n_bad} idx differ from the plain version')
+    torch.testing.assert_close(s_k, s_r, rtol=1e-5, atol=0)
+    return float((s_k - s_r).abs().max())
+
+
+def _reduce_ops(n_values, n_px, per_value):
+    # per class value: `per_value` f32 operations (taps, lerps) plus
+    # compare, subtract, exp and add; per pixel one divide
+    return n_values * (per_value + 4) + n_px
+
+
+def check_semantic_reduce(sr, report):
+    """Row 6 at the eval model's working-resolution logits."""
+    x, x_cl = _eval_logits(3)
+    err = 0.0
+    for xx in (x, x_cl, x.float()):
+        got = sr.semantic_argmax_score(xx)
+        torch.cuda.synchronize()
+        err = max(err, _same('semantic_reduce', got,
+                             sr.semantic_argmax_score_reference(xx)))
+    i_k, _ = sr.semantic_argmax_score(_tied_logits())
+    torch.cuda.synchronize()
+    if not bool((i_k == 2).all()):
+        fail('semantic_reduce: tied classes did not resolve to the first '
+             'index')
+    ms = cuda_ms(lambda: sr.semantic_argmax_score(x_cl))
+    plain_ms = cuda_ms(lambda: sr.semantic_argmax_score_reference(x_cl))
+    B, C, H, W = x.shape
+    P = B * H * W
+    b_ms, b_by = bound(x.numel() * 2 + P * 8,
+                       _reduce_ops(x.numel(), P, 0))
+    report['semantic_reduce'] = dict(
+        name='semantic_reduce', route='cuda',
+        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/semantic_reduce.cu',
+        replaces='nicr_mtsa_tpu/ops/pallas/semantic_reduce.py:42',
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    print(json.dumps({'phase': 'kernel', **report['semantic_reduce']}),
+          flush=True)
+
+
+def check_resize_reduce(rr, report):
+    """Row 5: the eval logits cropped (whole, and rows 16:464) and
+    resized to 512 x 512; times the channels-last whole crop (the eval
+    path's call)."""
+    x, x_cl = _eval_logits(4)
+    full = (slice(0, 480), slice(0, 640))
+    err = 0.0
+    for xx, crop in ((x, full), (x_cl, full),
+                     (x_cl, (slice(16, 464), slice(0, 640))),
+                     (x.float(), full)):
+        got = rr.crop_resize_argmax_score(xx, crop, 512, 512)
+        torch.cuda.synchronize()
+        err = max(err, _same('resize_reduce', got,
+                             rr.crop_resize_argmax_score_reference(
+                                 xx, crop, 512, 512)))
+    i_k, _ = rr.crop_resize_argmax_score(
+        _tied_logits(), (slice(0, 48), slice(0, 64)), 64, 80)
+    torch.cuda.synchronize()
+    if not bool((i_k == 2).all()):
+        fail('resize_reduce: tied classes did not resolve to the first '
+             'index')
+    ms = cuda_ms(lambda: rr.crop_resize_argmax_score(x_cl, full, 512, 512))
+    plain_ms = cuda_ms(lambda: rr.crop_resize_argmax_score_reference(
+        x_cl, full, 512, 512))
+    P = 8 * 512 * 512
+    # per output value: 4 taps and 3 lerps (3 operations each) in each
+    # of the two class passes
+    b_ms, b_by = bound(x.numel() * 2 + P * 8,
+                       _reduce_ops(P * 40, P, 2 * 9))
+    report['resize_reduce'] = dict(
+        name='resize_reduce', route='cuda',
+        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/resize_reduce.cu',
+        replaces='nicr_mtsa_tpu/ops/pallas/resize_reduce.py:252',
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    print(json.dumps({'phase': 'kernel', **report['resize_reduce']}),
+          flush=True)
+
+
+def check_intersection(it, report):
+    """Row 11: two random slot maps (8, 512 * 512) in [0, 128], one
+    with every pixel in one bin (all atomics on one address), one with
+    out-of-range slots (not counted); exact against the plain version
+    and torch.bincount. Times the random case."""
+    g = torch.Generator(device='cuda').manual_seed(5)
+    B, P, n = 8, 512 * 512, 128
+    gt = torch.randint(0, n + 1, (B, P), device='cuda', generator=g,
+                       dtype=torch.int32)
+    pred = torch.randint(0, n + 1, (B, P), device='cuda', generator=g,
+                         dtype=torch.int32)
+
+    def bincount(a, b):
+        G = n + 1
+        ok = (a >= 0) & (a <= n) & (b >= 0) & (b <= n)
+        img = torch.arange(B, device='cuda')[:, None] * (G * G)
+        cell = torch.where(ok, img + a.long() * G + b.long(), B * G * G)
+        return torch.bincount(cell.reshape(-1), minlength=B * G * G + 1
+                              )[:-1].view(B, G, G)
+
+    cases = [(gt, pred), (torch.full_like(gt, 7), torch.full_like(pred, 3)),
+             (gt - 1, pred + 1)]
+    for i, (a, b) in enumerate(cases):
+        got = it.intersection_matrix_kernel(a, b, n, n)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, it.intersection_matrix_reference(a, b, n, n))
+                and torch.equal(got, bincount(a, b).float())):
+            fail(f'intersection case {i}: counts differ from the plain '
+                 f'version or torch.bincount')
+    if int(it.intersection_matrix_kernel(*cases[1], n, n)[:, 7, 3].min()) \
+            != P:
+        fail('intersection: the one-bin case lost counts')
+    ms = cuda_ms(lambda: it.intersection_matrix_kernel(gt, pred, n, n))
+    plain_ms = cuda_ms(lambda: it.intersection_matrix_reference(
+        gt, pred, n, n))
+    library_ms = cuda_ms(lambda: bincount(gt, pred))
+    b_ms, b_by = bound(2 * B * P * 4 + B * (n + 1) ** 2 * 4, 2 * B * P)
+    report['intersection'] = dict(
+        name='intersection', route='cuda',
+        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/intersection.cu',
+        replaces='nicr_mtsa_tpu/ops/pallas/intersection_kernel.py:60',
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms)
+    print(json.dumps({'phase': 'kernel', **report['intersection']}),
+          flush=True)
+
+
 def check_ties():
     """First-index tie-breaks on the card: the centre table of a
     heatmap full of tied maxima and the merge's majority vote equal
@@ -251,7 +418,7 @@ def serve(args, kernels, card, result):
             out = pipe(rgb_t, depth_t)
         int(out['panoptic'][0, 0, 0])
         rounds.append(B * args.requests / (time.perf_counter() - t0))
-    launches = {n: fn.launches for n, fn in kernels.KERNELS.items()}
+    launches = {n: kernels.KERNELS[n].launches for n in SERVING_KERNELS}
     check_outputs(out, B, 480, 640, 40)
     for n, c in launches.items():
         if c == 0:
@@ -269,13 +436,13 @@ def serve(args, kernels, card, result):
                       'requests': 3 * args.requests,
                       'launches': launches, 'card': card}), flush=True)
     if args.profile:
-        profile(pipe, rgb_t, depth_t, result)
+        profile(lambda: pipe(rgb_t, depth_t), result, 'serving')
     return launches
 
 
-def profile(pipe, rgb_t, depth_t, result):
-    """Device time by kernel over N requests (torch.profiler), the
-    host wall time of the same requests, and the device's idle share.
+def profile(fn, result, key):
+    """Device time by kernel over 3 calls of fn (torch.profiler), the
+    host wall time of the same calls, and the device's idle share.
     Only device events are summed: the CPU ops' rows repeat the time
     of the kernels they launch."""
     from torch.autograd import DeviceType
@@ -286,10 +453,9 @@ def profile(pipe, rgb_t, depth_t, result):
                           ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
         for _ in range(n):
-            out = pipe(rgb_t, depth_t)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    del out
     rows = []
     n_cpu_ops = 0
     for e in p.key_averages():
@@ -300,14 +466,14 @@ def profile(pipe, rgb_t, depth_t, result):
             n_cpu_ops += e.count
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    result['profile_per_request'] = {
+    result[f'profile_{key}'] = {
         'device_busy_ms': busy, 'wall_ms_under_profiler': wall_ms,
         'idle_share': 1.0 - busy / wall_ms,
         'kernel_launches': sum(r[2] for r in rows),
         'aten_op_events_nested': n_cpu_ops / n,
         'top': [{'ms': r[0], 'name': r[1][:160], 'calls': r[2]}
                 for r in rows[:40]]}
-    print(json.dumps({'phase': 'profile', 'device_busy_ms': busy,
+    print(json.dumps({'phase': f'profile_{key}', 'device_busy_ms': busy,
                       'wall_ms': wall_ms, 'idle_share': 1 - busy / wall_ms,
                       'top5': [[round(r[0], 3), r[1][:60]]
                                for r in rows[:5]]}), flush=True)
@@ -337,12 +503,128 @@ def card_vs_cpu(result):
         fail(f"semantic_idx card vs CPU agreement {agree['semantic_idx']}")
 
 
+EVAL_LOG_KEYS = ('semantic_miou', 'panoptic_deeplab_semantic_miou',
+                 'panoptic_all_deeplab_pq', 'instance_all_deeplab_pq',
+                 'scene_acc')
+IS_THING = tuple(i < 8 for i in range(40))
+
+
+def evaluate(args, kernels, card, result):
+    """The fused eval step at B=8: one warm-up step, then three timed
+    rounds of N steps carrying the metric states, each round ending in
+    a device sync on a state scalar; frames/s is the median round."""
+    from nicr_mtsa_tpu_torch.pipeline import build_eval_pipeline
+    from nicr_mtsa_tpu_torch.testing import build_eval_batch
+    B = 8
+    pipe = build_eval_pipeline(device='cuda', seed=0)
+    eb = build_eval_batch(B, (480, 640), (512, 512), 40, IS_THING, seed=0,
+                          segment_table_size=128, device='cuda')
+    if eb.segment_table_overflow:
+        fail(f'eval batch: {eb.segment_table_overflow} GT segments did '
+             f'not fit into the segment tables')
+    step = pipe.make_fused_eval_step(eb.static_batch)
+    _, losses, states = step(eb.batch, pipe.empty_metric_states())
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            _, losses, states = step(eb.batch, states)
+        int(states['semantic'][0, 0])
+        rounds.append(B * args.steps / (time.perf_counter() - t0))
+    n_steps = 3 * args.steps
+    launches = {n: fn.launches for n, fn in kernels.KERNELS.items()}
+    for n, per_step in EVAL_KERNELS.items():
+        if launches[n] != per_step * n_steps:
+            fail(f'kernel {n}: {launches[n]} launches in {n_steps} eval '
+                 f'steps, expected {per_step} in every step')
+    bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
+    if bad:
+        fail(f'eval losses not finite: {bad}')
+    pipe.load_metric_states(states)
+    _, _, logs = pipe.validation_epoch_end()
+    metrics = {k: float(logs[k]) for k in EVAL_LOG_KEYS}
+    for k, v in metrics.items():
+        if not (np.isfinite(v) and 0.0 <= v <= 1.0):
+            fail(f'eval metric {k} = {v} not in [0, 1]')
+    fps = float(np.median(rounds))
+    result['eval'] = dict(
+        batch=B, steps_per_round=args.steps, rounds_frames_per_s=rounds,
+        frames_per_s=fps, card=card,
+        launches_per_step={n: c / n_steps for n, c in launches.items()},
+        metrics=metrics, losses={k: float(v) for k, v in losses.items()},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps({'phase': 'eval', 'frames_per_s': fps,
+                      'rounds_frames_per_s': rounds, 'batch': B,
+                      'steps': n_steps,
+                      'launches_per_step': result['eval'][
+                          'launches_per_step'],
+                      'metrics': metrics, 'card': card}), flush=True)
+    if args.profile:
+        profile(lambda: step(eb.batch, states), result, 'eval')
+    return launches, pipe
+
+
+def _states_equal(card, cpu, name=''):
+    """Integer states (and the f32 TP/FN/FP counts) exactly, the f32
+    IoU and angular-error sums within rtol 1e-5."""
+    if isinstance(card, dict):
+        for k in card:
+            _states_equal(card[k], cpu[k], f'{name}/{k}')
+        return
+    card = card.cpu()
+    if name.endswith(('iou_per_class', 'sum_angular_error')):
+        torch.testing.assert_close(card, cpu, rtol=1e-5, atol=0,
+                                   msg=lambda m: f'{name}: {m}')
+    elif not torch.equal(card, cpu):
+        fail(f'eval card vs CPU: state {name} differs')
+
+
+def eval_card_vs_cpu(pipe, result):
+    """The card's raw eval outputs (bf16, B=2), postprocessed with
+    their metric states updated on the card and, copied, on the CPU."""
+    from nicr_mtsa_tpu_torch.testing import build_eval_batch
+    eb = build_eval_batch(2, (480, 640), (512, 512), 40, IS_THING, seed=1,
+                          device='cuda')
+    batch = dict(eb.batch, **eb.static_batch)
+    with torch.inference_mode():
+        raw = pipe.model(pipe.model_inputs(batch))
+        _, _, on_card = pipe.evaluate_outputs(raw, batch,
+                                              pipe.empty_metric_states())
+
+        def cpu(t):
+            if isinstance(t, torch.Tensor):
+                return t.cpu()
+            if isinstance(t, (tuple, list)):
+                return type(t)(cpu(v) for v in t)
+            return t
+        raw_cpu = {k: cpu(v) for k, v in raw.items()}
+        batch_cpu = {k: cpu(v) for k, v in batch.items()}
+        _, _, on_cpu = pipe.evaluate_outputs(
+            raw_cpu, batch_cpu, pipe.empty_metric_states('cpu'))
+    _states_equal(on_card, on_cpu)
+    counts = {'semantic_pixels': int(on_cpu['semantic'].sum()),
+              'panoptic_tp': float(on_cpu['panoptic']['pq'][
+                  'tp_per_class'].sum()),
+              'instance_tp': float(on_cpu['instance']['pq'][
+                  'tp_per_class'].sum())}
+    result['eval_card_vs_cpu'] = dict(states='equal', **counts)
+    print(json.dumps({'phase': 'eval_card_vs_cpu', 'states': 'equal',
+                      **counts}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=10,
                     help='requests per timed round (3 rounds)')
+    ap.add_argument('--steps', type=int, default=5,
+                    help='eval steps per timed round (3 rounds)')
     ap.add_argument('--profile', action='store_true',
-                    help='also trace two requests with torch.profiler')
+                    help='also trace 3 requests and 3 eval steps with '
+                         'torch.profiler')
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -352,7 +634,9 @@ def main():
     t_start = time.perf_counter()
 
     from nicr_mtsa_tpu_torch.ops import cuda as kernels
-    from nicr_mtsa_tpu_torch.ops.cuda import _build, finisher4x, grouping
+    from nicr_mtsa_tpu_torch.ops.cuda import (_build, finisher4x, grouping,
+                                              intersection, resize_reduce,
+                                              semantic_reduce)
     build_s = kernels.build_all()
     print(json.dumps({'phase': 'build', 'seconds': build_s}), flush=True)
     torch.backends.cudnn.allow_tf32 = False
@@ -364,12 +648,19 @@ def main():
               'ptxas': dict(_build.BUILD_LOGS)}
     check_finisher(finisher4x, report)
     check_grouping(grouping, report)
+    check_semantic_reduce(semantic_reduce, report)
+    check_resize_reduce(resize_reduce, report)
+    check_intersection(intersection, report)
     check_ties()
     launches = serve(args, kernels, card, result)
     card_vs_cpu(result)
+    eval_launches, pipe = evaluate(args, kernels, card, result)
+    eval_card_vs_cpu(pipe, result)
 
+    # each kernel's launches from the run of its own path
+    launches.update({n: eval_launches[n] for n in EVAL_KERNELS})
     line = {'kernels': [dict(report[n], launches=launches[n])
-                        for n in ('finisher4x', 'grouping')]}
+                        for n in (*SERVING_KERNELS, *EVAL_KERNELS)]}
     result['kernels'] = line['kernels']
     result['seconds'] = time.perf_counter() - t_start
     os.makedirs('chiprun_out', exist_ok=True)

@@ -1,0 +1,178 @@
+"""Host-side (numpy) target generation of the eval batch: own copies of
+the JAX package's generators, so that the port needs no JAX to build
+an eval batch. Counterparts, at the main scale only (the eval forward
+pass has no side outputs):
+
+- `instance_targets`: data/preprocessing/instance.py
+  `InstanceTargetGenerator` (Gaussian centre heatmap, offsets to the
+  centre, foreground and centre-loss masks),
+- `orientation_targets`: data/preprocessing/orientation.py
+  `OrientationTargetGenerator` (dense biternions + foreground),
+- `naive_merge_semantic_and_instance_np`: ops/merge_np.py,
+- `panoptic_fullres_targets`: the full-resolution part of
+  data/preprocessing/panoptic.py `PanopticTargetGenerator` (panoptic
+  map, sorted segment table, per-slot GT angles), which also reports
+  how many ids the table could not hold: the JAX generator truncates
+  silently."""
+from collections import Counter
+from typing import Dict, NamedTuple
+
+import numpy as np
+
+SEGMENT_TABLE_PAD = 2 ** 31 - 1
+MAX_INSTANCES_PER_CATEGORY = 1 << 16
+
+
+def _gaussian_patch(sigma: int) -> np.ndarray:
+    """(6*sigma+3)^2 splat, peak 1.0 at the centre (3*sigma+1)."""
+    c = 3 * sigma + 1
+    dy, dx = np.ogrid[-c:c + 1, -c:c + 1]
+    return np.exp((dy * dy + dx * dx) / (-2.0 * sigma * sigma))
+
+
+def instance_targets(instance: np.ndarray, semantic: np.ndarray,
+                     is_thing_with_void, sigma: int = 8,
+                     normalized_offset: bool = True) -> dict:
+    """{'instance_center' (H, W) f32, 'instance_offset' (H, W, 2),
+    'instance_foreground', 'instance_center_mask' (H, W) bool} of one
+    sample; instances whose majority class is stuff are skipped."""
+    is_thing = np.asarray(is_thing_with_void, dtype=bool)
+    thing_ids = np.flatnonzero(is_thing)
+    stuff_ids = np.flatnonzero(~is_thing)[1:]          # without void
+    height, width = instance.shape
+    ids, inverse = np.unique(instance, return_inverse=True)
+    inverse = inverse.reshape(height, width)
+    n_seg = len(ids)
+    counts = np.bincount(inverse.ravel(), minlength=n_seg)
+
+    sem = np.asarray(semantic)
+    n_classes = int(sem.max()) + 1
+    hist = np.bincount(
+        inverse.ravel() * n_classes + sem.ravel().astype(np.int64),
+        minlength=n_seg * n_classes).reshape(n_seg, n_classes)
+    is_instance_seg = (ids != 0) & np.isin(hist.argmax(axis=1), thing_ids)
+
+    # centre = int(mean(y)), int(mean(x)) per segment
+    yy, xx = np.meshgrid(np.arange(height), np.arange(width),
+                         indexing='ij')
+    safe_counts = np.maximum(counts, 1)
+    center_y = (np.bincount(inverse.ravel(), weights=yy.ravel(),
+                            minlength=n_seg) / safe_counts).astype(np.int64)
+    center_x = (np.bincount(inverse.ravel(), weights=xx.ravel(),
+                            minlength=n_seg) / safe_counts).astype(np.int64)
+
+    foreground = is_instance_seg[inverse]
+    offset = np.zeros((height, width, 2), dtype='int16')
+    offset[..., 0] = np.where(foreground, center_y[inverse] - yy, 0)
+    offset[..., 1] = np.where(foreground, center_x[inverse] - xx, 0)
+
+    center = np.zeros((height, width), dtype='float32')
+    gauss = _gaussian_patch(sigma)
+    reach = 3 * sigma + 1
+    for seg_idx in np.nonzero(is_instance_seg)[0]:
+        cy, cx = int(center_y[seg_idx]), int(center_x[seg_idx])
+        y0, y1 = max(cy - reach, 0), min(cy + reach + 1, height)
+        x0, x1 = max(cx - reach, 0), min(cx + reach + 1, width)
+        if y0 >= y1 or x0 >= x1:
+            continue
+        py, px = y0 - (cy - reach), x0 - (cx - reach)
+        patch = gauss[py:py + (y1 - y0), px:px + (x1 - x0)]
+        np.maximum(center[y0:y1, x0:x1], patch, out=center[y0:y1, x0:x1])
+
+    if normalized_offset:
+        offset = offset.astype('float32')
+        offset[..., 0] /= height
+        offset[..., 1] /= width
+    return {'instance_center': center, 'instance_offset': offset,
+            'instance_foreground': foreground,
+            'instance_center_mask': foreground | np.isin(semantic,
+                                                         stuff_ids)}
+
+
+def orientation_targets(instance: np.ndarray, semantic: np.ndarray,
+                        orientations: Dict[int, float],
+                        estimate_orientation_with_void) -> dict:
+    """{'orientation' (H, W, 2) f32 (cos, sin), 'orientation_foreground'
+    (H, W) bool} of one sample: annotated instances whose majority
+    class estimates an orientation."""
+    ids, inverse = np.unique(instance, return_inverse=True)
+    slot_img = inverse.reshape(instance.shape)
+    eligible = np.array([bool(i) and i in orientations for i in ids],
+                        dtype=bool)
+    if eligible.any():
+        n_classes = int(semantic.max()) + 1 if semantic.size else 1
+        joint = np.bincount(
+            slot_img.ravel().astype(np.int64) * n_classes
+            + semantic.ravel().astype(np.int64),
+            minlength=len(ids) * n_classes).reshape(len(ids), n_classes)
+        eligible &= np.isin(joint.argmax(axis=1), np.flatnonzero(
+            estimate_orientation_with_void))
+    angles = np.array([orientations.get(i, 0.0) if keep else 0.0
+                       for i, keep in zip(ids, eligible)], dtype=np.float32)
+    lut = np.stack([np.cos(angles), np.sin(angles)],
+                   axis=-1).astype(np.float32)
+    lut[~eligible] = 0.0
+    return {'orientation': lut[slot_img],
+            'orientation_foreground': eligible[slot_img]}
+
+
+def naive_merge_semantic_and_instance_np(sem_seg, ins_seg,
+                                         max_instances_per_category: int,
+                                         thing_ids, void_label: int = 0):
+    """(panoptic uint32, {panoptic id: instance id}): an instance that
+    covers several classes is split per class; stuff on instance-free
+    pixels gets class * M."""
+    pan_seg = np.zeros_like(sem_seg, dtype=np.uint32) + void_label
+    tracker: Counter = Counter()
+    id_dict: Dict[int, int] = {}
+    thing_id_set = set(int(t) for t in thing_ids)
+    for ins_id in np.unique(ins_seg):
+        if ins_id == 0:
+            continue
+        thing_mask = ins_seg == ins_id
+        for class_id in np.unique(sem_seg[thing_mask]):
+            if class_id == 0:
+                continue
+            class_id = np.uint32(class_id)
+            tracker[int(class_id)] += 1                 # first id is 1
+            panoptic_id = class_id * max_instances_per_category \
+                + tracker[int(class_id)]
+            id_dict[int(panoptic_id)] = int(ins_id)
+            pan_seg[(sem_seg == class_id) & thing_mask] = panoptic_id
+    for class_id in np.unique(sem_seg):
+        if class_id == 0 or int(class_id) in thing_id_set:
+            continue
+        class_id = np.uint32(class_id)
+        pan_seg[(sem_seg == class_id) & (ins_seg == 0)] = \
+            class_id * max_instances_per_category
+    return pan_seg, id_dict
+
+
+class PanopticTargets(NamedTuple):
+    panoptic: np.ndarray           # (H, W) uint32 panoptic ids
+    segment_table: np.ndarray      # (S,) int64 sorted, PAD-padded
+    angle_table: np.ndarray        # (S,) f32 GT angle per slot
+    angle_table_valid: np.ndarray  # (S,) bool
+    overflow: int                  # ids the table could not hold
+
+
+def panoptic_fullres_targets(semantic: np.ndarray, instance: np.ndarray,
+                             is_thing_with_void,
+                             orientations: Dict[int, float],
+                             table_size: int) -> PanopticTargets:
+    """Full-resolution panoptic targets of one sample."""
+    pan, id_dict = naive_merge_semantic_and_instance_np(
+        semantic, instance.astype(np.uint16), MAX_INSTANCES_PER_CATEGORY,
+        np.flatnonzero(np.asarray(is_thing_with_void)))
+    ids = np.unique(pan).astype(np.int64)
+    table = np.full((table_size,), SEGMENT_TABLE_PAD, dtype=np.int64)
+    table[:min(len(ids), table_size)] = ids[:table_size]
+    angles = np.zeros((table_size,), np.float32)
+    valid = np.zeros((table_size,), bool)
+    for slot, pan_id in enumerate(table):
+        ins_id = id_dict.get(int(pan_id))
+        if ins_id is not None and ins_id in orientations:
+            angles[slot] = float(orientations[ins_id])
+            valid[slot] = True
+    return PanopticTargets(pan, table, angles, valid,
+                           max(0, len(ids) - table_size))

@@ -1,0 +1,71 @@
+"""Losses, forward only, as the eval step computes them (counterpart of
+nicr_mtsa_tpu/losses/). A loss maps per-scale (input, target) pairs to
+(loss_sum, n_elements) tuples; n_elements stays a device scalar.
+Dense inputs are NCHW, maps (B, H, W)."""
+import torch
+
+
+class LossBase:
+    def _compute_loss(self, input_, target):
+        raise NotImplementedError
+
+    def __call__(self, input_tensors, target_tensors):
+        return tuple(self._compute_loss(i, t)
+                     for i, t in zip(input_tensors, target_tensors))
+
+
+class CrossEntropyLossSemantic(LossBase):
+    """Semantic cross-entropy over the class axis 1: targets carry void
+    as 0 and are shifted by -1; void pixels are not counted. Optional
+    per-class weights and label smoothing as in the JAX package."""
+
+    def __init__(self, weights=None, label_smoothing: float = 0.0):
+        self._weights = (None if weights is None
+                         else torch.as_tensor(weights, dtype=torch.float32))
+        self._label_smoothing = float(label_smoothing)
+
+    def _compute_loss(self, input_, target):
+        n_classes = input_.shape[1]
+        t = target.long() - 1
+        valid = t >= 0
+        tclip = t.clamp(0, n_classes - 1)
+        logp = torch.log_softmax(input_.float(), dim=1)
+        nll = -torch.gather(logp, 1, tclip[:, None])[:, 0]
+        if self._label_smoothing > 0.0:
+            ls = self._label_smoothing
+            nll = (1.0 - ls) * nll + ls * -logp.mean(dim=1)
+        if self._weights is not None:
+            nll = nll * self._weights.to(nll.device)[tclip]
+        loss = torch.where(valid, nll, 0.0).sum()
+        return loss, valid.sum(dtype=torch.int32)
+
+
+def _reduce_sum(loss):
+    """Mean over the channel axis of (B, C, H, W) or (N, C), then sum;
+    n = the number of pixels."""
+    if loss.dim() in (2, 4):
+        loss = loss.mean(dim=1)
+    return loss.sum(), torch.tensor(loss.numel(), dtype=torch.int32,
+                                    device=loss.device)
+
+
+class L1Loss(LossBase):
+    def _compute_loss(self, input_, target):
+        return _reduce_sum(torch.abs(input_.float() - target.float()))
+
+
+class MSELoss(LossBase):
+    def _compute_loss(self, input_, target):
+        diff = input_.float() - target.float()
+        return _reduce_sum(diff * diff)
+
+
+def von_mises_biternion(input_, target, kappa: float = 1.0):
+    """Per-pixel von Mises loss 1 - exp(kappa * (cos(delta) - 1)) of
+    biternion maps (B, 2, H, W) -> (B, H, W)."""
+    cos_delta = (input_.float() * target.float()).sum(dim=1)
+    return 1.0 - torch.exp(kappa * (cos_delta - 1.0))
+
+
+__all__ = ['LossBase', 'CrossEntropyLossSemantic', 'L1Loss', 'MSELoss',
+           'von_mises_biternion']

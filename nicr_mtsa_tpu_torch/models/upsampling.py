@@ -10,9 +10,15 @@ here that conv is a `conv_transpose2d` with the flipped 4x4 kernel.
 upsamplings as data, so postprocessing can fuse them with the argmax
 and score reduction (ops/cuda/finisher4x.py). `finisher4x_logits_exact`
 is the dense form with that kernel's exact rounding order. All
-tensors here are NCHW; depthwise kernels are (C, 1, 3, 3)."""
+tensors here are NCHW; depthwise kernels are (C, 1, 3, 3).
+
+`resize_bilinear` / `resize_nearest` resize the last two axes to a
+full resolution (the JAX package's `resize_bilinear` and
+`resize_nearest`); their tap tables are computed on the host in float64
+numpy exactly as `_two_tap_params` does there."""
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -107,6 +113,57 @@ def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2):
                     acc = t if acc is None else acc + t
             out[:, :, qy::2, qx::2] = (_round(acc, dt) + b2).to(dt)
     return out
+
+
+def two_tap_params(n: int, m: int):
+    """Taps and weights of a half-pixel 2-tap linear resize n -> m
+    (torch F.interpolate bilinear, align_corners=False): output j is
+    w0[j] * x[lo[j]] + w1[j] * x[hi[j]] with lo = clip(i0), hi =
+    clip(i0 + 1), w1 = f = f32(src - i0) and w0 = f32(1 - f) formed in
+    float64 (the JAX package's `1.0 - w` on a Python float)."""
+    j = np.arange(m)
+    src = (j + 0.5) * (n / m) - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    f = (src - i0).astype(np.float32)
+    w0 = (1.0 - f.astype(np.float64)).astype(np.float32)
+    return np.clip(i0, 0, n - 1), np.clip(i0 + 1, 0, n - 1), w0, f
+
+
+def _resize_axis_linear(x, m: int, dim: int):
+    n = x.shape[dim]
+    if m == n:
+        return x
+    lo, hi, w0, w1 = two_tap_params(n, m)
+    shape = [1] * x.ndim
+    shape[dim] = m
+    dev = x.device
+    a = x.index_select(dim, torch.from_numpy(lo).to(dev))
+    b = x.index_select(dim, torch.from_numpy(hi).to(dev))
+    # three roundings: a * w0, b * w1, their sum (no FMA)
+    return (a * torch.from_numpy(w0).to(dev).view(shape)
+            + b * torch.from_numpy(w1).to(dev).view(shape))
+
+
+def resize_bilinear(x, height: int, width: int):
+    """Half-pixel bilinear resize of the last two axes (rows, then
+    columns), in x's dtype; callers pass f32."""
+    return _resize_axis_linear(_resize_axis_linear(x, height, -2),
+                               width, -1)
+
+
+def _resize_axis_nearest(x, m: int, dim: int):
+    n = x.shape[dim]
+    if m == n:
+        return x
+    idx = (np.arange(m) * n) // m          # floor(j * n / m), in range
+    return x.index_select(dim, torch.from_numpy(idx).to(x.device))
+
+
+def resize_nearest(x, height: int, width: int):
+    """Nearest resize of the last two axes with the floor(i * src / dst)
+    index map (exact for label maps)."""
+    return _resize_axis_nearest(_resize_axis_nearest(x, height, -2),
+                                width, -1)
 
 
 class Upsampling(nn.Module):

@@ -1,13 +1,22 @@
-"""Hand-written CUDA kernels of the serving path (sm_90a), with their
-plain PyTorch versions. `KERNELS` lists each wrapper, whose `launches`
+"""Hand-written CUDA kernels of the port (sm_90a), with their plain
+PyTorch versions. `KERNELS` lists each wrapper, whose `launches`
 attribute counts the kernel launches it made."""
 from ._build import build_all
 from .finisher4x import (finish_deferred_semantic2, upsample4x_argmax_score,
                          upsample4x_argmax_score_reference)
 from .grouping import group_pixels_kernel, group_pixels_reference
+from .intersection import (intersection_matrix_kernel,
+                           intersection_matrix_reference)
+from .resize_reduce import (crop_resize_argmax_score,
+                            crop_resize_argmax_score_reference)
+from .semantic_reduce import (semantic_argmax_score,
+                              semantic_argmax_score_reference)
 
 KERNELS = {'finisher4x': upsample4x_argmax_score,
-           'grouping': group_pixels_kernel}
+           'grouping': group_pixels_kernel,
+           'resize_reduce': crop_resize_argmax_score,
+           'semantic_reduce': semantic_argmax_score,
+           'intersection': intersection_matrix_kernel}
 
 
 def reset_launch_counts() -> None:
@@ -17,5 +26,8 @@ def reset_launch_counts() -> None:
 
 __all__ = ['build_all', 'finish_deferred_semantic2',
            'upsample4x_argmax_score', 'upsample4x_argmax_score_reference',
-           'group_pixels_kernel', 'group_pixels_reference', 'KERNELS',
-           'reset_launch_counts']
+           'group_pixels_kernel', 'group_pixels_reference',
+           'intersection_matrix_kernel', 'intersection_matrix_reference',
+           'crop_resize_argmax_score', 'crop_resize_argmax_score_reference',
+           'semantic_argmax_score', 'semantic_argmax_score_reference',
+           'KERNELS', 'reset_launch_counts']

@@ -1,21 +1,32 @@
-"""Serving pipeline: uint8 RGB + uint16 depth in, panoptic, semantic and
-instance maps plus scene logits out (counterpart of
-nicr_mtsa_tpu/pipeline.py `PanopticInferencePipeline`).
+"""Pipelines (counterpart of nicr_mtsa_tpu/pipeline.py).
 
-Normalisation, the forward pass, centre NMS, grouping and the merge
-all run on the model's device. At the boundary the layouts are the JAX
-package's: rgb (B, H, W, 3) uint8, depth (B, H, W) uint16 (numpy
-arrays or torch tensors), output maps (B, H, W). Depth is converted to
-int32 at the boundary: torch's uint16 supports few operations."""
-from typing import Tuple
+- `PanopticInferencePipeline`, the serving path: uint8 RGB + uint16
+  depth in, panoptic, semantic and instance maps plus scene logits out.
+  Normalisation, the forward pass, centre NMS, grouping and the merge
+  all run on the model's device. At the boundary the layouts are the
+  JAX package's: rgb (B, H, W, 3) uint8, depth (B, H, W) uint16 (numpy
+  arrays or torch tensors), output maps (B, H, W). Depth is converted
+  to int32 at the boundary: torch's uint16 supports few operations.
+- `MultiTaskPipeline.make_fused_eval_step`, the eval path: forward,
+  postprocessing with full-resolution keys, the shared GT slot map,
+  the eval losses and the metric-state updates of every task helper,
+  with the states carried by the caller on the device.
+
+On the card the model runs channels-last (NHWC activations and conv
+weights), cuDNN's fast layout."""
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .data.fullres import get_fullres
 from .models.multi_task import (MultiTaskModel, MultiTaskModelConfig,
                                 build_model)
+from .ops.segments import ids_to_slots
 from .postprocessing import (InstancePostprocessing, PanopticPostprocessing,
-                             SemanticPostprocessing)
+                             ScenePostprocessing, SemanticPostprocessing)
+from .tasks import (InstanceTaskHelper, PanopticTaskHelper, SceneTaskHelper,
+                    SemanticTaskHelper)
 
 # ImageNet statistics scaled to [0, 255] (the JAX package's
 # data/preprocessing/normalize.py RGB_MEAN / RGB_STD)
@@ -31,6 +42,18 @@ def _as_tensor(a, device) -> torch.Tensor:
     return a.to(device)
 
 
+def _set_layout(model, device, channels_last=None) -> bool:
+    """Put the model's conv weights channels-last on the card (or as
+    asked): NHWC activations are cuDNN's fast layout there, and with
+    NCHW weights the 1-channel depth input (whose NCHW and NHWC strides
+    coincide) would keep its whole branch in NCHW."""
+    if channels_last is None:
+        channels_last = device.type == 'cuda'
+    if channels_last:
+        model.to(memory_format=torch.channels_last)
+    return channels_last
+
+
 def depth_to_int32(depth) -> torch.Tensor:
     """uint16 depth (numpy, or torch.uint16 / int16 bit pattern) ->
     int32 with the unsigned values."""
@@ -42,6 +65,13 @@ def depth_to_int32(depth) -> torch.Tensor:
 
 
 class PanopticInferencePipeline:
+    # the postprocessed keys the serving dict reads
+    OUTPUT_KEYS = frozenset((
+        'panoptic_segmentation_deeplab',
+        'panoptic_segmentation_deeplab_semantic_idx',
+        'panoptic_segmentation_deeplab_instance_idx',
+        'semantic_segmentation_idx', 'semantic_segmentation_score'))
+
     def __init__(self, model: MultiTaskModel,
                  panoptic_postprocessing: PanopticPostprocessing,
                  depth_mean: float = 2841.94941272766,    # NYUv2 stats
@@ -56,13 +86,7 @@ class PanopticInferencePipeline:
         self.device = next(model.parameters()).device
         self._rgb_mean = torch.from_numpy(RGB_MEAN).to(self.device)
         self._rgb_std = torch.from_numpy(RGB_STD).to(self.device)
-        # NHWC activations are cuDNN's fast layout on the card; the conv
-        # weights go NHWC too, or the 1-channel depth input (whose NCHW
-        # and NHWC strides coincide) keeps its whole branch in NCHW
-        self._channels_last = (self.device.type == 'cuda'
-                               if channels_last is None else channels_last)
-        if self._channels_last:
-            self.model.to(memory_format=torch.channels_last)
+        self._channels_last = _set_layout(model, self.device, channels_last)
 
     def preprocess(self, rgb_u8, depth_u16) -> dict:
         """NCHW {'rgb', 'depth'} in the compute dtype; invalid depth
@@ -86,7 +110,8 @@ class PanopticInferencePipeline:
         predictions = self.model(self.preprocess(rgb_u8, depth_u16))
         r_dict = self.post.postprocess(
             ((predictions['semantic'][0], predictions['instance'][0]),
-             (predictions['semantic'][1], predictions['instance'][1])))
+             (predictions['semantic'][1], predictions['instance'][1])),
+            keys=self.OUTPUT_KEYS)
         outputs = {
             'panoptic': r_dict['panoptic_segmentation_deeplab'],
             'panoptic_semantic':
@@ -102,12 +127,13 @@ class PanopticInferencePipeline:
 
 
 def emsanet_bench_config(input_size: Tuple[int, int] = (480, 640),
-                         dtype: str = 'bfloat16',
-                         n_classes: int = 40) -> MultiTaskModelConfig:
-    """The `emsanet-bench` serving configuration of the JAX package's
-    bench.py: 2x ResNet-34 NBt1D, context 512, decoders (512, 256, 128)
-    x 3 blocks, learned-3x3-zeropad upsampling, both semantic
-    prediction upsamplings deferred to the fused 4x finisher."""
+                         dtype: str = 'bfloat16', n_classes: int = 40,
+                         defer='all') -> MultiTaskModelConfig:
+    """The `emsanet-bench` configuration of the JAX package's bench.py:
+    2x ResNet-34 NBt1D, context 512, decoders (512, 256, 128) x 3
+    blocks, learned-3x3-zeropad upsampling. Serving defers both
+    semantic prediction upsamplings to the fused 4x finisher
+    (`defer='all'`); eval runs them in the head (`defer=False`)."""
     return MultiTaskModelConfig(
         tasks=('semantic', 'instance', 'orientation', 'scene'),
         backbone_rgb='resnet34', backbone_depth='resnet34',
@@ -116,7 +142,7 @@ def emsanet_bench_config(input_size: Tuple[int, int] = (480, 640),
         input_size=tuple(input_size), semantic_n_classes=n_classes,
         scene_n_classes=10, upsampling='learned-3x3-zeropad',
         prediction_upsampling='learned-3x3-zeropad',
-        defer_semantic_prediction_upsampling='all', dtype=dtype)
+        defer_semantic_prediction_upsampling=defer, dtype=dtype)
 
 
 def serving_postprocessing(n_classes: int = 40, n_thing: int = 8,
@@ -143,3 +169,218 @@ def build_serving_pipeline(config: MultiTaskModelConfig = None,
     post = serving_postprocessing(config.semantic_n_classes, n_thing)
     return PanopticInferencePipeline(model, post,
                                      compute_dtype=config.torch_dtype)
+
+
+# --- eval path --------------------------------------------------------------
+
+def strip_non_arrays(batch: dict) -> dict:
+    """Drop entries that are not (nested dicts of) tensors or arrays:
+    provenance meta, ragged per-sample dicts, python objects."""
+    out = {}
+    for key, value in batch.items():
+        if isinstance(value, dict):
+            nested = strip_non_arrays(value)
+            if nested:
+                out[key] = nested
+        elif isinstance(value, (torch.Tensor, np.ndarray)):
+            out[key] = value
+    return out
+
+
+def _add_shared_gt_slots(full_batch: dict) -> None:
+    """The GT PQ slot map, computed once per step (in place): the
+    panoptic and the instance helper score against the same GT."""
+    target = get_fullres(full_batch, 'panoptic')
+    if 'panoptic_segment_table_fullres' not in full_batch or target is None:
+        return
+    full_batch['panoptic_gt_slots_fullres'] = ids_to_slots(
+        target.to(torch.int32), full_batch['panoptic_segment_table_fullres'])
+
+
+def default_postprocessors(tasks: Sequence[str],
+                           semantic_classes_is_thing: Sequence[bool],
+                           top_k_instances: int = 64,
+                           heatmap_threshold: float = 0.1,
+                           heatmap_nms_kernel_size: int = 3,
+                           semantic_class_has_orientation=None) -> dict:
+    """The per-task postprocessors of the enabled tasks
+    (`semantic_classes_is_thing` without void). Dense scores and the
+    normal/DVE postprocessors are not ported."""
+    tasks = set(tasks)
+    unported = tasks & {'normal', 'dense_visual_embedding'}
+    if unported:
+        raise NotImplementedError(f'postprocessing of {sorted(unported)} '
+                                  f'is not ported yet')
+    post = {}
+    sem_post = SemanticPostprocessing()
+    ins_post = InstancePostprocessing(
+        heatmap_threshold=heatmap_threshold,
+        heatmap_nms_kernel_size=heatmap_nms_kernel_size,
+        top_k_instances=top_k_instances)
+    if 'panoptic' in tasks or {'semantic', 'instance'} <= tasks:
+        if semantic_class_has_orientation is None:
+            semantic_class_has_orientation = semantic_classes_is_thing
+        post['panoptic'] = PanopticPostprocessing(
+            semantic_postprocessing=sem_post,
+            instance_postprocessing=ins_post,
+            semantic_classes_is_thing=tuple(semantic_classes_is_thing),
+            semantic_class_has_orientation=tuple(
+                semantic_class_has_orientation))
+    else:
+        if 'semantic' in tasks:
+            post['semantic'] = sem_post
+        if 'instance' in tasks:
+            post['instance'] = ins_post
+    if 'scene' in tasks:
+        post['scene'] = ScenePostprocessing()
+    return post
+
+
+class MultiTaskPipeline:
+    """Model + postprocessors + task helpers, wired into the fused eval
+    step; the model computes in `compute_dtype`."""
+
+    def __init__(self, model: MultiTaskModel, postprocessors: dict,
+                 task_helpers: dict, compute_dtype=torch.float32,
+                 channels_last: bool = None):
+        self.model = model
+        self.postprocessors = postprocessors
+        self.task_helpers = task_helpers
+        self.device = next(model.parameters()).device
+        self._compute_dtype = compute_dtype
+        self._channels_last = _set_layout(model, self.device, channels_last)
+
+    def model_inputs(self, batch: dict) -> dict:
+        """The model's {'rgb', 'depth'} NCHW inputs in the compute dtype
+        (channels-last on the card)."""
+        fmt = (torch.channels_last if self._channels_last
+               else torch.contiguous_format)
+        return {k: batch[k].to(self._compute_dtype).contiguous(
+            memory_format=fmt) for k in ('rgb', 'depth') if k in batch}
+
+    def postprocess_outputs(self, predictions: dict, batch: dict,
+                            keys=None) -> dict:
+        """Inference postprocessing of raw model outputs; `keys` limits
+        the full-resolution outputs computed (None: all)."""
+        predictions_post = {}
+        for task, raw in predictions.items():
+            post = self.postprocessors.get(task)
+            if post is not None:
+                predictions_post.update(post.postprocess(raw, batch,
+                                                         keys=keys))
+        if 'panoptic' in self.postprocessors and 'semantic' in predictions \
+                and 'instance' in predictions:
+            predictions_post.update(self.postprocessors['panoptic'].postprocess(
+                ((predictions['semantic'][0], predictions['instance'][0]),
+                 (predictions['semantic'][1], predictions['instance'][1])),
+                batch, keys=keys))
+        return predictions_post
+
+    def _read_keys(self, output_keys) -> Optional[frozenset]:
+        if output_keys is None:
+            return None
+        keys = set(output_keys)
+        for helper in self.task_helpers.values():
+            keys.update(helper.prediction_keys)
+        return frozenset(keys)
+
+    def evaluate_outputs(self, predictions: dict, batch: dict,
+                         metric_states: Dict[str, object],
+                         output_keys: Optional[Sequence[str]] = ()):
+        """Postprocessing, the shared GT slot map, the eval losses and
+        the metric-state updates on given raw model outputs: the fused
+        eval step after its forward pass. Returns (predictions selected
+        by `output_keys` (None: all), losses, new states)."""
+        full_batch = dict(batch)
+        predictions_post = self.postprocess_outputs(
+            predictions, full_batch, self._read_keys(output_keys))
+        _add_shared_gt_slots(full_batch)
+        new_states = dict(metric_states)
+        losses = {}
+        for name, helper in self.task_helpers.items():
+            if hasattr(helper, 'compute_losses'):
+                losses.update(helper.compute_losses(full_batch,
+                                                    predictions_post))
+            new_states[name] = helper.update_metric_states(
+                metric_states.get(name), full_batch, predictions_post)
+        if output_keys is not None:
+            predictions_post = {k: predictions_post[k] for k in output_keys}
+        return predictions_post, losses, new_states
+
+    def empty_metric_states(self, device=None) -> dict:
+        """Zero states of every helper on `device` (default: the
+        model's)."""
+        device = self.device if device is None else torch.device(device)
+        return {name: helper.empty_metric_states(device)
+                for name, helper in self.task_helpers.items()}
+
+    def make_fused_eval_step(self, static_batch: dict,
+                             output_keys: Optional[Sequence[str]] = ()):
+        """step(batch, metric_states) -> (predictions, losses, states):
+        forward + `evaluate_outputs` under inference mode, no host sync.
+        `static_batch` holds the non-tensor entries every batch shares
+        (the Resize provenance); `output_keys` selects the returned
+        predictions, () for a metric-only epoch (None: all). The JAX
+        step also takes the parameters; here the model holds them."""
+        @torch.inference_mode()
+        def step(batch, metric_states):
+            full_batch = dict(batch)
+            full_batch.update(static_batch)
+            predictions = self.model(self.model_inputs(full_batch))
+            return self.evaluate_outputs(predictions, full_batch,
+                                         metric_states, output_keys)
+        return step
+
+    def load_metric_states(self, states: dict) -> None:
+        for name, helper in self.task_helpers.items():
+            if name in states:
+                helper.load_metric_states(states[name])
+
+    def validation_epoch_end(self):
+        """(artifacts, examples, logs) of all helpers, from the states
+        they loaded."""
+        artifacts, examples, logs = {}, {}, {}
+        for helper in self.task_helpers.values():
+            a, e, lg = helper.validation_epoch_end()
+            artifacts.update(a)
+            examples.update(e)
+            logs.update(lg)
+        return artifacts, examples, logs
+
+
+def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,
+                      top_k: int = 64, scene_n_classes: int = 10) -> dict:
+    """The task helpers of the JAX package's `bench.py --eval`: the
+    first `n_thing` classes are things."""
+    is_thing_v = (False,) + tuple(i < n_thing for i in range(n_classes))
+    return {
+        'semantic': SemanticTaskHelper(n_classes=n_classes),
+        'instance': InstanceTaskHelper(
+            semantic_n_classes=n_classes + 1,
+            semantic_classes_is_thing=is_thing_v, top_k_instances=top_k),
+        'panoptic': PanopticTaskHelper(
+            semantic_n_classes=n_classes + 1,
+            semantic_classes_is_thing=is_thing_v),
+        'scene': SceneTaskHelper(n_classes=scene_n_classes),
+    }
+
+
+def build_eval_pipeline(config: MultiTaskModelConfig = None, device=None,
+                        seed: int = 0, n_thing: int = 8,
+                        top_k: int = 64) -> MultiTaskPipeline:
+    """The eval pipeline of `bench.py --eval`: `emsanet-bench` with the
+    semantic prediction upsampling in the head (random weights from
+    `seed`), the tasks' postprocessors plus the panoptic helper, top-k
+    `top_k`, on `device` (default `cuda`), computing in the config's
+    dtype."""
+    config = config or emsanet_bench_config(defer=False)
+    model = build_model(config, device=device, seed=seed)
+    n = config.semantic_n_classes
+    post = default_postprocessors(
+        tuple(config.tasks) + ('panoptic',),
+        semantic_classes_is_thing=tuple(i < n_thing for i in range(n)),
+        top_k_instances=top_k)
+    return MultiTaskPipeline(
+        model, post, eval_task_helpers(n, n_thing, top_k,
+                                       config.scene_n_classes),
+        compute_dtype=config.torch_dtype)

@@ -1,25 +1,32 @@
-"""Panoptic postprocessing, inference branch of the serving path
-(counterpart of nicr_mtsa_tpu/postprocessing/panoptic.py): semantic +
-instance postprocessing, the thing-foreground mask, the Panoptic-
-DeepLab merge and per-instance orientations, all on device.
-
-The JAX serving program calls `deeplab_merge_pq` and lets XLA drop the
-PQ slot maps it never returns; here the plain `deeplab_merge` gives
-the same panoptic map, and the slot maps come with the eval slice.
-Dense scores (`compute_scores`) and the full-resolution keys are not
-ported: the serving dict reads neither."""
+"""Panoptic postprocessing, inference branch (counterpart of
+nicr_mtsa_tpu/postprocessing/panoptic.py): semantic + instance
+postprocessing, the thing-foreground mask, the Panoptic-DeepLab merge,
+per-instance orientations and, with a valid region in the batch, the
+nearest full-resolution maps, all on device. The merge also emits its
+PQ slot map and segment table (`deeplab_merge_pq`) when the caller
+reads them (the eval step), else it is the plain `deeplab_merge` (the
+serving path). Dense scores (`compute_scores`) are not ported."""
 from typing import Tuple
 
 import torch
 
+from ..data.fullres import get_fullres_key
 from ..ops.grouping import instance_orientations
-from ..ops.merge import deeplab_merge
-from .base import PostprocessingBase
+from ..ops.merge import deeplab_merge, deeplab_merge_pq
+from .base import DensePostprocessingBase, wants
 from .instance import InstancePostprocessing
 from .semantic import SemanticPostprocessing
 
+_FULLRES_SOURCES = ('panoptic_segmentation_deeplab',
+                    'panoptic_segmentation_deeplab_instance_idx',
+                    'panoptic_segmentation_deeplab_semantic_idx',
+                    'panoptic_segmentation_deeplab_slots')
+_SLOT_KEYS = ('panoptic_segmentation_deeplab_slots',
+              'panoptic_segmentation_deeplab_slot_table',
+              get_fullres_key('panoptic_segmentation_deeplab_slots'))
 
-class PanopticPostprocessing(PostprocessingBase):
+
+class PanopticPostprocessing(DensePostprocessingBase):
     def __init__(self, semantic_postprocessing: SemanticPostprocessing,
                  instance_postprocessing: InstancePostprocessing,
                  semantic_classes_is_thing: Tuple[bool, ...],
@@ -49,31 +56,37 @@ class PanopticPostprocessing(PostprocessingBase):
     def max_instances_per_category(self) -> int:
         return self._max_instances_per_category
 
-    def _postprocess_inference(self, data, batch):
+    def _postprocess_inference(self, data, batch, keys=None):
         (s_output, i_output), (s_side, i_side) = data
         r_dict = self._semantic_postprocessing._postprocess_inference(
-            (s_output, s_side), batch)
+            (s_output, s_side), batch, keys)
         post = self._instance_postprocessing
-        r_dict.update(post._postprocess_inference((i_output, i_side),
-                                                  batch))
-        with_orientation = len(i_output) == 3
+        r_dict.update(post._postprocess_inference((i_output, i_side), batch,
+                                                  keys))
         center_heatmap, center_offset = i_output[0], i_output[1]
-        center_offset_ = post._denormalize(center_offset)
 
+        # thing-foreground mask from the working-resolution prediction
         semantic_idx = r_dict['semantic_segmentation_idx']   # (B, H, W)
         tables = self._device_tables(semantic_idx.device)
         foreground_mask = tables['thing'][semantic_idx.long()]
         r_dict['panoptic_foreground_mask'] = foreground_mask
 
         result = post._get_instance_segmentation(
-            center_heatmap, center_offset_, foreground_mask)
+            center_heatmap, post._denormalize(center_offset),
+            foreground_mask)
         instance_segmentation = result.segmentation
-        merge = deeplab_merge(
+        # semantic + 1: predictions have no void class
+        want_slots = any(wants(keys, k) for k in _SLOT_KEYS)
+        merge = (deeplab_merge_pq if want_slots else deeplab_merge)(
             semantic_idx + 1, instance_segmentation, foreground_mask,
             tables['thing_panoptic'],
             max_instances_per_category=self._max_instances_per_category,
             top_k=post._top_k_instances,
             n_classes_with_void=self._n_classes_with_void)
+        if want_slots:
+            r_dict['panoptic_segmentation_deeplab_slots'] = merge.slots
+            r_dict['panoptic_segmentation_deeplab_slot_table'] = \
+                merge.pred_table
         panoptic_seg = merge.panoptic
         pan_seg_semantic = torch.div(
             panoptic_seg, self._max_instances_per_category,
@@ -93,7 +106,11 @@ class PanopticPostprocessing(PostprocessingBase):
                 'semantic_idx': merge.instance_class,
             },
         })
-        if with_orientation:
+        for key in _FULLRES_SOURCES:
+            if key in r_dict:
+                self._add_fullres(r_dict, batch, key, keys,
+                                  shape_key='instance')
+        if len(i_output) == 3:
             fg_ori = tables['orientation_panoptic'][pan_seg_semantic.clamp(
                 0, self._n_classes_with_void - 1).long()]
             r_dict['orientations_panoptic_segmentation_deeplab_instance'] = \

@@ -7,7 +7,7 @@ from .base import PostprocessingBase
 
 
 class ScenePostprocessing(PostprocessingBase):
-    def _postprocess_inference(self, data, batch):
+    def _postprocess_inference(self, data, batch, keys=None):
         output, _ = data
         pred = torch.softmax(output.float(), dim=-1)
         return {'scene_class_score': pred.amax(dim=-1),

@@ -1,22 +1,53 @@
-"""Semantic postprocessing, inference branch of the serving path
-(counterpart of nicr_mtsa_tpu/postprocessing/semantic.py): idx and
-score from the fused 4x finisher for a deferred head, else from the
-dense logits. Keys follow the JAX package. Full-resolution keys and
-the dense softmax are not computed: the serving dict reads neither."""
+"""Semantic postprocessing, inference branch (counterpart of
+nicr_mtsa_tpu/postprocessing/semantic.py): first-argmax idx and
+max-softmax score from the fused 4x finisher for a deferred head, else
+from the logits by the score/argmax kernel; with a valid region in the
+batch, the full-resolution idx/score come from the crop + resize +
+reduce kernel without building the full-resolution logits. Keys follow
+the JAX package; the dense softmax and full-resolution logits keys are
+not computed (nothing on the ported paths reads them)."""
+from ..data.fullres import get_fullres_key, has_valid_region
 from ..models.upsampling import DeferredUpsampling2
 from ..ops.cuda.finisher4x import finish_deferred_semantic2
-from ..ops.reduce import semantic_score_idx
-from .base import PostprocessingBase
+from ..ops.cuda.resize_reduce import crop_resize_argmax_score
+from ..ops.cuda.semantic_reduce import semantic_argmax_score
+from .base import DensePostprocessingBase, wants
+
+_FULLRES_KEYS = (get_fullres_key('semantic_segmentation_idx'),
+                 get_fullres_key('semantic_segmentation_score'))
 
 
-class SemanticPostprocessing(PostprocessingBase):
-    def _postprocess_inference(self, data, batch):
+class SemanticPostprocessing(DensePostprocessingBase):
+    def _postprocess_inference(self, data, batch, keys=None):
         output, side_outputs = data
+        want_fullres = (has_valid_region(batch)
+                        and any(wants(keys, k) for k in _FULLRES_KEYS))
         if isinstance(output, DeferredUpsampling2):
+            if want_fullres:
+                raise NotImplementedError(
+                    'full-resolution keys of a deferred semantic head are '
+                    'not ported yet')
             idx, score = finish_deferred_semantic2(output)
         else:
-            idx, score = semantic_score_idx(output, dim=1)
-        return {'semantic_output': output,
-                'semantic_side_outputs': side_outputs,
-                'semantic_segmentation_score': score,
-                'semantic_segmentation_idx': idx}
+            idx, score = semantic_argmax_score(output)
+        r_dict = {'semantic_output': output,
+                  'semantic_side_outputs': side_outputs,
+                  'semantic_segmentation_score': score,
+                  'semantic_segmentation_idx': idx}
+        if not want_fullres:
+            return r_dict
+
+        (sy, sx), (h, w) = self._fullres_args(batch, 'semantic')
+        H, W = output.shape[-2:]
+        if sy.indices(H) == (0, H, 1) and sx.indices(W) == (0, W, 1) \
+                and (h, w) == (H, W):
+            idx_fr, score_fr = idx, score
+        elif (h, w) == (len(range(*sy.indices(H))),
+                        len(range(*sx.indices(W)))):
+            idx_fr, score_fr = semantic_argmax_score(output[:, :, sy, sx])
+        else:
+            idx_fr, score_fr = crop_resize_argmax_score(output, (sy, sx),
+                                                        h, w)
+        r_dict[_FULLRES_KEYS[0]] = idx_fr
+        r_dict[_FULLRES_KEYS[1]] = score_fr
+        return r_dict

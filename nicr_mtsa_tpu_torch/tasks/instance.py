@@ -1,0 +1,127 @@
+"""Instance task helper (counterpart of nicr_mtsa_tpu/tasks/instance.py),
+fused-eval path.
+
+Losses: masked centre MSE (instance_center_mask), masked offset L1
+(instance_foreground), von Mises orientation loss on the orientation
+foreground. Metric: the predicted instances (segmented under the GT
+foreground) are merged with the GT semantic and scored with the
+orientation-aware PQ against the GT panoptic map, the merge emitting
+the pred slot map directly (`deeplab_merge_pq`). The plain MAE against
+GT instances exists only on the JAX package's eager validation path
+and is not ported."""
+import numpy as np
+import torch
+
+from ..data.fullres import get_fullres_key
+from ..losses import L1Loss, MSELoss, von_mises_biternion
+from ..metrics import PanopticQualityWithOrientationMAE
+from ..ops.merge import deeplab_merge_pq
+from ._orientation_tables import pred_slot_angles
+from .base import TaskHelperBase
+
+_SEG_FULLRES = get_fullres_key('instance_segmentation_gt_foreground')
+_ORI_KEY = 'orientations_instance_segmentation_gt_orientation_foreground'
+
+
+class InstanceTaskHelper(TaskHelperBase):
+    prediction_keys = ('instance_output', 'instance_side_outputs',
+                       _SEG_FULLRES, _ORI_KEY)
+
+    def __init__(self, semantic_n_classes: int, semantic_classes_is_thing,
+                 loss_name_instance_center: str = 'mse',
+                 top_k_instances: int = 64):
+        if loss_name_instance_center not in ('mse', 'l1'):
+            raise ValueError(f"unknown centre loss "
+                             f"'{loss_name_instance_center}'")
+        self._semantic_n_classes = semantic_n_classes     # with void
+        self._is_thing_cpu = torch.tensor(
+            np.asarray(semantic_classes_is_thing, dtype=bool))
+        self._is_thing = {}
+        self._max_instances_per_category = 1 << 16
+        self._top_k_instances = top_k_instances
+        self._loss_center = (MSELoss() if loss_name_instance_center == 'mse'
+                             else L1Loss())
+        self._loss_offset = L1Loss()
+        self._mae_pq_deeplab = PanopticQualityWithOrientationMAE(
+            num_categories=semantic_n_classes, ignored_label=0,
+            max_instances_per_category=self._max_instances_per_category,
+            is_thing=np.asarray(semantic_classes_is_thing, dtype=bool))
+
+    def _thing_table(self, device):
+        if device not in self._is_thing:
+            self._is_thing[device] = self._is_thing_cpu.to(device)
+        return self._is_thing[device]
+
+    def compute_losses(self, batch, predictions_post) -> dict:
+        (pred,), keys = self.collect_predictions_for_loss(
+            predictions_post, 'instance_output', 'instance_side_outputs')
+        d = {}
+        mask_c = batch['instance_center_mask']
+        (l_c, _), = self._loss_center([pred[0][:, 0] * mask_c],
+                                      [batch['instance_center']])
+        n_c = mask_c.sum(dtype=torch.int32)
+        mask_o = batch['instance_foreground']
+        (l_o, _), = self._loss_offset([pred[1] * mask_o[:, None]],
+                                      [batch['instance_offset']])
+        n_o = mask_o.sum(dtype=torch.int32)
+        d['instance_center_loss_main'] = l_c / n_c.clamp(min=1)
+        d['instance_offset_loss_main'] = l_o / n_o.clamp(min=1)
+        d[self.mark_as_total('instance_center')] = \
+            self.accumulate_losses([l_c], [n_c])
+        d[self.mark_as_total('instance_offset')] = \
+            self.accumulate_losses([l_o], [n_o])
+        if len(pred) == 3:
+            mask = batch['orientation_foreground']
+            score = von_mises_biternion(pred[2], batch['orientation'])
+            l_r = torch.where(mask, score, 0.0).sum()
+            n_r = mask.sum(dtype=torch.int32).clamp(min=1)
+            d['instance_orientation_loss_main'] = l_r / n_r
+            d[self.mark_as_total('instance_orientation')] = \
+                self.accumulate_losses([l_r], [n_r])
+        return d
+
+    def empty_metric_states(self, device=None):
+        return {'pq': self._mae_pq_deeplab.empty_state(device)}
+
+    def update_metric_states(self, state, batch, predictions_post):
+        semantic = self.get_fullres(batch, 'semantic').to(torch.int32)
+        if state is None:
+            state = self.empty_metric_states(semantic.device)
+        instance_gt = self.get_fullres(batch, 'instance')
+        merge = deeplab_merge_pq(
+            semantic, predictions_post[_SEG_FULLRES].to(torch.int32),
+            instance_gt != 0, self._thing_table(semantic.device),
+            max_instances_per_category=self._max_instances_per_category,
+            top_k=self._top_k_instances,
+            n_classes_with_void=self._semantic_n_classes,
+            pred_table_size=self._mae_pq_deeplab.pred_table_size)
+        kwargs = {}
+        if 'panoptic_gt_angle_table' in batch and _ORI_KEY in predictions_post:
+            pred_angle, pred_angle_valid = pred_slot_angles(
+                merge.pred_table, merge.panoptic_id_table,
+                predictions_post[_ORI_KEY])
+            kwargs = dict(gt_angle=batch['panoptic_gt_angle_table'],
+                          gt_angle_valid=batch[
+                              'panoptic_gt_angle_table_valid'],
+                          pred_angle=pred_angle,
+                          pred_angle_valid=pred_angle_valid)
+        return {'pq': self._mae_pq_deeplab.update_state(
+            state['pq'], None,
+            self.get_fullres(batch, 'panoptic').to(torch.int32),
+            gt_table=batch['panoptic_segment_table_fullres'],
+            pred_table=merge.pred_table, pred_slots=merge.slots,
+            gt_slots=batch.get('panoptic_gt_slots_fullres'), **kwargs)}
+
+    def load_metric_states(self, state):
+        self._mae_pq_deeplab.state = state['pq']
+
+    def validation_epoch_end(self):
+        artifacts, logs = {}, {}
+        for key, value in self._mae_pq_deeplab.compute(
+                suffix='_deeplab').items():
+            if np.ndim(value) == 0:
+                logs[f'instance_{key}'] = value
+            else:
+                artifacts[f'instance_{key}'] = value
+        self._mae_pq_deeplab.reset()
+        return artifacts, {}, logs

@@ -1,0 +1,58 @@
+"""Semantic task helper (counterpart of nicr_mtsa_tpu/tasks/semantic.py):
+class-weighted cross-entropy; a full-resolution confusion matrix
+(void-masked, labels shifted by -1) accumulated on device -> mIoU."""
+import numpy as np
+import torch
+
+from ..data.fullres import get_fullres_key
+from ..losses import CrossEntropyLossSemantic
+from ..metrics import MeanIntersectionOverUnion, confusion_matrix
+from ..metrics.base import to_numpy
+from .base import TaskHelperBase
+
+_IDX_FULLRES = get_fullres_key('semantic_segmentation_idx')
+
+
+class SemanticTaskHelper(TaskHelperBase):
+    prediction_keys = ('semantic_output', 'semantic_side_outputs',
+                       _IDX_FULLRES)
+
+    def __init__(self, n_classes: int, class_weights=None,
+                 label_smoothing: float = 0.0):
+        self._n_classes = n_classes
+        self._loss = CrossEntropyLossSemantic(
+            weights=class_weights, label_smoothing=label_smoothing)
+        self._metric_iou = MeanIntersectionOverUnion(n_classes=n_classes)
+
+    def compute_losses(self, batch, predictions_post) -> dict:
+        preds, keys = self.collect_predictions_for_loss(
+            predictions_post, 'semantic_output', 'semantic_side_outputs')
+        outs = self._loss(preds, [batch['semantic']])
+        d = {f'semantic_loss_{k}': loss / n.clamp(min=1)
+             for k, (loss, n) in zip(keys, outs)}
+        d[self.mark_as_total('semantic')] = self.accumulate_losses(
+            [loss for loss, _ in outs], [n for _, n in outs])
+        return d
+
+    def empty_metric_states(self, device=None):
+        return self._metric_iou.empty_state(device)
+
+    def update_metric_states(self, state, batch, predictions_post):
+        target = self.get_fullres(batch, 'semantic')
+        if state is None:
+            state = self.empty_metric_states(target.device)
+        preds = predictions_post[_IDX_FULLRES]
+        # void pixels are left out (the JAX package counts them into
+        # the (0, 0) cell and subtracts them again)
+        t = torch.where(target != 0, target.long() - 1, -1)
+        return state + confusion_matrix(preds, t, self._n_classes)
+
+    def load_metric_states(self, state):
+        self._metric_iou.state = state
+
+    def validation_epoch_end(self):
+        miou, ious = self._metric_iou.compute(return_ious=True)
+        artifacts = {'semantic_cm': np.asarray(to_numpy(
+            self._metric_iou.state)), 'semantic_ious_per_class': ious}
+        self._metric_iou.reset()
+        return artifacts, {}, {'semantic_miou': miou}

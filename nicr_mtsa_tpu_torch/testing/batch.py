@@ -1,0 +1,124 @@
+"""Synthetic eval batches: the host -> device hand-off of the eval path
+without JAX or OpenCV (in the manner of nicr_mtsa_tpu/testing/batch.py).
+
+Ground truth is made at full resolution from a seed: stuff bands, a
+void band and rectangular thing instances with one orientation each.
+It is nearest-resized to the working resolution with the host
+preprocessing's index map, the targets the eval step reads come from
+the numpy generators of data/targets.py, and the batch moves to the
+device as tensors: dense images NCHW ('rgb', 'depth',
+'instance_offset', 'orientation'), maps (B, H, W) int32 or bool."""
+from typing import Dict, List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.fullres import nearest_indices, resize_provenance
+from ..data.targets import (instance_targets, orientation_targets,
+                            panoptic_fullres_targets)
+from ..pipeline import RGB_MEAN, RGB_STD
+from ..utils.device import resolve_device
+
+DEPTH_MEAN, DEPTH_STD = 8000.0, 4000.0       # bench.py NormalizeDepth
+
+
+class GroundTruth(NamedTuple):
+    semantic: np.ndarray              # (H, W) uint8, 0 = void
+    instance: np.ndarray              # (H, W) uint16, 0 = no instance
+    orientations: Dict[int, float]    # instance id -> angle (rad)
+
+
+class EvalBatch(NamedTuple):
+    batch: Dict[str, torch.Tensor]    # tensors on the device
+    static_batch: dict                # the Resize provenance
+    segment_table_overflow: int       # GT ids the tables could not hold
+
+
+def synthetic_ground_truth(rng, full_hw: Tuple[int, int], n_classes: int,
+                           is_thing: Sequence[bool],
+                           n_instances: int = 10) -> GroundTruth:
+    """One full-resolution sample (`is_thing` without void)."""
+    H, W = full_hw
+    thing = [c + 1 for c in range(n_classes) if is_thing[c]]
+    stuff = [c + 1 for c in range(n_classes) if not is_thing[c]]
+    semantic = np.zeros((H, W), np.uint8)
+    bands = np.sort(rng.choice(np.arange(1, H), size=3, replace=False))
+    for y0, y1 in zip((0, *bands), (*bands, H)):
+        semantic[y0:y1] = rng.choice(stuff)
+    semantic[:, :W // 16] = 0                           # a void band
+    instance = np.zeros((H, W), np.uint16)
+    orientations = {}
+    for i in range(1, n_instances + 1):
+        h = int(rng.integers(H // 16, H // 3))
+        w = int(rng.integers(W // 16, W // 3))
+        y, x = int(rng.integers(0, H - h)), int(rng.integers(0, W - w))
+        semantic[y:y + h, x:x + w] = rng.choice(thing)
+        instance[y:y + h, x:x + w] = i
+        orientations[i] = float(rng.uniform(0.0, 2 * np.pi))
+    return GroundTruth(semantic, instance, orientations)
+
+
+def eval_arrays(samples: List[GroundTruth], work_hw: Tuple[int, int],
+                is_thing: Sequence[bool], segment_table_size: int = 128,
+                sigma: int = 8) -> Tuple[Dict[str, np.ndarray], int]:
+    """The ground-truth arrays of the eval batch, stacked (host side),
+    and the number of GT ids the segment tables could not hold."""
+    is_thing_v = (False,) + tuple(bool(t) for t in is_thing)
+    h, w = work_hw
+    out: Dict[str, list] = {}
+    overflow = 0
+    for gt in samples:
+        yi = nearest_indices(gt.semantic.shape[0], h)
+        xi = nearest_indices(gt.semantic.shape[1], w)
+        sem = gt.semantic[yi[:, None], xi[None, :]]
+        ins = gt.instance[yi[:, None], xi[None, :]]
+        pan = panoptic_fullres_targets(gt.semantic, gt.instance, is_thing_v,
+                                       gt.orientations, segment_table_size)
+        overflow += pan.overflow
+        sample = {'semantic': sem, 'instance': ins,
+                  'semantic_fullres': gt.semantic,
+                  'instance_fullres': gt.instance,
+                  'panoptic_fullres': pan.panoptic,
+                  'panoptic_segment_table_fullres': pan.segment_table,
+                  'panoptic_gt_angle_table': pan.angle_table,
+                  'panoptic_gt_angle_table_valid': pan.angle_table_valid}
+        sample.update(instance_targets(ins, sem, is_thing_v, sigma=sigma))
+        sample.update(orientation_targets(ins, sem, gt.orientations,
+                                          is_thing_v))
+        for k, v in sample.items():
+            out.setdefault(k, []).append(v)
+    return {k: np.stack(v) for k, v in out.items()}, overflow
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    if a.ndim == 4:                              # (B, H, W, C) -> NCHW
+        a = a.transpose(0, 3, 1, 2)
+    if a.dtype in (np.uint8, np.uint16, np.uint32, np.int64):
+        a = a.astype(np.int32)                   # maps, ids and tables
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def build_eval_batch(B: int, work_hw: Tuple[int, int],
+                     full_hw: Tuple[int, int], n_classes: int,
+                     is_thing: Sequence[bool], seed: int = 0,
+                     segment_table_size: int = 128,
+                     device=None) -> EvalBatch:
+    """A synthetic eval batch of B samples on `device` (default
+    `cuda`): normalised random RGB-D inputs at `work_hw`, ground truth
+    and targets as `eval_arrays` makes them, scene labels in
+    1..10, and the Resize provenance of a full valid region."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    samples = [synthetic_ground_truth(rng, full_hw, n_classes, is_thing)
+               for _ in range(B)]
+    arrays, overflow = eval_arrays(samples, work_hw, is_thing,
+                                   segment_table_size)
+    h, w = work_hw
+    rgb = rng.integers(0, 256, (B, h, w, 3)).astype(np.float32)
+    depth = rng.integers(0, 2 ** 14, (B, h, w, 1)).astype(np.float32)
+    arrays['rgb'] = (rgb - RGB_MEAN) / RGB_STD
+    arrays['depth'] = np.where(depth == 0, 0.0, (depth - DEPTH_MEAN)
+                               / DEPTH_STD).astype(np.float32)
+    arrays['scene'] = rng.integers(1, 11, (B,)).astype(np.int32)
+    batch = {k: _to_device(v, device) for k, v in arrays.items()}
+    return EvalBatch(batch, resize_provenance(h, w), overflow)

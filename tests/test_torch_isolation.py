@@ -95,6 +95,36 @@ def test_grouping_raises_without_library(monkeypatch, tmp_path):
     assert grp.group_pixels_kernel.launches == before
 
 
+def test_semantic_reduce_raises_without_library(monkeypatch, tmp_path):
+    from nicr_mtsa_tpu_torch.ops.cuda import semantic_reduce as sr
+    _no_library(monkeypatch, tmp_path, sr)
+    before = sr.semantic_argmax_score.launches
+    with pytest.raises(RuntimeError, match='nvcc'):
+        sr.semantic_argmax_score(torch.zeros(1, 3, 2, 2))
+    assert sr.semantic_argmax_score.launches == before
+
+
+def test_resize_reduce_raises_without_library(monkeypatch, tmp_path):
+    from nicr_mtsa_tpu_torch.ops.cuda import resize_reduce as rr
+    _no_library(monkeypatch, tmp_path, rr)
+    before = rr.crop_resize_argmax_score.launches
+    with pytest.raises(RuntimeError, match='nvcc'):
+        rr.crop_resize_argmax_score(torch.zeros(1, 3, 4, 4),
+                                    (slice(0, 4), slice(0, 4)), 8, 8)
+    assert rr.crop_resize_argmax_score.launches == before
+
+
+def test_intersection_raises_without_library(monkeypatch, tmp_path):
+    from nicr_mtsa_tpu_torch.ops.cuda import intersection as it
+    _no_library(monkeypatch, tmp_path, it)
+    before = it.intersection_matrix_kernel.launches
+    with pytest.raises(RuntimeError, match='nvcc'):
+        it.intersection_matrix_kernel(torch.zeros(1, 8, dtype=torch.int32),
+                                      torch.zeros(1, 8, dtype=torch.int32),
+                                      4, 4)
+    assert it.intersection_matrix_kernel.launches == before
+
+
 def _run_chip_smoke(cwd):
     env = dict(os.environ)
     env.pop('PYTHONPATH', None)
