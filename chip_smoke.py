@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--requests N] [--steps N] [--profile]
+    python3 chip_smoke.py [--requests N] [--swin-requests N] [--steps N]
+                          [--profile]
 
 Drives the port (nicr_mtsa_tpu_torch) end to end on the card, in
 phases; any failure exits non-zero and prints no result:
@@ -31,7 +32,25 @@ phases; any failure exits non-zero and prints no result:
    states must lie in [0, 1];
 6. postprocess and update the metric states of the card's raw eval
    outputs (B=2) on the card and on the CPU: integer states equal,
-   float sums within rtol 1e-5.
+   float sums within rtol 1e-5;
+7. hold the Swin path's kernels against their plain versions at its
+   shapes: the window-attention sub-block at stage 1 (2400 windows,
+   C=128, 4 heads) and stage 4 (48 windows, C=1024, 32 heads), both
+   shifted v2, through its windows entry and through the image entry
+   the Swin blocks call (B=8 images, padded at stage 4), plus a shifted
+   v1 image of 49-token windows, in bf16 and f32 (within 1e-4 of max
+   |out| in f32, 2e-2 in bf16); the LayerNorm
+   at (153600, 128) and (2400, 1024) bf16 (within 1 ulp, or 1e-6 of
+   max |out| where the affine cancels to near 0) and in f32 (within
+   1e-5); the bilinear 4x finisher at (8, 40, 120, 160) (idx
+   exact, scores within rtol 1e-5, ties to the first index);
+8. serve `emsaformer_dve_v2` (multimodal SwinV2-T-128 RGB-D, MLP
+   decoders, 480 x 640, bf16, random weights from a seed) on B=8
+   requests, counters set to 0 just before: exactly 12 window-attention
+   launches, 36 LayerNorm launches (every LN of the path), 1 bilinear
+   finisher and 1 grouping launch a request;
+9. run that pipeline in f32 on one frame on the card and on the CPU:
+   semantic_idx must agree on >= 99.9 %.
 
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
@@ -49,6 +68,7 @@ import torch
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12                  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 SERVING_KERNELS = ('finisher4x', 'grouping')
 # launches of each eval kernel in one fused eval step: the working- and
@@ -56,6 +76,13 @@ SERVING_KERNELS = ('finisher4x', 'grouping')
 # for each of the two PQ helpers (panoptic, instance)
 EVAL_KERNELS = {'resize_reduce': 1, 'semantic_reduce': 1,
                 'intersection': 2}
+# launches of each Swin serving kernel in one request: one
+# window-attention sub-block per Swin block (2 + 2 + 6 + 2), every
+# LayerNorm of the path (the backbone's 30: 2 patch embeds, 24 in
+# blocks, 3 merges, the final norm; and the 3 skip LNs of each of the
+# semantic and the instance decoder), one finisher, one grouping
+SWIN_KERNELS = {'finisher4x_bilinear': 1, 'window_attention_block': 12,
+                'layernorm': 36, 'grouping': 1}
 
 
 def fail(msg: str) -> None:
@@ -87,11 +114,24 @@ def cuda_ms(fn, n: int = 10) -> float:
     return float(np.median(times))
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                  else 'operations')
+
+
+def _finisher_bound(x):
+    """Bound of a 4x finisher (either entry) on logits x (B, C, H, W)."""
+    B, C, H, W = x.shape
+    P = B * 16 * H * W                        # output pixels
+    # logits read once, two (C, 16) kernels and (C,) biases in f32,
+    # idx and score written once
+    n_bytes = x.numel() * x.element_size() + 2 * C * 17 * 4 + P * 8
+    # per output pixel-class: stage-2 taps 4 mul + 3 add + bias add,
+    # max, sub, exp, sum add; per stage-1 value 8; per pixel 1 divide
+    n_ops = (P * C * (8 + 4) + B * C * (2 * H + 2) * (2 * W + 2) * 8 + P)
+    return bound(n_bytes, n_ops)
 
 
 def check_finisher(fin, report):
@@ -130,14 +170,7 @@ def check_finisher(fin, report):
     ms = cuda_ms(lambda: fin.upsample4x_argmax_score(xd, k1, b1, k2, b2))
     plain_ms = cuda_ms(lambda: fin.upsample4x_argmax_score_reference(
         xd, k1, b1, k2, b2))
-    P = B * 16 * H * W                        # output pixels
-    # logits read once, two (C, 16) kernels and (C,) biases in f32,
-    # idx and score written once
-    n_bytes = xd.numel() * xd.element_size() + 2 * C * 17 * 4 + P * 8
-    # per output pixel-class: stage-2 taps 4 mul + 3 add + bias add,
-    # max, sub, exp, sum add; per stage-1 value 8; per pixel 1 divide
-    n_ops = (P * C * (8 + 4) + B * C * (2 * H + 2) * (2 * W + 2) * 8 + P)
-    b_ms, b_by = bound(n_bytes, n_ops)
+    b_ms, b_by = _finisher_bound(xd)
     report['finisher4x'] = dict(
         name='finisher4x', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/finisher4x.cu',
@@ -366,6 +399,203 @@ def check_ties():
                       'merge': 'exact'}), flush=True)
 
 
+def _wab_weights(g, C, v2, ws):
+    """Random weights of one window-attention sub-block (f32)."""
+    h, N = C // 32, ws * ws
+    r = lambda *shape, s=1.0: torch.randn(*shape, device='cuda',
+                                          generator=g) * s
+    bqkv = r(3 * C, s=0.1)
+    if v2:
+        bqkv[C:2 * C] = 0.0
+    return dict(wqkv=r(C, 3 * C, s=C ** -0.5), bqkv=bqkv,
+                wproj=r(C, C, s=C ** -0.5), bproj=r(C, s=0.1),
+                bias=(16 * torch.sigmoid(r(h, N, N)) if v2
+                      else r(h, N, N, s=0.5)),
+                n_heads=h,
+                v2_scale=(torch.exp(torch.clamp(
+                    np.log(10.0) + r(h, s=0.3), max=float(np.log(100.0))))
+                    if v2 else None))
+
+
+def _wab_ops_bytes(Bw, N, C, n_elems, elt):
+    """Flops of the sub-block over Bw windows of N tokens (qkv and
+    output products, QK^T and PV) and its bytes (n_elems activations
+    in and out, the weights and the bias table once)."""
+    n_ops = Bw * (2 * N * C * 4 * C + 4 * N * N * C)
+    n_bytes = 2 * n_elems * elt + 4 * C * C * elt + C * N * N // 8
+    return n_ops, n_bytes
+
+
+def check_window_attention(wa, report):
+    """Row 8 through both entries, bf16 and f32 (within 1e-4 of max |out|
+    in f32, 2e-2 in bf16): windows at stage 1 (2400 of 64 tokens, C=128)
+    and stage 4 (48, C=1024), shifted v2, and the image entry the Swin
+    blocks call, on the B=8 stage-1 (120 x 160, C=128) and stage-4
+    (15 x 20, padded to 16 x 24, C=1024) images, shifted v2, plus a
+    shifted v1 image (7 x 7 windows, 120 x 160 padded to 126 x 161).
+    Times the image entry in bf16 at stages 1 and 4."""
+    g = torch.Generator(device='cuda').manual_seed(6)
+    rnd = lambda *shape: torch.randn(*shape, device='cuda', generator=g)
+    w1, w4 = _wab_weights(g, 128, True, 8), _wab_weights(g, 1024, True, 8)
+    wv1 = _wab_weights(g, 128, False, 7)
+    cases = {
+        'stage1_windows': (wa.window_attention_block, wa.
+                           window_attention_block_reference,
+                           dict(w1, x=rnd(2400, 64, 128), grid_hw=(15, 20),
+                                shift=(4, 4))),
+        'stage4_windows': (wa.window_attention_block, wa.
+                           window_attention_block_reference,
+                           dict(w4, x=rnd(48, 64, 1024), grid_hw=(2, 3),
+                                shift=(4, 4))),
+        'stage1_image': (wa.window_attention_image,
+                         wa.window_attention_image_reference,
+                         dict(w1, x=rnd(8, 120, 160, 128), ws=8, shift=4)),
+        'stage4_image': (wa.window_attention_image,
+                         wa.window_attention_image_reference,
+                         dict(w4, x=rnd(8, 15, 20, 1024), ws=8, shift=4)),
+        'v1_image': (wa.window_attention_image,
+                     wa.window_attention_image_reference,
+                     dict(wv1, x=rnd(2, 120, 160, 128), ws=7, shift=3)),
+    }
+    errs, max_abs = {}, 0.0
+    for name, (fn, ref_fn, c) in cases.items():
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = dict(c, x=c['x'].to(dt))
+            got = fn(**args)
+            torch.cuda.synchronize()
+            want = ref_fn(**args)
+            err = float((got.float() - want.float()).abs().max())
+            ref = float(want.float().abs().max())
+            errs[f'{name}_{str(dt)[6:]}'] = err / ref
+            max_abs = max(max_abs, err)
+            if not err <= tol * ref:
+                fail(f'window_attention_block {name} {dt}: max error '
+                     f'{err} > {tol} x max |out| {ref}')
+    times = {}
+    for name in ('stage1_image', 'stage4_image'):
+        fn, ref_fn, c = cases[name]
+        args = dict(c, x=c['x'].to(torch.bfloat16))
+        times[name] = (cuda_ms(lambda: fn(**args)),
+                       cuda_ms(lambda: ref_fn(**args)))
+    # the image entry's windows: 8 x 15 x 20 at stage 1, 8 x 2 x 3 at 4
+    n_ops, n_bytes = _wab_ops_bytes(2400, 64, 128, 8 * 120 * 160 * 128, 2)
+    b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
+    n_ops4, n_bytes4 = _wab_ops_bytes(48, 64, 1024, 8 * 15 * 20 * 1024, 2)
+    report['window_attention_block'] = dict(
+        name='window_attention_block', route='cuda',
+        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/window_attention_block.cu',
+        replaces='nicr_mtsa_tpu/ops/pallas/window_attention.py:300',
+        max_abs_err=max_abs, ms=times['stage1_image'][0],
+        plain_ms=times['stage1_image'][1], bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    print(json.dumps({'phase': 'kernel', **report['window_attention_block'],
+                      'shape': [8, 120, 160, 128], 'rel_err': errs,
+                      'stage4_ms': times['stage4_image'][0],
+                      'stage4_plain_ms': times['stage4_image'][1],
+                      'stage4_bound_ms': bound(n_bytes4, n_ops4,
+                                               PEAK_BF16_FLOPS)[0],
+                      'library': 'none: no single PyTorch call computes '
+                                 'the qkv product, cosine attention with '
+                                 'bias and shift mask, and the output '
+                                 'projection'}), flush=True)
+
+
+def _ulp_check(got, want):
+    """(values beyond one bf16 ulp of `want`, values beyond both one
+    ulp and the f32 noise floor 1e-6 x max |want|): where the affine
+    y * w + b cancels to near 0, another f32 summation order of the
+    statistics moves the result by more than one ulp of a tiny value."""
+    want = want.float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    diff = (got.float() - want).abs()
+    floor = 1e-6 * float(want.abs().max())
+    return int((diff > ulp).sum()), int((diff > torch.clamp(
+        ulp, min=floor)).sum())
+
+
+def check_layernorm(ln, report):
+    """Row 10 at (153600, 128) and (2400, 1024) bf16 (the Swin stage-1
+    and stage-4 rows) and in f32, plus the patch embeds' widths 96 and
+    32 and eps 1e-6; times the first."""
+    import torch.nn.functional as F
+    g = torch.Generator(device='cuda').manual_seed(7)
+    err, beyond_ulp = 0.0, {}
+    for rows, C, eps in ((153600, 128, 1e-5), (2400, 1024, 1e-5),
+                         (4800, 96, 1e-5), (4801, 32, 1e-6)):
+        x = torch.randn(rows, C, device='cuda', generator=g) * 2 + 0.5
+        w = torch.rand(C, device='cuda', generator=g) + 0.5
+        b = torch.randn(C, device='cuda', generator=g) * 0.1
+        for dt in (torch.bfloat16, torch.float32):
+            got = ln.fused_layer_norm(x.to(dt), w, b, eps)
+            torch.cuda.synchronize()
+            want = ln.layer_norm_reference(x.to(dt), w, b, eps)
+            if dt == torch.bfloat16:
+                n_ulp, n_bad = _ulp_check(got, want)
+                beyond_ulp[f'{rows}x{C}'] = n_ulp
+                if n_bad:
+                    fail(f'layernorm ({rows}, {C}) bf16: {n_bad} values '
+                         f'more than 1 ulp and 1e-6 x max |out| from the '
+                         f'plain version')
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                err = max(err, float((got - want).abs().max()))
+    x = (torch.randn(153600, 128, device='cuda', generator=g)
+         ).to(torch.bfloat16)
+    w = torch.rand(128, device='cuda', generator=g) + 0.5
+    b = torch.randn(128, device='cuda', generator=g) * 0.1
+    ms = cuda_ms(lambda: ln.fused_layer_norm(x, w, b))
+    plain_ms = cuda_ms(lambda: ln.layer_norm_reference(x, w, b))
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: F.layer_norm(x, (128,), wb, bb, 1e-5))
+    # read once, written once; ~8 f32 operations a value
+    b_ms, b_by = bound(2 * x.numel() * 2 + 2 * 128 * 4, 8 * x.numel())
+    report['layernorm'] = dict(
+        name='layernorm', route='cuda',
+        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/layernorm.cu',
+        replaces='nicr_mtsa_tpu/ops/pallas/layernorm.py:40',
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms)
+    print(json.dumps({'phase': 'kernel', **report['layernorm'],
+                      'shape': [153600, 128],
+                      'bf16_values_beyond_1ulp': beyond_ulp}), flush=True)
+
+
+def check_finisher_bilinear(fin, report):
+    """Row 3 at (8, 40, 120, 160), bf16 and f32, plus the tie case;
+    times bf16."""
+    g = torch.Generator(device='cuda').manual_seed(8)
+    B, C, H, W = 8, 40, 120, 160
+    x = torch.randn(B, C, H, W, device='cuda', generator=g) * 3
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        got = fin.upsample4x_bilinear_argmax_score(x.to(dt))
+        torch.cuda.synchronize()
+        err = max(err, _same('finisher4x_bilinear', got,
+                             fin.upsample4x_bilinear_argmax_score_reference(
+                                 x.to(dt))))
+    i_k, _ = fin.upsample4x_bilinear_argmax_score(_tied_logits())
+    torch.cuda.synchronize()
+    if not bool((i_k == 2).all()):
+        fail('finisher4x_bilinear: tied classes did not resolve to the '
+             'first index')
+    xd = x.to(torch.bfloat16)
+    ms = cuda_ms(lambda: fin.upsample4x_bilinear_argmax_score(xd))
+    plain_ms = cuda_ms(
+        lambda: fin.upsample4x_bilinear_argmax_score_reference(xd))
+    b_ms, b_by = _finisher_bound(xd)
+    report['finisher4x_bilinear'] = dict(
+        name='finisher4x_bilinear', route='cuda',
+        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/finisher4x.cu',
+        replaces='nicr_mtsa_tpu/ops/pallas/semantic_finisher4x.py:285',
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    print(json.dumps({'phase': 'kernel', **report['finisher4x_bilinear'],
+                      'library': 'none: no single PyTorch call gives the '
+                                 'argmax and max-softmax score of a 4x '
+                                 'upsampling'}), flush=True)
+
+
 def frames(B, H=480, W=640, seed=0):
     rng = np.random.default_rng(seed)
     rgb = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
@@ -479,13 +709,12 @@ def profile(fn, result, key):
                                for r in rows[:5]]}), flush=True)
 
 
-def card_vs_cpu(result):
-    """f32 pipeline on one frame, on the card and on the CPU, with the
-    same weights (the same seed builds the same model on both)."""
-    from nicr_mtsa_tpu_torch.pipeline import (build_serving_pipeline,
-                                              emsanet_bench_config)
-    cfg = emsanet_bench_config(dtype='float32')
-    rgb, depth = frames(1, seed=3)
+def card_vs_cpu(result, cfg, key, frame_seed):
+    """The f32 serving pipeline of `cfg` on one frame, on the card and
+    on the CPU, with the same weights (the same seed builds the same
+    model on both)."""
+    from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
+    rgb, depth = frames(1, seed=frame_seed)
     outs = {}
     for dev in ('cuda', 'cpu'):
         pipe = build_serving_pipeline(cfg, device=dev, seed=0)
@@ -496,11 +725,63 @@ def card_vs_cpu(result):
              for k in ('semantic_idx', 'panoptic', 'panoptic_instance')}
     scene_err = float((outs['cuda']['scene_logits']
                        - outs['cpu']['scene_logits']).abs().max())
-    result['card_vs_cpu'] = dict(agreement=agree, scene_max_abs=scene_err)
-    print(json.dumps({'phase': 'card_vs_cpu', 'agreement': agree,
+    result[key] = dict(agreement=agree, scene_max_abs=scene_err)
+    print(json.dumps({'phase': key, 'agreement': agree,
                       'scene_max_abs': scene_err}), flush=True)
     if agree['semantic_idx'] < 0.999:
-        fail(f"semantic_idx card vs CPU agreement {agree['semantic_idx']}")
+        fail(f"{key}: semantic_idx agreement {agree['semantic_idx']}")
+
+
+def serve_swin(args, kernels, card, result):
+    """`emsaformer_dve_v2` serving at B=8: a warm-up request, then three
+    timed rounds of N requests with the counters set to 0 just before;
+    frames/s is the median round."""
+    from nicr_mtsa_tpu_torch.pipeline import (build_serving_pipeline,
+                                              emsaformer_bench_config)
+    B = 8
+    pipe = build_serving_pipeline(emsaformer_bench_config(), device='cuda',
+                                  seed=0)
+    rgb, depth = frames(B)
+    rgb_t = torch.from_numpy(rgb).cuda()
+    depth_t = torch.from_numpy(depth).cuda()
+    out = pipe(rgb_t, depth_t)
+    torch.cuda.synchronize()
+    check_outputs(out, B, 480, 640, 40)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(args.swin_requests):
+            out = pipe(rgb_t, depth_t)
+        int(out['panoptic'][0, 0, 0])
+        rounds.append(B * args.swin_requests / (time.perf_counter() - t0))
+    n = 3 * args.swin_requests
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    check_outputs(out, B, 480, 640, 40)
+    per_request = {k: launches[k] / n for k in SWIN_KERNELS}
+    for k, want in SWIN_KERNELS.items():
+        if per_request[k] != want:
+            fail(f'kernel {k}: {per_request[k]} launches a Swin request, '
+                 f'expected {want}')
+    fps = float(np.median(rounds))
+    result['serving_swin'] = dict(
+        batch=B, requests_per_round=args.swin_requests,
+        rounds_frames_per_s=rounds, frames_per_s=fps, card=card,
+        launches_per_request=per_request,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        n_instances=[int(v) for v in out['panoptic_instance'].amax(
+            dim=(1, 2))])
+    print(json.dumps({'phase': 'serve_swin', 'frames_per_s': fps,
+                      'rounds_frames_per_s': rounds, 'batch': B,
+                      'requests': n, 'launches_per_request': per_request,
+                      'peak_mem_gb': result['serving_swin']['peak_mem_gb'],
+                      'card': card}), flush=True)
+    if args.profile:
+        profile(lambda: pipe(rgb_t, depth_t), result, 'serving_swin')
+    return {k: launches[k] for k in SWIN_KERNELS}
 
 
 EVAL_LOG_KEYS = ('semantic_miou', 'panoptic_deeplab_semantic_miou',
@@ -620,11 +901,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=10,
                     help='requests per timed round (3 rounds)')
+    ap.add_argument('--swin-requests', type=int, default=5,
+                    help='Swin requests per timed round (3 rounds)')
     ap.add_argument('--steps', type=int, default=5,
                     help='eval steps per timed round (3 rounds)')
     ap.add_argument('--profile', action='store_true',
-                    help='also trace 3 requests and 3 eval steps with '
-                         'torch.profiler')
+                    help='also trace 3 requests of each serving path '
+                         'and 3 eval steps with torch.profiler')
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -635,8 +918,11 @@ def main():
 
     from nicr_mtsa_tpu_torch.ops import cuda as kernels
     from nicr_mtsa_tpu_torch.ops.cuda import (_build, finisher4x, grouping,
-                                              intersection, resize_reduce,
-                                              semantic_reduce)
+                                              intersection, layernorm,
+                                              resize_reduce, semantic_reduce,
+                                              window_attention)
+    from nicr_mtsa_tpu_torch.pipeline import (emsaformer_bench_config,
+                                              emsanet_bench_config)
     build_s = kernels.build_all()
     print(json.dumps({'phase': 'build', 'seconds': build_s}), flush=True)
     torch.backends.cudnn.allow_tf32 = False
@@ -653,14 +939,27 @@ def main():
     check_intersection(intersection, report)
     check_ties()
     launches = serve(args, kernels, card, result)
-    card_vs_cpu(result)
+    card_vs_cpu(result, emsanet_bench_config(dtype='float32'),
+                'card_vs_cpu', frame_seed=3)
     eval_launches, pipe = evaluate(args, kernels, card, result)
     eval_card_vs_cpu(pipe, result)
+    del pipe
+    check_window_attention(window_attention, report)
+    check_layernorm(layernorm, report)
+    check_finisher_bilinear(finisher4x, report)
+    swin_launches = serve_swin(args, kernels, card, result)
+    card_vs_cpu(result, emsaformer_bench_config(dtype='float32'),
+                'swin_card_vs_cpu', frame_seed=4)
 
-    # each kernel's launches from the run of its own path
+    # each kernel's launches from the run of its own path (the grouping
+    # from the EMSANet serving run)
     launches.update({n: eval_launches[n] for n in EVAL_KERNELS})
+    launches.update({n: swin_launches[n] for n in SWIN_KERNELS
+                     if n not in launches})
+    names = (*SERVING_KERNELS, *EVAL_KERNELS,
+             *(n for n in SWIN_KERNELS if n not in SERVING_KERNELS))
     line = {'kernels': [dict(report[n], launches=launches[n])
-                        for n in (*SERVING_KERNELS, *EVAL_KERNELS)]}
+                        for n in names]}
     result['kernels'] = line['kernels']
     result['seconds'] = time.perf_counter() - t_start
     os.makedirs('chiprun_out', exist_ok=True)

@@ -1,5 +1,5 @@
 from .multi_task import MultiTaskModel, MultiTaskModelConfig, build_model
-from .upsampling import DeferredUpsampling2
+from .upsampling import DeferredBilinear2, DeferredUpsampling2
 
 __all__ = ['MultiTaskModel', 'MultiTaskModelConfig', 'build_model',
-           'DeferredUpsampling2']
+           'DeferredBilinear2', 'DeferredUpsampling2']

@@ -1,6 +1,36 @@
 """Backbones of the port: ResNet-18/34 with basicblock or
-nonbottleneck1d blocks (the Swin family comes with a later slice)."""
+nonbottleneck1d blocks, and Swin v1/v2 (single- or multimodal).
+`get_backbone` is the registry (counterpart of nicr_mtsa_tpu/models/
+backbones/__init__.py)."""
 from .base import Backbone
 from .resnet import ResNetBackbone, get_resnet_backbone
+from .swin import SwinBackbone, get_swin_backbone
 
-__all__ = ['Backbone', 'ResNetBackbone', 'get_resnet_backbone']
+KNOWN_BACKBONES = (
+    'resnet18', 'resnet34',
+    'swin-t', 'swin-s', 'swin-b', 'swin-t-v2', 'swin-s-v2', 'swin-b-v2',
+    'swin-t-128', 'swin-t-v2-128',
+    'swin-multi-t', 'swin-multi-s', 'swin-multi-b',
+    'swin-multi-t-v2', 'swin-multi-s-v2', 'swin-multi-b-v2',
+    'swin-multi-t-128', 'swin-multi-t-v2-128',
+)
+
+
+def get_backbone(name: str, resnet_block=None, n_input_channels: int = 3,
+                 normalization: str = 'batchnorm', activation: str = 'relu',
+                 generator=None) -> Backbone:
+    name = name.lower()
+    if name not in KNOWN_BACKBONES:
+        raise ValueError(f"Unsupported backbone in this port: '{name}'")
+    if name.startswith('resnet'):
+        return get_resnet_backbone(name, block=resnet_block,
+                                   n_input_channels=n_input_channels,
+                                   normalization=normalization,
+                                   activation=activation,
+                                   generator=generator)
+    return get_swin_backbone(name, n_input_channels=n_input_channels,
+                             generator=generator)
+
+
+__all__ = ['Backbone', 'ResNetBackbone', 'SwinBackbone', 'KNOWN_BACKBONES',
+           'get_backbone', 'get_resnet_backbone', 'get_swin_backbone']

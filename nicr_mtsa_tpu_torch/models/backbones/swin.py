@@ -1,0 +1,325 @@
+"""Swin Transformer backbone v1 / v2, inference only (counterpart of
+nicr_mtsa_tpu/models/backbones/swin.py). Five stages, callable through
+`forward_stage`:
+  0: patch embed (4x4)                          ds 4
+  1: stage-1 blocks                             ds 4
+  2: patch merging + stage-2 blocks             ds 8
+  3: patch merging + stage-3 blocks             ds 16
+  4: patch merging + stage-4 blocks + final LN  ds 32
+v1: 7x7 windows, pre-norm, a relative-position bias table; v2: 8x8
+windows, post-norm, cosine attention with a learned logit scale and the
+log-spaced continuous position bias MLP. Shifted windows on every
+second block. Stochastic depth is the identity at inference.
+
+Layout: the blocks work on NHWC tensors (the LayerNorms and the window
+partition read the channel axis last); `forward_stage` takes and
+returns NCHW views of them, so the encoder and the decoders see the
+port's usual NCHW shapes without a copy. The attention part of a block
+(pad to window multiples, cyclic shift, window partition, the qkv
+product, attention, the output projection, and back) is one call of
+ops/cuda/window_attention.py `window_attention_image`, and every
+LayerNorm goes through ops/cuda/layernorm.py (the kernels on the card,
+their plain versions on the CPU); the MLP's dense layers and the patch
+merging's reduction are plain `F.linear`."""
+import math
+from typing import List, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...ops.cuda.window_attention import (window_attention_block,
+                                         window_attention_image)
+from ..common import (Conv2d, FusedLayerNorm, Linear, cached_weight,
+                      trunc_normal_)
+from .base import Backbone
+
+
+def relative_position_index(ws: int) -> np.ndarray:
+    """(ws*ws, ws*ws) indices into the (2ws-1)^2 bias table."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws),
+                                  indexing='ij')).reshape(2, -1)
+    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0)
+    rel = rel + (ws - 1)
+    return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).astype(np.int64)
+
+
+def log_cpb_coords(ws: int) -> np.ndarray:
+    """((2ws-1)^2, 2) f32 log-spaced relative coordinates of the v2
+    continuous position bias."""
+    r = np.arange(-(ws - 1), ws, dtype=np.float32)
+    table = np.stack(np.meshgrid(r, r, indexing='ij'), axis=-1)
+    table = table / (ws - 1) * 8.0
+    table = np.sign(table) * np.log2(np.abs(table) + 1.0) / 3.0
+    return table.reshape(-1, 2)
+
+
+def _derived(module: nn.Module, key: str, params, build):
+    """`build()` of several parameters, cached until one of them is
+    modified in place or moved (as `cached_weight`)."""
+    ver = tuple((p.device, p.data_ptr(), p._version) for p in params)
+    cache = module.__dict__.setdefault('_derived_cache', {})
+    hit = cache.get(key)
+    if hit is None or hit[0] != ver:
+        with torch.no_grad():
+            hit = cache[key] = (ver, build())
+    return hit[1]
+
+
+class WindowAttention(nn.Module):
+    """Window attention over (B_windows, N, C); parameter names follow
+    the flax module (`qkv`, `proj`, v2 `cpb_fc1`/`cpb_fc2`/
+    `logit_scale`, v1 `relative_position_bias_table`)."""
+
+    def __init__(self, dim: int, n_heads: int, window_size: int,
+                 v2: bool = False, generator=None):
+        super().__init__()
+        self.dim, self.n_heads, self.window_size = dim, n_heads, window_size
+        self.v2 = v2
+        self.qkv = Linear(dim, 3 * dim, generator=generator)
+        self.proj = Linear(dim, dim, generator=generator)
+        if v2:
+            self.cpb_fc1 = Linear(2, 512, std=None, generator=generator)
+            self.cpb_fc2 = Linear(512, n_heads, use_bias=False, std=None,
+                                  generator=generator)
+            self.logit_scale = nn.Parameter(
+                torch.full((n_heads, 1, 1), math.log(10.0)))
+        else:
+            self.relative_position_bias_table = nn.Parameter(trunc_normal_(
+                torch.empty((2 * window_size - 1) ** 2, n_heads),
+                generator=generator))
+
+    def position_bias(self) -> torch.Tensor:
+        """(h, N, N) f32 additive relative-position bias, query-major."""
+        ws, h = self.window_size, self.n_heads
+        N = ws * ws
+
+        def build():
+            idx = torch.from_numpy(relative_position_index(ws).reshape(-1))
+            if self.v2:
+                dev = self.cpb_fc1.weight.device
+                coords = torch.from_numpy(log_cpb_coords(ws)).to(dev)
+                t = F.relu(F.linear(coords, self.cpb_fc1.weight,
+                                    self.cpb_fc1.bias))
+                table = F.linear(t, self.cpb_fc2.weight)
+            else:
+                table = self.relative_position_bias_table
+            bias = table[idx.to(table.device)].view(N, N, h).permute(2, 0, 1)
+            bias = 16.0 * torch.sigmoid(bias) if self.v2 else bias
+            return bias.float().contiguous()
+
+        params = ((self.cpb_fc1.weight, self.cpb_fc1.bias,
+                   self.cpb_fc2.weight) if self.v2
+                  else (self.relative_position_bias_table,))
+        return _derived(self, 'position_bias', params, build)
+
+    def v2_scale(self) -> torch.Tensor:
+        """(h,) f32 logit scale exp(min(s, log 100))."""
+        return _derived(self, 'v2_scale', (self.logit_scale,), lambda: torch.exp(
+            torch.minimum(self.logit_scale.float(),
+                          torch.log(torch.tensor(100.0)).to(
+                              self.logit_scale.device))).view(-1))
+
+    def qkv_bias(self) -> torch.Tensor:
+        """(3C,) f32 qkv bias; v2 zeroes its k third on every forward
+        (k is normalised per head, so a key bias is not a no-op)."""
+        def build():
+            b = self.qkv.bias.float().clone()
+            if self.v2:
+                b[self.dim:2 * self.dim] = 0.0
+            return b
+        return _derived(self, 'qkv_bias', (self.qkv.bias,), build)
+
+    def _weights(self, dt):
+        """(wqkv (C, 3C), bqkv, wproj (C, C), bproj, position bias, v2
+        scale or None), the products' weights in the compute dtype."""
+        wqkv = cached_weight(self.qkv, 'weight', dt,
+                             lambda w: w.t().contiguous())
+        wproj = cached_weight(self.proj, 'weight', dt,
+                              lambda w: w.t().contiguous())
+        return (wqkv, self.qkv_bias(), wproj, self.proj.bias,
+                self.position_bias(), self.v2_scale() if self.v2 else None)
+
+    def forward(self, windows, grid_hw: Tuple[int, int] = (1, 1),
+                shift=None):
+        """Windows (Bw, N, C), as the flax module takes them."""
+        wqkv, bqkv, wproj, bproj, bias, scale = self._weights(windows.dtype)
+        return window_attention_block(windows, wqkv, bqkv, wproj, bproj,
+                                      bias, self.n_heads, grid_hw, shift,
+                                      scale)
+
+    def forward_image(self, x, shift: int = 0):
+        """A Swin block's attention part on its (B, H, W, C) image:
+        padding, the cyclic shift and the window partition included."""
+        wqkv, bqkv, wproj, bproj, bias, scale = self._weights(x.dtype)
+        return window_attention_image(x, wqkv, bqkv, wproj, bproj, bias,
+                                      self.n_heads, self.window_size,
+                                      shift, scale)
+
+
+class SwinBlock(nn.Module):
+    def __init__(self, dim: int, n_heads: int, window_size: int,
+                 shift: int = 0, mlp_ratio: float = 4.0, v2: bool = False,
+                 generator=None):
+        super().__init__()
+        self.window_size, self.shift, self.v2 = window_size, shift, v2
+        self.attn = WindowAttention(dim, n_heads, window_size, v2,
+                                    generator)
+        self.norm1 = FusedLayerNorm(dim)
+        self.norm2 = FusedLayerNorm(dim)
+        hidden = int(dim * mlp_ratio)
+        self.mlp_fc1 = Linear(dim, hidden, generator=generator)
+        self.mlp_fc2 = Linear(hidden, dim, generator=generator)
+
+    def _attention_part(self, y):
+        return self.attn.forward_image(y, self.shift)
+
+    def _mlp_part(self, y):
+        # exact (erf) GELU, as the JAX package's
+        return self.mlp_fc2(F.gelu(self.mlp_fc1(y)))
+
+    def forward(self, x):
+        """x: (B, H, W, C)."""
+        if self.v2:                    # post-norm
+            x = x + self.norm1(self._attention_part(x))
+            return x + self.norm2(self._mlp_part(x))
+        x = x + self._attention_part(self.norm1(x))
+        return x + self._mlp_part(self.norm2(x))
+
+
+class PatchMerging(nn.Module):
+    """2x2 patch merging, concat of the 4 neighbours in (dy, dx) order
+    -> 2C; v1: LN then projection, v2: projection then LN."""
+
+    def __init__(self, dim: int, v2: bool = False, generator=None):
+        super().__init__()
+        self.v2 = v2
+        self.reduction = Linear(4 * dim, 2 * dim, use_bias=False,
+                                generator=generator)
+        self.norm = FusedLayerNorm(2 * dim if v2 else 4 * dim)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        if H % 2 or W % 2:
+            x = F.pad(x, (0, 0, 0, W % 2, 0, H % 2))
+            H, W = H + H % 2, W + W % 2
+        x = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(B, H // 2, W // 2, 4 * C)
+        if self.v2:
+            return self.norm(self.reduction(x))
+        return self.reduction(self.norm(x))
+
+
+class PatchEmbed(nn.Module):
+    """4x4 stride-4 conv (NCHW in) + LN (NHWC out)."""
+
+    def __init__(self, embed_dim: int = 96, patch_size: int = 4,
+                 n_input_channels: int = 3, generator=None):
+        super().__init__()
+        self.proj = Conv2d(n_input_channels, embed_dim, patch_size,
+                           stride=patch_size, padding=0, use_bias=True)
+        trunc_normal_(self.proj.weight, generator=generator)
+        self.norm = FusedLayerNorm(embed_dim)
+
+    def forward(self, x):
+        return self.norm(self.proj(x).permute(0, 2, 3, 1))
+
+
+class MergedPatchEmbedder(nn.Module):
+    """Multimodal patch embed: separate rgb / depth patch convs + LNs,
+    concatenated channel-wise."""
+
+    def __init__(self, embed_dim_rgb: int = 64, embed_dim_depth: int = 32,
+                 patch_size: int = 4, generator=None):
+        super().__init__()
+        self.rgb = PatchEmbed(embed_dim_rgb, patch_size, 3, generator)
+        self.depth = PatchEmbed(embed_dim_depth, patch_size, 1, generator)
+
+    def forward(self, x):
+        """x: (B, 4, H, W) rgbd."""
+        return torch.cat([self.rgb(x[:, :3]), self.depth(x[:, 3:])], dim=-1)
+
+
+class SwinBackbone(Backbone):
+    def __init__(self, embed_dim: int = 96,
+                 depths: Tuple[int, ...] = (2, 2, 6, 2),
+                 n_heads: Tuple[int, ...] = (3, 6, 12, 24),
+                 window_size: int = 7, mlp_ratio: float = 4.0,
+                 v2: bool = False, n_input_channels: int = 3,
+                 multimodal: bool = False, embed_dim_depth: int = 32,
+                 generator=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.n_input_channels = n_input_channels
+        if multimodal:
+            assert n_input_channels == 4
+            self.patch_embed = MergedPatchEmbedder(
+                embed_dim - embed_dim_depth, embed_dim_depth,
+                generator=generator)
+        else:
+            self.patch_embed = PatchEmbed(embed_dim, 4, n_input_channels,
+                                          generator)
+        self._layer_names: List[List[str]] = []
+        for i, (depth, heads) in enumerate(zip(depths, n_heads)):
+            names = []
+            for b in range(depth):
+                name = f'layer{i + 1}_block{b}'
+                self.add_module(name, SwinBlock(
+                    embed_dim * 2 ** i, heads, window_size,
+                    shift=0 if b % 2 == 0 else window_size // 2,
+                    mlp_ratio=mlp_ratio, v2=v2, generator=generator))
+                names.append(name)
+            self._layer_names.append(names)
+        for i in range(1, 4):
+            self.add_module(f'merge{i}', PatchMerging(
+                embed_dim * 2 ** (i - 1), v2, generator))
+        self.norm = FusedLayerNorm(8 * embed_dim)
+
+    @property
+    def stages_n_channels(self) -> List[int]:
+        e = self.embed_dim
+        return [e, e, 2 * e, 4 * e, 8 * e]
+
+    @property
+    def stages_downsampling(self) -> List[int]:
+        return [4, 4, 8, 16, 32]
+
+    def forward_stage(self, idx: int, x):
+        """NCHW in, an NCHW view of the NHWC result out."""
+        if idx == 0:
+            return self.patch_embed(x).permute(0, 3, 1, 2)
+        x = x.permute(0, 2, 3, 1).contiguous()
+        if idx >= 2:
+            x = getattr(self, f'merge{idx - 1}')(x)
+        for name in self._layer_names[idx - 1]:
+            x = getattr(self, name)(x)
+        if idx == 4:
+            x = self.norm(x)
+        return x.permute(0, 3, 1, 2)
+
+
+def get_swin_backbone(name: str, n_input_channels: int = 3,
+                      generator=None) -> SwinBackbone:
+    """swin-{t,s,b}[-v2], swin-t[-v2]-128, and the swin-multi-*
+    variants with the merged rgb + depth patch embedder."""
+    name = name.lower()
+    v2 = '-v2' in name
+    multimodal = name.startswith('swin-multi')
+    if '-t' in name:
+        depths, heads, embed = (2, 2, 6, 2), (3, 6, 12, 24), 96
+    elif '-s' in name:
+        depths, heads, embed = (2, 2, 18, 2), (3, 6, 12, 24), 96
+    elif '-b' in name:
+        depths, heads, embed = (2, 2, 18, 2), (4, 8, 16, 32), 128
+    else:
+        raise ValueError(f"Unknown swin backbone: '{name}'")
+    if name.endswith('-128'):
+        # EMSAFormer's widened Swin-T (head width 32, like swin-b)
+        embed, heads = 128, (4, 8, 16, 32)
+    if multimodal:
+        n_input_channels = 4
+    return SwinBackbone(embed_dim=embed, depths=depths, n_heads=heads,
+                        window_size=8 if v2 else 7, v2=v2,
+                        n_input_channels=n_input_channels,
+                        multimodal=multimodal, generator=generator)

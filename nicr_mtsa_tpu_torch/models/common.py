@@ -1,5 +1,6 @@
-"""Shared model building blocks: conv, BatchNorm, ConvNormAct,
-SqueezeAndExcitation (counterpart of nicr_mtsa_tpu/models/common.py).
+"""Shared model building blocks: conv, BatchNorm, the LayerNorm over the
+last axis, a Dense layer, ConvNormAct, SqueezeAndExcitation
+(counterpart of nicr_mtsa_tpu/models/common.py).
 
 Parameters stay float32; every module casts its weights to the dtype
 of its input (once, then cached), as the flax modules compute in a
@@ -7,7 +8,7 @@ threaded `dtype` with f32 masters. Submodule and parameter names
 follow the flax names (`conv`, `norm`, `fc1`, ...) so
 utils/flax_weights.py maps the trees mechanically. Initialisation:
 He fan-out normal for convs (torch's kaiming_normal_(mode='fan_out',
-nonlinearity='relu')), BN identity."""
+nonlinearity='relu')), BN and LN identity."""
 import math
 from typing import Optional, Tuple, Union
 
@@ -29,17 +30,19 @@ def cached_weight(module: nn.Module, name: str, dtype, build=None):
     """Parameter or buffer `name` of `module`, passed through `build`
     and cast to `dtype`, cached until it is modified in place or moved:
     a forward pass would otherwise launch one cast per weight (about
-    1200 copies per serving request)."""
+    1200 copies per serving request). Each transform (`build`'s code)
+    has its own slot, apart from the plain cast."""
     p = getattr(module, name)
     if p is None:
         return None
     key = (dtype, p.device, p.data_ptr(), p._version)
+    slot = name if build is None else (name, build.__code__)
     cache = module.__dict__.setdefault('_weight_cache', {})
-    hit = cache.get(name)
+    hit = cache.get(slot)
     if hit is None or hit[0] != key:
         with torch.no_grad():
             t = (p if build is None else build(p)).to(dtype).detach()
-        hit = cache[name] = (key, t)
+        hit = cache[slot] = (key, t)
     return hit[1]
 
 
@@ -110,8 +113,62 @@ class BatchNorm(nn.Module):
             cached_weight(self, 'bias', dt), False, 0.0, self.eps)
 
 
+class FusedLayerNorm(nn.Module):
+    """LayerNorm over the last axis through the LN kernel
+    (ops/cuda/layernorm.py; its plain version on the CPU): f32
+    statistics with the clamped fast variance, eps inside the rsqrt,
+    the affine in f32, one cast at the end. eps 1e-5 is the JAX
+    package's `FusedLayerNorm` (torch's default); the decoders' skip
+    LayerNorm is flax `nn.LayerNorm` and passes its 1e-6."""
+
+    def __init__(self, n_channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(n_channels))
+        self.bias = nn.Parameter(torch.zeros(n_channels))
+
+    def forward(self, x):
+        # imported here: ops/cuda imports this module's siblings
+        from ..ops.cuda.layernorm import fused_layer_norm
+        return fused_layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def trunc_normal_(t, std: float = 0.02, generator=None):
+    """Normal(0, std) truncated at two standard deviations, in place."""
+    with torch.no_grad():
+        t.normal_(0.0, std, generator=generator).clamp_(-2 * std, 2 * std)
+    return t
+
+
+class Linear(nn.Module):
+    """Dense layer over the last axis (flax `nn.Dense`): weight (out,
+    in), computed in the input's dtype. Initialisation: truncated
+    normal (std 0.02) by default, else flax's lecun-normal kernel;
+    zero bias."""
+
+    def __init__(self, n_in: int, n_out: int, use_bias: bool = True,
+                 std: Optional[float] = 0.02, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_out, n_in))
+        self.bias = nn.Parameter(torch.zeros(n_out)) if use_bias else None
+        if std is None:
+            with torch.no_grad():
+                self.weight.normal_(0.0, 1.0 / math.sqrt(n_in),
+                                    generator=generator)
+        else:
+            trunc_normal_(self.weight, std, generator)
+
+    def forward(self, x):
+        dt = x.dtype
+        return F.linear(x, cached_weight(self, 'weight', dt),
+                        cached_weight(self, 'bias', dt))
+
+
 class ConvNormAct(nn.Module):
-    """conv -> norm -> act; `norm=None` gives the conv a bias."""
+    """conv -> norm -> act; `norm=None` gives the conv a bias. A 1x1
+    ConvNormAct also takes a sequence of NCHW tensors, the conv of
+    their channel concatenation (the JAX package's per-part kernel
+    slices: same parameters, only the f32 summation order differs)."""
 
     def __init__(self, n_in: int, n_out: int, kernel_size: int = 1,
                  stride: int = 1, dilation: int = 1,
@@ -128,6 +185,8 @@ class ConvNormAct(nn.Module):
         self.act = get_activation(act) if act is not None else None
 
     def forward(self, x):
+        if isinstance(x, (tuple, list)):
+            x = torch.cat(x, dim=1)
         x = self.conv(x)
         if self.norm is not None:
             x = self.norm(x)

@@ -1,8 +1,14 @@
-"""Dense decoder ladder (counterpart of nicr_mtsa_tpu/models/decoders/
-base.py DenseDecoderModule / DenseDecoderBase), inference only: each
-step is ConvNormAct 3x3 + n residual blocks + 2x upsampling, followed
-by skip fusion. Returns `(main, side_outputs)` with no side outputs."""
-from typing import Tuple
+"""Decoder bases (counterpart of nicr_mtsa_tpu/models/decoders/base.py),
+inference only; both return `(main, side_outputs)` with no side
+outputs.
+
+- `DenseDecoderBase`: the dense ladder; each step is ConvNormAct 3x3 +
+  n residual blocks + 2x upsampling, followed by skip fusion.
+- `MLPDecoderBase`: SegFormer-style; a 1x1 embedding of the context
+  features and of each (selected, LayerNormed) skip, all upsampled to
+  `downsampling_in_heads`, concatenated, fused by a 1x1 ConvNormAct
+  (dropout is the identity at inference), then the task head."""
+from typing import Optional, Tuple
 
 import torch.nn as nn
 
@@ -111,3 +117,58 @@ class DenseDecoderBase(nn.Module):
                 x = getattr(self, f'fusion{fusion_idx}')(skips[str(fds)], x)
                 fusion_idx += 1
         return self.apply_task_head(x), ()
+
+
+class MLPDecoderBase(nn.Module):
+    def __init__(self, n_channels_in: int = 512, downsampling_in: int = 32,
+                 n_channels: Tuple[int, ...] = (128, 128, 128, 128),
+                 fusion: str = 'select-rgb',
+                 fusion_n_channels: Tuple[int, ...] = (),
+                 fusion_downsamplings: Tuple[int, ...] = (16, 8, 4),
+                 downsampling_in_heads: int = 4,
+                 n_channels_out: Optional[int] = None,
+                 norm: str = 'batchnorm', act: str = 'relu',
+                 upsampling: str = 'bilinear',
+                 prediction_upsampling: str = 'bilinear', generator=None):
+        super().__init__()
+        assert len(n_channels) == 1 + len(fusion_n_channels)
+        assert len(fusion_n_channels) == len(fusion_downsamplings)
+        self.downsampling_in_heads = downsampling_in_heads
+        self.prediction_upsampling = prediction_upsampling
+        self.norm, self.act = norm, act
+        self.fusion_downsamplings = tuple(fusion_downsamplings)
+        fusion_cfg = parse_encoder_decoder_fusion(fusion)
+        self.main_embedding = ConvNormAct(n_channels_in, n_channels[0], 1,
+                                          norm=None, act=None,
+                                          generator=generator)
+        self.main_upsample = Upsampling(
+            upsampling, n_channels[0],
+            scale_factor=downsampling_in // downsampling_in_heads)
+        for i, (n_skip, n_dec) in enumerate(zip(fusion_n_channels,
+                                                n_channels[1:])):
+            ds = self.fusion_downsamplings[i]
+            self.add_module(f'skip_fusion{i}', EncoderDecoderFusion(
+                n_skip, n_skip, norm=norm, act=act, generator=generator,
+                **fusion_cfg))
+            self.add_module(f'skip_embedding{i}', ConvNormAct(
+                n_skip, n_dec, 1, norm=None, act=None, generator=generator))
+            self.add_module(f'skip_upsample{i}', Upsampling(
+                upsampling, n_dec, scale_factor=ds // downsampling_in_heads))
+        self.head_n_channels = (n_channels_out if n_channels_out is not None
+                                else sum(n_channels) // len(n_channels))
+        self.fuse = ConvNormAct(sum(n_channels), self.head_n_channels, 1,
+                                norm=norm, act=act, generator=generator)
+
+    def apply_task_head(self, x):
+        raise NotImplementedError
+
+    def forward(self, x, skips):
+        """x: (context_features, context_branches); skips:
+        {str(ds): {modality: tensor}}. Returns (main, ())."""
+        x, _ = x
+        features = [self.main_upsample(self.main_embedding(x))]
+        for i, ds in enumerate(self.fusion_downsamplings):
+            sel = getattr(self, f'skip_fusion{i}')(skips[str(ds)], None)
+            sel = getattr(self, f'skip_embedding{i}')(sel)
+            features.append(getattr(self, f'skip_upsample{i}')(sel))
+        return self.apply_task_head(self.fuse(features)), ()

@@ -2,7 +2,8 @@
 
 - `TaskHead`: 3x3 conv -> n x2 prediction upsamplings; with
   `defer_last_upsampling='all'` both upsamplings of a two-step head are
-  returned as a DeferredUpsampling2 (same parameters).
+  returned as a DeferredUpsampling2 (learned-3x3-zeropad, same
+  parameters) or a DeferredBilinear2 (bilinear, parameter-free).
 - `InstanceHead`: shared 3x3 ConvNormAct split into centre (sigmoid),
   offset (tanh) and orientation (unit length) convs; the concatenated
   raw maps are upsampled jointly before the activations."""
@@ -12,7 +13,7 @@ import torch
 import torch.nn as nn
 
 from ..common import Conv2d, ConvNormAct
-from ..upsampling import DeferredUpsampling2, Upsampling
+from ..upsampling import DeferredBilinear2, DeferredUpsampling2, Upsampling
 
 
 def unit_length(x, epsilon: float = 1e-7, dim: int = 1):
@@ -34,6 +35,7 @@ class TaskHead(nn.Module):
         self.defer_all = defer_last_upsampling == 'all'
         if self.defer_all:
             assert n_upsamplings == 2, n_upsamplings
+        self.bilinear = upsampling == 'bilinear'
         self.n_upsamplings = n_upsamplings
         k = 3 if n_upsamplings else 1
         self.conv = Conv2d(n_in, n_channels_out, k, use_bias=True,
@@ -44,6 +46,8 @@ class TaskHead(nn.Module):
 
     def forward(self, x):
         x = self.conv(x)
+        if self.defer_all and self.bilinear:
+            return DeferredBilinear2(x=x)
         if self.defer_all:
             u0, u1 = self.upsample_0, self.upsample_1
             return DeferredUpsampling2(x=x, kernel1=u0.weight,

@@ -1,8 +1,8 @@
-"""Dense semantic decoder (counterpart of nicr_mtsa_tpu/models/
-decoders/semantic.py SemanticDecoder)."""
+"""Semantic decoders, dense and MLP (counterpart of nicr_mtsa_tpu/
+models/decoders/semantic.py)."""
 from math import log2
 
-from .base import DenseDecoderBase
+from .base import DenseDecoderBase, MLPDecoderBase
 from .heads import TaskHead
 
 
@@ -15,6 +15,23 @@ class SemanticDecoder(DenseDecoderBase):
             self.n_channels_last, n_classes,
             upsampling=self.prediction_upsampling,
             n_upsamplings=int(log2(self.downsamplings[-1])),
+            defer_last_upsampling=defer_prediction_upsampling,
+            generator=generator)
+
+    def apply_task_head(self, x):
+        return self.task_head(x)
+
+
+class SemanticMLPDecoder(MLPDecoderBase):
+    def __init__(self, n_classes: int = 40, n_upsamplings=None,
+                 defer_prediction_upsampling=False, generator=None,
+                 **kwargs):
+        super().__init__(generator=generator, **kwargs)
+        n_up = (self.downsampling_in_heads // 2 if n_upsamplings is None
+                else n_upsamplings)
+        self.task_head = TaskHead(
+            self.head_n_channels, n_classes,
+            upsampling=self.prediction_upsampling, n_upsamplings=n_up,
             defer_last_upsampling=defer_prediction_upsampling,
             generator=generator)
 

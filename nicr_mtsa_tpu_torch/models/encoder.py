@@ -1,9 +1,12 @@
-"""Fused dual-backbone RGB-D encoder with stage-interleaved fusion
-(counterpart of nicr_mtsa_tpu/models/encoder.py FusedRGBDEncoder).
+"""Encoders (counterpart of nicr_mtsa_tpu/models/encoder.py): the
+single-backbone `Encoder` (one modality, or the rgbd concat of a
+4-channel backbone) and the dual-backbone `FusedRGBDEncoder` with
+stage-interleaved fusion.
 
-Contract: `forward({'rgb', 'depth'}) -> ({modality: out}, skips)` with
-`skips = {str(downsampling): {modality: features}}`; the fused
-features feed the next stage of the destination backbone(s)."""
+Contract: `forward({modality: x}) -> ({modality: out}, skips)` with
+`skips = {str(downsampling): {modality: features}}`; in the fused
+encoder the fused features feed the next stage of the destination
+backbone(s)."""
 from typing import List, Sequence, Tuple
 
 import torch.nn as nn
@@ -25,6 +28,49 @@ def _skip_stage_indices(stages_downsampling: Sequence[int],
             idx = list(stages_downsampling).index(ds)
         indices.append(idx)
     return indices
+
+
+class Encoder(nn.Module):
+    """Single-backbone encoder (one modality, or rgbd concat)."""
+
+    def __init__(self, backbone: Backbone,
+                 skip_downsamplings: Sequence[int] = (4, 8, 16)):
+        super().__init__()
+        self.backbone = backbone
+        self.skip_downsamplings = tuple(skip_downsamplings)
+
+    @property
+    def _skip_idx(self) -> List[int]:
+        return _skip_stage_indices(self.backbone.stages_downsampling,
+                                   self.skip_downsamplings)
+
+    @property
+    def skips_n_channels(self) -> Tuple[int, ...]:
+        return tuple(self.backbone.stages_n_channels[i]
+                     for i in self._skip_idx)
+
+    @property
+    def skips_downsamplings(self) -> Tuple[int, ...]:
+        return self.skip_downsamplings
+
+    @property
+    def n_channels_out(self) -> int:
+        return self.backbone.stages_n_channels[-1]
+
+    @property
+    def downsampling(self) -> int:
+        return self.backbone.stages_downsampling[-1]
+
+    def forward(self, x: dict):
+        assert len(x) == 1
+        key, y = next(iter(x.items()))
+        outs = []
+        for i in range(self.backbone.n_stages):
+            y = self.backbone.forward_stage(i, y)
+            outs.append(y)
+        skips = {str(ds): {key: outs[i]}
+                 for ds, i in zip(self.skip_downsamplings, self._skip_idx)}
+        return {key: outs[-1]}, skips
 
 
 class FusedRGBDEncoder(nn.Module):

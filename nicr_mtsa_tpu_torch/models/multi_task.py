@@ -1,7 +1,9 @@
-"""Multi-task model composition: fused RGB-D encoder -> context module
--> one dense decoder per enabled task (counterpart of
-nicr_mtsa_tpu/models/multi_task.py `MultiTaskModelConfig` and
-`build_model`, dense family).
+"""Multi-task model composition: encoder -> context module -> one
+decoder per enabled task (counterpart of nicr_mtsa_tpu/models/
+multi_task.py `MultiTaskModelConfig` and `build_model`): the dense
+family (fused dual-backbone RGB-D encoder, dense decoders) and the MLP
+family (a single 4-channel rgbd backbone such as the multimodal Swin,
+SegFormer-style MLP decoders, the dense-visual-embedding decoder).
 
 The config names its compute dtype as a string ('float32' or
 'bfloat16'); parameters are float32 and the modules compute in the
@@ -10,17 +12,18 @@ config. `build_model` initialises from a seeded `torch.Generator` on
 the CPU, so a seed gives the same weights on every device, then moves
 the model to its device (`cuda` unless the caller asks otherwise)."""
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..utils.device import resolve_device
-from .backbones import get_resnet_backbone
+from .backbones import get_backbone
 from .context import get_context_module
-from .decoders import (InstanceDecoder, SceneClassificationDecoder,
-                       SemanticDecoder)
-from .encoder import FusedRGBDEncoder
+from .decoders import (EmbeddingMLPDecoder, InstanceDecoder,
+                       InstanceMLPDecoder, SceneClassificationDecoder,
+                       SemanticDecoder, SemanticMLPDecoder)
+from .encoder import Encoder, FusedRGBDEncoder
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -32,8 +35,10 @@ class MultiTaskModelConfig:
     with NBt1D blocks at (512, 256, 128) channels)."""
     tasks: Tuple[str, ...] = ('semantic', 'instance', 'orientation',
                               'scene')
-    backbone_rgb: str = 'resnet34'
-    backbone_depth: str = 'resnet34'
+    backbone_rgb: Optional[str] = 'resnet34'
+    backbone_depth: Optional[str] = 'resnet34'
+    # a single 4-channel rgbd backbone instead of rgb + depth
+    backbone_rgbd: Optional[str] = None
     resnet_block: str = 'nonbottleneck1d'
     encoder_fusion: str = 'se-add-uni-rgb'
     normalization: str = 'batchnorm'
@@ -42,6 +47,7 @@ class MultiTaskModelConfig:
     context_module: str = 'ppm'
     context_n_channels: int = 512
     input_size: Tuple[int, int] = (480, 640)
+    decoder_type: str = 'dense'             # 'dense' | 'mlp'
     decoder_n_channels: Tuple[int, ...] = (512, 256, 128)
     decoder_downsamplings: Tuple[int, ...] = (16, 8, 4)
     decoder_block: str = 'nonbottleneck1d'
@@ -51,8 +57,10 @@ class MultiTaskModelConfig:
     prediction_upsampling: str = 'learned-3x3-zeropad'
     semantic_n_classes: int = 40
     scene_n_classes: int = 10
+    embedding_dim: int = 512
     # False, or 'all': both semantic prediction upsamplings returned as
-    # a DeferredUpsampling2 for the fused 4x finisher
+    # a DeferredUpsampling2 (learned) or DeferredBilinear2 (bilinear)
+    # for the fused 4x finisher
     defer_semantic_prediction_upsampling: object = False
     dtype: str = 'float32'
 
@@ -62,82 +70,108 @@ class MultiTaskModelConfig:
 
 
 class MultiTaskModel(nn.Module):
-    """Composed network; `forward({'rgb', 'depth'})` returns
-    {task: (main, side_outputs)} with NCHW tensors."""
+    """Composed network; `forward({'rgb', 'depth'})` (or `{'rgbd'}`)
+    returns {task: (main, side_outputs)} with NCHW tensors."""
 
     def __init__(self, encoder, context_module,
                  semantic_decoder: Optional[nn.Module] = None,
                  instance_decoder: Optional[nn.Module] = None,
-                 scene_decoder: Optional[nn.Module] = None):
+                 scene_decoder: Optional[nn.Module] = None,
+                 embedding_decoder: Optional[nn.Module] = None):
         super().__init__()
         self.encoder = encoder
         self.context_module = context_module
         self.semantic_decoder = semantic_decoder
         self.instance_decoder = instance_decoder
         self.scene_decoder = scene_decoder
+        self.embedding_decoder = embedding_decoder
 
-    def forward(self, inputs: dict) -> dict:
+    def forward(self, inputs: dict,
+                outputs: Optional[Sequence[str]] = None) -> dict:
+        """`outputs`: the task outputs to compute (None: all); a
+        decoder nobody reads does not run."""
         enc_out, skips = self.encoder(inputs)
-        x = self.context_module(enc_out['rgb'])
-        outputs = {}
+        # the context module consumes the (fused) primary modality
+        x = self.context_module(enc_out['rgb'] if 'rgb' in enc_out
+                                else next(iter(enc_out.values())))
+        result = {}
         for task, dec in (('semantic', self.semantic_decoder),
                           ('instance', self.instance_decoder),
-                          ('scene', self.scene_decoder)):
-            if dec is not None:
-                outputs[task] = dec(x, skips)
-        return outputs
+                          ('scene', self.scene_decoder),
+                          ('dense_visual_embedding',
+                           self.embedding_decoder)):
+            if dec is not None and (outputs is None or task in outputs):
+                result[task] = dec(x, skips)
+        return result
+
+
+def _build_encoder(c: MultiTaskModelConfig, g):
+    def backbone(name, n_in):
+        return get_backbone(name, resnet_block=c.resnet_block,
+                            n_input_channels=n_in,
+                            normalization=c.normalization,
+                            activation=c.activation, generator=g)
+    if c.backbone_rgbd is not None:
+        return Encoder(backbone(c.backbone_rgbd, 4), c.skip_downsamplings)
+    if c.backbone_rgb is None or c.backbone_depth is None:
+        raise ValueError('this port builds rgb + depth or rgbd encoders')
+    return FusedRGBDEncoder(
+        backbone(c.backbone_rgb, 3), backbone(c.backbone_depth, 1),
+        fusion=c.encoder_fusion, act=c.activation,
+        skip_downsamplings=c.skip_downsamplings, generator=g)
 
 
 def build_model(config: MultiTaskModelConfig, device=None,
                 seed: int = 0) -> MultiTaskModel:
-    """Build the dense-family model, randomly initialised from `seed`,
-    in eval mode on `device` (default `cuda`)."""
+    """Build the model, randomly initialised from `seed`, in eval mode
+    on `device` (default `cuda`)."""
     device = resolve_device(device)
     c = config
     g = torch.Generator().manual_seed(seed)
-    bb = {m: get_resnet_backbone(name, block=c.resnet_block,
-                                 n_input_channels=n_in,
-                                 normalization=c.normalization,
-                                 activation=c.activation, generator=g)
-          for m, name, n_in in (('rgb', c.backbone_rgb, 3),
-                                ('depth', c.backbone_depth, 1))}
-    encoder = FusedRGBDEncoder(
-        bb['rgb'], bb['depth'], fusion=c.encoder_fusion,
-        act=c.activation, skip_downsamplings=c.skip_downsamplings,
-        generator=g)
+    encoder = _build_encoder(c, g)
     context = get_context_module(
         c.context_module, encoder.n_channels_out, c.context_n_channels,
         normalization=c.normalization, activation=c.activation,
         generator=g)
 
+    # decoders consume skips in descending downsampling order
     ds_to_channels = dict(zip(encoder.skips_downsamplings,
                               encoder.skips_n_channels))
     fusion_downsamplings = tuple(sorted(encoder.skips_downsamplings,
                                         reverse=True))
+    fusion_n_channels = tuple(ds_to_channels[ds]
+                              for ds in fusion_downsamplings)
+    is_mlp = c.decoder_type == 'mlp'
+    # a single-backbone encoder has one (lazily resolved) skip modality
+    ed_fusion = c.encoder_decoder_fusion
+    if isinstance(encoder, Encoder):
+        ed_fusion = ed_fusion.replace('-rgb', '').replace('-depth', '')
     common = dict(
         n_channels_in=c.context_n_channels,
         downsampling_in=encoder.downsampling,
-        n_channels=c.decoder_n_channels,
-        downsamplings=c.decoder_downsamplings,
-        block=c.decoder_block, n_blocks=c.decoder_n_blocks,
-        fusion=c.encoder_decoder_fusion,
-        fusion_n_channels=tuple(ds_to_channels[ds]
-                                for ds in fusion_downsamplings),
+        fusion=ed_fusion, fusion_n_channels=fusion_n_channels,
         fusion_downsamplings=fusion_downsamplings,
         norm=c.normalization, act=c.activation,
         upsampling=c.upsampling,
         prediction_upsampling=c.prediction_upsampling,
     )
+    if is_mlp:
+        common['n_channels'] = (c.decoder_n_channels[0],) + tuple(
+            c.decoder_n_channels[:len(fusion_n_channels)])
+    else:
+        common.update(n_channels=c.decoder_n_channels,
+                      downsamplings=c.decoder_downsamplings,
+                      block=c.decoder_block, n_blocks=c.decoder_n_blocks)
     tasks = set(c.tasks)
-    semantic = instance = scene = None
+    semantic = instance = scene = embedding = None
     if tasks & {'semantic', 'panoptic'}:
-        semantic = SemanticDecoder(
+        semantic = (SemanticMLPDecoder if is_mlp else SemanticDecoder)(
             n_classes=c.semantic_n_classes,
             defer_prediction_upsampling=(
                 c.defer_semantic_prediction_upsampling),
             generator=g, **common)
     if tasks & {'instance', 'panoptic'}:
-        instance = InstanceDecoder(
+        instance = (InstanceMLPDecoder if is_mlp else InstanceDecoder)(
             with_orientation='orientation' in tasks, generator=g,
             **common)
     if 'scene' in tasks:
@@ -145,5 +179,11 @@ def build_model(config: MultiTaskModelConfig, device=None,
         scene = SceneClassificationDecoder(
             encoder.n_channels_out // len(context.bins),
             c.scene_n_classes, generator=g)
-    model = MultiTaskModel(encoder, context, semantic, instance, scene)
+    if 'dense_visual_embedding' in tasks:
+        if not is_mlp:
+            raise ValueError('this port has the MLP embedding decoder only')
+        embedding = EmbeddingMLPDecoder(embedding_dim=c.embedding_dim,
+                                        generator=g, **common)
+    model = MultiTaskModel(encoder, context, semantic, instance, scene,
+                           embedding)
     return model.eval().to(device)

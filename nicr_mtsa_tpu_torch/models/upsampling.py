@@ -1,5 +1,5 @@
-"""Learned-3x3-zeropad x2 upsampling and its deferred two-stage form
-(counterpart of nicr_mtsa_tpu/models/upsampling.py).
+"""Learned-3x3-zeropad and bilinear upsampling and their deferred
+two-stage forms (counterpart of nicr_mtsa_tpu/models/upsampling.py).
 
 `learned-3x3-zeropad` is nearest x2 followed by a zero-padded depthwise
 3x3 conv. Its fused form is one input-dilated depthwise conv with a
@@ -8,14 +8,18 @@ here that conv is a `conv_transpose2d` with the flipped 4x4 kernel.
 
 `DeferredUpsampling2` carries the semantic head's two prediction
 upsamplings as data, so postprocessing can fuse them with the argmax
-and score reduction (ops/cuda/finisher4x.py). `finisher4x_logits_exact`
-is the dense form with that kernel's exact rounding order. All
-tensors here are NCHW; depthwise kernels are (C, 1, 3, 3).
+and score reduction (ops/cuda/finisher4x.py); `DeferredBilinear2` does
+the same for two half-pixel bilinear x2 upsamplings (the MLP decoders'
+semantic head), which are nearest x2 + a replication-padded depthwise
+3x3 with the fixed bilinear kernel. `finisher4x_logits_exact` is the
+dense form with that kernel's exact rounding order. All tensors here
+are NCHW; depthwise kernels are (C, 1, 3, 3).
 
 `resize_bilinear` / `resize_nearest` resize the last two axes to a
 full resolution (the JAX package's `resize_bilinear` and
 `resize_nearest`); their tap tables are computed on the host in float64
 numpy exactly as `_two_tap_params` does there."""
+from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -28,6 +32,12 @@ from .common import cached_weight
 _BILINEAR_KERNEL = ((0.0625, 0.1250, 0.0625),
                     (0.1250, 0.2500, 0.1250),
                     (0.0625, 0.1250, 0.0625))
+
+
+class DeferredBilinear2(NamedTuple):
+    """Two chained half-pixel bilinear x2 upsamplings captured as data
+    (parameter-free: only the quarter-res logits)."""
+    x: torch.Tensor                  # (B, C, H, W) quarter-res logits
 
 
 class DeferredUpsampling2(NamedTuple):
@@ -64,19 +74,28 @@ def _bias_f32(bias, C, dt, device):
     return _round(bias, dt).view(1, C, 1, 1)
 
 
-def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2):
+def bilinear_kernel(n_channels: int, device=None):
+    """The fixed bilinear depthwise kernel, (C, 1, 3, 3) f32."""
+    k = torch.tensor(_BILINEAR_KERNEL, dtype=torch.float32, device=device)
+    return k.view(1, 1, 3, 3).repeat(n_channels, 1, 1, 1)
+
+
+def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2,
+                            edge: bool = False):
     """Dense (B, C, 4H, 4W) logits with the 4x finisher's exact
     numerics: per output phase, the four taps multiplied and summed in
     f32 in (a, b) order; rounded to x's dtype; the (rounded) bias added
     in f32; at stage 1 the zero-pad ring of stage 2 applied after the
-    bias; rounded again. Returns x's dtype."""
+    bias (zeropad chain) or, with `edge`, the input edge-padded and no
+    ring (bilinear chain); rounded again. Returns x's dtype."""
     B, C, H, W = x.shape
     dt = x.dtype
     k1t = _round(fused_zeropad_2x_kernel(kernel1)[:, 0], dt)  # (C, 4, 4)
     k2t = _round(fused_zeropad_2x_kernel(kernel2)[:, 0], dt)
     b1 = _bias_f32(bias1, C, dt, x.device)
     b2 = _bias_f32(bias2, C, dt, x.device)
-    xp = F.pad(x, (1, 1, 1, 1)).float()
+    xp = (F.pad(x.float(), (1, 1, 1, 1), mode='replicate') if edge
+          else F.pad(x, (1, 1, 1, 1)).float())
 
     def tap(k, i, j):
         return k[:, i, j].view(1, C, 1, 1)
@@ -94,10 +113,11 @@ def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2):
                     acc = t if acc is None else acc + t
             inter[:, :, 1 - py::2, 1 - px::2] = acc
     inter = _round(inter, dt) + b1
-    inter[:, :, 0] = 0.0
-    inter[:, :, -1] = 0.0
-    inter[:, :, :, 0] = 0.0
-    inter[:, :, :, -1] = 0.0
+    if not edge:
+        inter[:, :, 0] = 0.0
+        inter[:, :, -1] = 0.0
+        inter[:, :, :, 0] = 0.0
+        inter[:, :, :, -1] = 0.0
     inter = _round(inter, dt)
 
     # stage 2: phase (qy, qx) reads inter[qy + c + u, qx + d + v]
@@ -129,24 +149,33 @@ def two_tap_params(n: int, m: int):
     return np.clip(i0, 0, n - 1), np.clip(i0 + 1, 0, n - 1), w0, f
 
 
+@lru_cache(maxsize=64)
+def _tap_tensors(n: int, m: int, device, dtype):
+    """`two_tap_params(n, m)` as tensors on `device` (weights in `dtype`),
+    built once: a serving request resizes the same shapes every time."""
+    lo, hi, w0, w1 = two_tap_params(n, m)
+    return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device),
+            torch.from_numpy(w0).to(device=device, dtype=dtype),
+            torch.from_numpy(w1).to(device=device, dtype=dtype))
+
+
 def _resize_axis_linear(x, m: int, dim: int):
     n = x.shape[dim]
     if m == n:
         return x
-    lo, hi, w0, w1 = two_tap_params(n, m)
+    lo, hi, w0, w1 = _tap_tensors(n, m, x.device, x.dtype)
     shape = [1] * x.ndim
     shape[dim] = m
-    dev = x.device
-    a = x.index_select(dim, torch.from_numpy(lo).to(dev))
-    b = x.index_select(dim, torch.from_numpy(hi).to(dev))
-    # three roundings: a * w0, b * w1, their sum (no FMA)
-    return (a * torch.from_numpy(w0).to(dev).view(shape)
-            + b * torch.from_numpy(w1).to(dev).view(shape))
+    # three roundings in x's dtype: a * w0, b * w1, their sum (no FMA)
+    return (x.index_select(dim, lo) * w0.view(shape)
+            + x.index_select(dim, hi) * w1.view(shape))
 
 
 def resize_bilinear(x, height: int, width: int):
     """Half-pixel bilinear resize of the last two axes (rows, then
-    columns), in x's dtype; callers pass f32."""
+    columns), in x's dtype (the JAX package's weak-typed `a * (1 - w) +
+    b * w`: the weights, multiples of 1/16 for x2-x8, are exact in
+    bf16)."""
     return _resize_axis_linear(_resize_axis_linear(x, height, -2),
                                width, -1)
 
@@ -167,23 +196,30 @@ def resize_nearest(x, height: int, width: int):
 
 
 class Upsampling(nn.Module):
-    """learned-3x3-zeropad x2 upsampling (nearest x2 + zero-padded
+    """x2 `learned-3x3-zeropad` upsampling (nearest x2 + zero-padded
     depthwise 3x3 + bias, as one conv_transpose2d with the flipped fused
-    4x4 kernel); weight (C, 1, 3, 3) initialised to the bilinear kernel,
-    bias zero."""
+    4x4 kernel; weight (C, 1, 3, 3) initialised to the bilinear kernel,
+    bias zero), or parameter-free `bilinear` by `scale_factor` (a
+    half-pixel resize, `resize_bilinear`; factor 1 is the identity)."""
 
-    def __init__(self, mode: str, n_channels: int, use_bias: bool = True):
+    def __init__(self, mode: str, n_channels: int, use_bias: bool = True,
+                 scale_factor: int = 2):
         super().__init__()
-        if mode != 'learned-3x3-zeropad':
+        self.mode = mode
+        self.scale_factor = int(scale_factor)
+        if mode == 'bilinear':
+            return
+        if mode != 'learned-3x3-zeropad' or self.scale_factor != 2:
             raise ValueError(f"Unsupported upsampling in this port: "
-                             f"'{mode}'")
-        k = torch.tensor(_BILINEAR_KERNEL, dtype=torch.float32)
-        self.weight = nn.Parameter(
-            k.view(1, 1, 3, 3).repeat(n_channels, 1, 1, 1))
+                             f"'{mode}' x{scale_factor}")
+        self.weight = nn.Parameter(bilinear_kernel(n_channels))
         self.bias = (nn.Parameter(torch.zeros(n_channels)) if use_bias
                      else None)
 
     def forward(self, x):
+        if self.mode == 'bilinear':
+            f = self.scale_factor
+            return resize_bilinear(x, f * x.shape[-2], f * x.shape[-1])
         dt = x.dtype
         kt = cached_weight(self, 'weight', dt,
                            lambda w: fused_zeropad_2x_kernel(w).flip(2, 3))

@@ -2,21 +2,31 @@
 PyTorch versions. `KERNELS` lists each wrapper, whose `launches`
 attribute counts the kernel launches it made."""
 from ._build import build_all
-from .finisher4x import (finish_deferred_semantic2, upsample4x_argmax_score,
-                         upsample4x_argmax_score_reference)
+from .finisher4x import (finish_deferred_bilinear2,
+                         finish_deferred_semantic2,
+                         upsample4x_argmax_score,
+                         upsample4x_argmax_score_reference,
+                         upsample4x_bilinear_argmax_score,
+                         upsample4x_bilinear_argmax_score_reference)
 from .grouping import group_pixels_kernel, group_pixels_reference
 from .intersection import (intersection_matrix_kernel,
                            intersection_matrix_reference)
+from .layernorm import fused_layer_norm, layer_norm_reference
 from .resize_reduce import (crop_resize_argmax_score,
                             crop_resize_argmax_score_reference)
 from .semantic_reduce import (semantic_argmax_score,
                               semantic_argmax_score_reference)
+from .window_attention import (window_attention_block,
+                               window_attention_block_reference)
 
 KERNELS = {'finisher4x': upsample4x_argmax_score,
            'grouping': group_pixels_kernel,
            'resize_reduce': crop_resize_argmax_score,
            'semantic_reduce': semantic_argmax_score,
-           'intersection': intersection_matrix_kernel}
+           'intersection': intersection_matrix_kernel,
+           'finisher4x_bilinear': upsample4x_bilinear_argmax_score,
+           'window_attention_block': window_attention_block,
+           'layernorm': fused_layer_norm}
 
 
 def reset_launch_counts() -> None:
@@ -25,9 +35,14 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ['build_all', 'finish_deferred_semantic2',
-           'upsample4x_argmax_score', 'upsample4x_argmax_score_reference',
+           'finish_deferred_bilinear2', 'upsample4x_argmax_score',
+           'upsample4x_argmax_score_reference',
+           'upsample4x_bilinear_argmax_score',
+           'upsample4x_bilinear_argmax_score_reference',
            'group_pixels_kernel', 'group_pixels_reference',
            'intersection_matrix_kernel', 'intersection_matrix_reference',
            'crop_resize_argmax_score', 'crop_resize_argmax_score_reference',
            'semantic_argmax_score', 'semantic_argmax_score_reference',
+           'window_attention_block', 'window_attention_block_reference',
+           'fused_layer_norm', 'layer_norm_reference',
            'KERNELS', 'reset_launch_counts']

@@ -1,18 +1,25 @@
-"""Fused 4x semantic finisher: two learned-3x3-zeropad x2 upsamplings of
-quarter-res logits, then first argmax and max-softmax score at full
-resolution, without writing the 2x or 4x logits.
+"""Fused 4x semantic finisher: two x2 upsamplings of quarter-res
+logits, then first argmax and max-softmax score at full resolution,
+without writing the 2x or 4x logits.
 
-Counterpart of nicr_mtsa_tpu/ops/pallas/semantic_finisher4x.py
-(`upsample4x_argmax_score`, `finish_deferred_semantic2`). On the card
-the work is done by csrc/finisher4x.cu; on CPU tensors the wrapper runs
-the plain version, `upsample4x_argmax_score_reference`, which follows
-the same exact-phase numerics. Inputs are NCHW."""
+Counterpart of nicr_mtsa_tpu/ops/pallas/semantic_finisher4x.py:
+- `upsample4x_argmax_score` / `finish_deferred_semantic2`: two
+  learned-3x3-zeropad stages (the dense decoders' semantic head);
+- `upsample4x_bilinear_argmax_score` / `finish_deferred_bilinear2`: two
+  half-pixel bilinear stages (the MLP decoders' semantic head), which
+  are the same kernel with the fixed bilinear stage weights, zero
+  biases, the input edge-replicated and no zero ring (`edge`).
+On the card the work is done by csrc/finisher4x.cu; on CPU tensors the
+wrappers run the plain versions, which follow the same exact-phase
+numerics. The two entries count their launches apart. Inputs are
+NCHW."""
 import ctypes
+from functools import lru_cache
 
 import torch
 
-from ...models.upsampling import (DeferredUpsampling2,
-                                  finisher4x_logits_exact,
+from ...models.upsampling import (DeferredBilinear2, DeferredUpsampling2,
+                                  bilinear_kernel, finisher4x_logits_exact,
                                   fused_zeropad_2x_kernel)
 from ..reduce import semantic_score_idx
 from ._build import check, is_cuda_tensor, load_library
@@ -35,7 +42,24 @@ def _stage_weights(kernel, bias, C, dt, device):
             b.to(device).contiguous())
 
 
-def _launch(x, kernel1, bias1, kernel2, bias2, edge: bool = False):
+@lru_cache(maxsize=16)
+def _bilinear_stages(C: int, dt, device):
+    """The bilinear entry's fixed stage weights on `device`, built once."""
+    k, b = _stage_weights(bilinear_kernel(C), None, C, dt, device)
+    return k, b, k, b
+
+
+def upsample4x_bilinear_argmax_score_reference(x):
+    """Plain PyTorch version of the bilinear entry: the exact phase
+    twin with `edge` (not two `resize_bilinear` calls, which round
+    differently)."""
+    k = bilinear_kernel(x.shape[1], x.device)
+    logits = finisher4x_logits_exact(x, k, None, k, None, edge=True)
+    return semantic_score_idx(logits, dim=1)
+
+
+def _launch(x, stages, edge: bool, counter):
+    """stages: (k1, b1, k2, b2) from `_stage_weights` on x's device."""
     if x.dim() != 4 or x.dtype not in _FUNCS:
         raise ValueError(f'finisher4x takes (B, C, H, W) float32/bfloat16 '
                          f'logits, got {tuple(x.shape)} {x.dtype}')
@@ -46,8 +70,7 @@ def _launch(x, kernel1, bias1, kernel2, bias2, edge: bool = False):
         + [ctypes.c_void_p]
     B, C, H, W = x.shape
     x = x.contiguous()
-    k1, b1 = _stage_weights(kernel1, bias1, C, x.dtype, x.device)
-    k2, b2 = _stage_weights(kernel2, bias2, C, x.dtype, x.device)
+    k1, b1, k2, b2 = stages
     idx = torch.empty((B, 4 * H, 4 * W), dtype=torch.int32, device=x.device)
     score = torch.empty((B, 4 * H, 4 * W), dtype=torch.float32,
                         device=x.device)
@@ -59,7 +82,7 @@ def _launch(x, kernel1, bias1, kernel2, bias2, edge: bool = False):
                  b2.data_ptr(), idx.data_ptr(), score.data_ptr(),
                  B, C, H, W, int(edge), stream)
     check(err, 'finisher4x')
-    upsample4x_argmax_score.launches += 1
+    counter.launches += 1
     return idx, score
 
 
@@ -71,10 +94,26 @@ def upsample4x_argmax_score(x, kernel1, bias1, kernel2, bias2):
     if not is_cuda_tensor(x):
         return upsample4x_argmax_score_reference(x, kernel1, bias1,
                                                  kernel2, bias2)
-    return _launch(x, kernel1, bias1, kernel2, bias2)
+    C, dt = x.shape[1], x.dtype
+    stages = (_stage_weights(kernel1, bias1, C, dt, x.device)
+              + _stage_weights(kernel2, bias2, C, dt, x.device))
+    return _launch(x, stages, False, upsample4x_argmax_score)
 
 
 upsample4x_argmax_score.launches = 0
+
+
+def upsample4x_bilinear_argmax_score(x):
+    """(first-argmax idx int32, max-softmax score f32), both (B, 4H, 4W),
+    of NCHW logits x upsampled by two half-pixel bilinear x2 stages.
+    CUDA tensors go to the kernel; CPU tensors to the plain version."""
+    if not is_cuda_tensor(x):
+        return upsample4x_bilinear_argmax_score_reference(x)
+    return _launch(x, _bilinear_stages(x.shape[1], x.dtype, x.device), True,
+                   upsample4x_bilinear_argmax_score)
+
+
+upsample4x_bilinear_argmax_score.launches = 0
 
 
 def finish_deferred_semantic2(deferred: DeferredUpsampling2):
@@ -82,3 +121,8 @@ def finish_deferred_semantic2(deferred: DeferredUpsampling2):
     return upsample4x_argmax_score(deferred.x, deferred.kernel1,
                                    deferred.bias1, deferred.kernel2,
                                    deferred.bias2)
+
+
+def finish_deferred_bilinear2(deferred: DeferredBilinear2):
+    """(idx, score) of a semantic head's DeferredBilinear2 output."""
+    return upsample4x_bilinear_argmax_score(deferred.x)

@@ -1,12 +1,16 @@
 """Pipelines (counterpart of nicr_mtsa_tpu/pipeline.py).
 
 - `PanopticInferencePipeline`, the serving path: uint8 RGB + uint16
-  depth in, panoptic, semantic and instance maps plus scene logits out.
-  Normalisation, the forward pass, centre NMS, grouping and the merge
-  all run on the model's device. At the boundary the layouts are the
-  JAX package's: rgb (B, H, W, 3) uint8, depth (B, H, W) uint16 (numpy
-  arrays or torch tensors), output maps (B, H, W). Depth is converted
-  to int32 at the boundary: torch's uint16 supports few operations.
+  depth in, panoptic, semantic and instance maps plus scene logits out
+  (and, on request, the raw outputs of further heads such as the dense
+  visual embedding). Normalisation, the forward pass, centre NMS,
+  grouping and the merge all run on the model's device. It serves both
+  families: `emsanet_bench_config` (EMSANet, the default) and
+  `emsaformer_bench_config` (EMSAFormer on SwinV2-T-128 RGB-D). At the
+  boundary the layouts are the JAX package's: rgb (B, H, W, 3) uint8,
+  depth (B, H, W) uint16 (numpy arrays or torch tensors), output maps
+  (B, H, W). Depth is converted to int32 at the boundary: torch's
+  uint16 supports few operations.
 - `MultiTaskPipeline.make_fused_eval_step`, the eval path: forward,
   postprocessing with full-resolution keys, the shared GT slot map,
   the eval losses and the metric-state updates of every task helper,
@@ -14,12 +18,15 @@
 
 On the card the model runs channels-last (NHWC activations and conv
 weights), cuDNN's fast layout."""
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .configs import emsaformer_dve_v2
 from .data.fullres import get_fullres
+from .models.encoder import Encoder
 from .models.multi_task import (MultiTaskModel, MultiTaskModelConfig,
                                 build_model)
 from .ops.segments import ids_to_slots
@@ -77,7 +84,11 @@ class PanopticInferencePipeline:
                  depth_mean: float = 2841.94941272766,    # NYUv2 stats
                  depth_std: float = 1417.2594281672277,
                  compute_dtype=torch.bfloat16,
-                 channels_last: bool = None):
+                 channels_last: bool = None,
+                 extra_output_tasks: Sequence[str] = ()):
+        """extra_output_tasks: further task heads ('dense_visual_embedding')
+        whose raw main outputs are added as '<task>_output'; their
+        decoders run only when asked for."""
         self.model = model
         self.post = panoptic_postprocessing
         self._depth_mean = float(depth_mean)
@@ -87,10 +98,20 @@ class PanopticInferencePipeline:
         self._rgb_mean = torch.from_numpy(RGB_MEAN).to(self.device)
         self._rgb_std = torch.from_numpy(RGB_STD).to(self.device)
         self._channels_last = _set_layout(model, self.device, channels_last)
+        self._extra_output_tasks = tuple(extra_output_tasks)
+        self._outputs = ('semantic', 'instance', 'scene') \
+            + self._extra_output_tasks
+        encoder = model.encoder
+        self._input_key = (None if not isinstance(encoder, Encoder) else
+                           {4: 'rgbd', 1: 'depth'}.get(
+                               encoder.backbone.n_input_channels, 'rgb'))
 
     def preprocess(self, rgb_u8, depth_u16) -> dict:
-        """NCHW {'rgb', 'depth'} in the compute dtype; invalid depth
-        (0) is set to 0 after scaling."""
+        """NCHW {'rgb', 'depth'} in the compute dtype for a fused
+        dual-backbone encoder, {'rgbd'} (the channel concat) for a
+        single 4-channel backbone, or the one modality of a 3- or
+        1-channel backbone; invalid depth (0) is set to 0 after
+        scaling."""
         dev = self.device
         rgb = _as_tensor(rgb_u8, dev).float()
         rgb = (rgb - self._rgb_mean) / self._rgb_std
@@ -102,12 +123,17 @@ class PanopticInferencePipeline:
         depth = depth[:, None].to(self._compute_dtype)
         fmt = (torch.channels_last if self._channels_last
                else torch.contiguous_format)
-        return {'rgb': rgb.contiguous(memory_format=fmt),
-                'depth': depth.contiguous(memory_format=fmt)}
+        inputs = {'rgb': rgb, 'depth': depth}
+        if self._input_key == 'rgbd':
+            inputs = {'rgbd': torch.cat([rgb, depth], dim=1)}
+        elif self._input_key is not None:
+            inputs = {self._input_key: inputs[self._input_key]}
+        return {k: v.contiguous(memory_format=fmt) for k, v in inputs.items()}
 
     @torch.inference_mode()
     def __call__(self, rgb_u8, depth_u16) -> dict:
-        predictions = self.model(self.preprocess(rgb_u8, depth_u16))
+        predictions = self.model(self.preprocess(rgb_u8, depth_u16),
+                                 outputs=self._outputs)
         r_dict = self.post.postprocess(
             ((predictions['semantic'][0], predictions['instance'][0]),
              (predictions['semantic'][1], predictions['instance'][1])),
@@ -123,6 +149,8 @@ class PanopticInferencePipeline:
         }
         if 'scene' in predictions:
             outputs['scene_logits'] = predictions['scene'][0]
+        for task in self._extra_output_tasks:
+            outputs[f'{task}_output'] = predictions[task][0]
         return outputs
 
 
@@ -145,6 +173,18 @@ def emsanet_bench_config(input_size: Tuple[int, int] = (480, 640),
         defer_semantic_prediction_upsampling=defer, dtype=dtype)
 
 
+def emsaformer_bench_config(input_size: Tuple[int, int] = (480, 640),
+                            dtype: str = 'bfloat16') -> MultiTaskModelConfig:
+    """The `emsaformer_dve_v2` preset (40 classes) as the JAX package's
+    `bench.py --model emsaformer_dve_v2` serves it: multimodal
+    SwinV2-T-128 RGB-D, MLP decoders, bilinear upsampling, both semantic
+    prediction upsamplings deferred to the fused bilinear 4x finisher."""
+    return dataclasses.replace(
+        emsaformer_dve_v2(n_classes=40, input_size=tuple(input_size),
+                          dtype=dtype),
+        defer_semantic_prediction_upsampling='all')
+
+
 def serving_postprocessing(n_classes: int = 40, n_thing: int = 8,
                            top_k: int = 64) -> PanopticPostprocessing:
     """The bench's serving postprocessing: threshold 0.1, NMS 3, top-k
@@ -160,15 +200,18 @@ def serving_postprocessing(n_classes: int = 40, n_thing: int = 8,
 
 
 def build_serving_pipeline(config: MultiTaskModelConfig = None,
-                           device=None, seed: int = 0,
-                           n_thing: int = 8) -> PanopticInferencePipeline:
-    """Model (random weights from `seed`) + serving postprocessing on
-    `device` (default `cuda`), computing in the config's dtype."""
+                           device=None, seed: int = 0, n_thing: int = 8,
+                           extra_output_tasks: Sequence[str] = ()
+                           ) -> PanopticInferencePipeline:
+    """Model of `config` (default `emsanet_bench_config()`; random
+    weights from `seed`) + serving postprocessing on `device` (default
+    `cuda`), computing in the config's dtype."""
     config = config or emsanet_bench_config()
     model = build_model(config, device=device, seed=seed)
     post = serving_postprocessing(config.semantic_n_classes, n_thing)
-    return PanopticInferencePipeline(model, post,
-                                     compute_dtype=config.torch_dtype)
+    return PanopticInferencePipeline(
+        model, post, compute_dtype=config.torch_dtype,
+        extra_output_tasks=extra_output_tasks)
 
 
 # --- eval path --------------------------------------------------------------

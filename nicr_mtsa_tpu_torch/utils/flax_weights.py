@@ -3,15 +3,19 @@
 `variables` is `{'params': ..., 'batch_stats': ...}` as nested dicts of
 numpy arrays (for example `jax.tree_util.tree_map(np.asarray, v)`).
 The port names its submodules after the flax modules, so a flax path
-maps to a torch name by dropping the `BatchNorm_0` level and renaming
-the leaf:
+maps to a torch name by dropping the unnamed `BatchNorm_0` and
+`LayerNorm_0` levels (inside the `Norm` wrapper) and renaming the leaf:
 
-  params       kernel/scale -> weight, bias -> bias
+  params       kernel/scale -> weight, bias -> bias,
+               relative_position_bias_table, logit_scale (Swin): as is
   batch_stats  mean -> running_mean, var -> running_var
 
-and the layouts convert as
+and the `kernel` layouts convert as
   4-d conv kernel HWIO (depthwise (3, 3, 1, C))  -> OIHW ((C, 1, 3, 3))
-  2-d Dense kernel (in, out)                     -> (out, in).
+  2-d Dense kernel (in, out)                     -> (out, in)
+(for example a Swin qkv kernel (C, 3C) -> (3C, C)); other leaves keep
+their shapes (a v2 `logit_scale` stays (h, 1, 1), a v1 bias table
+((2ws-1)^2, h)).
 
 Strict: every leaf is consumed and every torch parameter and buffer is
 filled, with matching shapes, or it raises."""
@@ -21,9 +25,13 @@ import numpy as np
 import torch
 
 _LEAF_NAMES = {
-    'params': {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias'},
+    'params': {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
+               'relative_position_bias_table':
+                   'relative_position_bias_table',
+               'logit_scale': 'logit_scale'},
     'batch_stats': {'mean': 'running_mean', 'var': 'running_var'},
 }
+_WRAPPED_LEVELS = ('BatchNorm_0', 'LayerNorm_0')
 
 
 def _walk(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -34,7 +42,9 @@ def _walk(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
             yield prefix + (k,), v
 
 
-def _to_torch_layout(a: np.ndarray) -> np.ndarray:
+def _to_torch_layout(a: np.ndarray, leaf_name: str) -> np.ndarray:
+    if leaf_name != 'kernel':
+        return a
     if a.ndim == 4:
         return a.transpose(3, 2, 0, 1)
     if a.ndim == 2:
@@ -47,14 +57,15 @@ def flax_to_torch_state(variables: Dict) -> Dict[str, np.ndarray]:
     state = {}
     for collection, renames in _LEAF_NAMES.items():
         for path, leaf in _walk(variables.get(collection, {})):
-            *mods, leaf_name = (p for p in path if p != 'BatchNorm_0')
+            *mods, leaf_name = (p for p in path
+                                if p not in _WRAPPED_LEVELS)
             if leaf_name not in renames:
                 raise KeyError(f'unknown {collection} leaf: '
                                f"{'/'.join(path)}")
             name = '.'.join(mods + [renames[leaf_name]])
             if name in state:
                 raise KeyError(f'two flax leaves map to {name}')
-            state[name] = _to_torch_layout(np.asarray(leaf))
+            state[name] = _to_torch_layout(np.asarray(leaf), leaf_name)
     unknown = set(variables) - set(_LEAF_NAMES)
     if unknown:
         raise KeyError(f'unknown variable collections: {sorted(unknown)}')

@@ -46,6 +46,39 @@ def test_import_pulls_in_no_jax():
     assert int(res.stdout.strip()) > 25      # every submodule imported
 
 
+SWIN_SLICE_MODULES = (
+    'nicr_mtsa_tpu_torch.configs',
+    'nicr_mtsa_tpu_torch.models.backbones.swin',
+    'nicr_mtsa_tpu_torch.models.decoders.embedding',
+    'nicr_mtsa_tpu_torch.ops.cuda.layernorm',
+    'nicr_mtsa_tpu_torch.ops.cuda.window_attention',
+)
+
+
+def test_swin_slice_modules_import_with_jax_blocked():
+    """The Swin slice's modules import with jax, flax and the JAX
+    package made unimportable."""
+    code = (
+        'import sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        '        if name.split(".")[0] in ("jax", "flax", "optax", '
+        '"jaxlib", "nicr_mtsa_tpu"):\n'
+        '            raise ImportError("blocked: " + name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import importlib\n'
+        f'for m in {SWIN_SLICE_MODULES!r}:\n'
+        '    importlib.import_module(m)\n'
+        'from nicr_mtsa_tpu_torch.pipeline import emsaformer_bench_config\n'
+        'print(emsaformer_bench_config().backbone_rgbd)\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == 'swin-multi-t-v2-128'
+
+
 @pytest.mark.parametrize('path', _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
@@ -123,6 +156,37 @@ def test_intersection_raises_without_library(monkeypatch, tmp_path):
                                       torch.zeros(1, 8, dtype=torch.int32),
                                       4, 4)
     assert it.intersection_matrix_kernel.launches == before
+
+
+def test_layernorm_raises_without_library(monkeypatch, tmp_path):
+    from nicr_mtsa_tpu_torch.ops.cuda import layernorm as ln
+    _no_library(monkeypatch, tmp_path, ln)
+    before = ln.fused_layer_norm.launches
+    with pytest.raises(RuntimeError, match='nvcc'):
+        ln.fused_layer_norm(torch.zeros(4, 8), torch.ones(8), torch.zeros(8))
+    assert ln.fused_layer_norm.launches == before
+
+
+def test_window_attention_raises_without_library(monkeypatch, tmp_path):
+    from nicr_mtsa_tpu_torch.ops.cuda import window_attention as wa
+    _no_library(monkeypatch, tmp_path, wa)
+    before = wa.window_attention_block.launches
+    with pytest.raises(RuntimeError, match='nvcc'):
+        wa.window_attention_block(
+            torch.zeros(2, 64, 32), torch.zeros(32, 96), torch.zeros(96),
+            torch.zeros(32, 32), torch.zeros(32), torch.zeros(1, 64, 64), 1)
+    assert wa.window_attention_block.launches == before
+
+
+def test_finisher_bilinear_raises_without_library(monkeypatch, tmp_path):
+    from nicr_mtsa_tpu_torch.ops.cuda import finisher4x as fin
+    _no_library(monkeypatch, tmp_path, fin)
+    before = (fin.upsample4x_bilinear_argmax_score.launches,
+              fin.upsample4x_argmax_score.launches)
+    with pytest.raises(RuntimeError, match='nvcc'):
+        fin.upsample4x_bilinear_argmax_score(torch.zeros(1, 3, 2, 2))
+    assert (fin.upsample4x_bilinear_argmax_score.launches,
+            fin.upsample4x_argmax_score.launches) == before
 
 
 def _run_chip_smoke(cwd):
