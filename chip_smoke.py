@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--requests N] [--swin-requests N] [--steps N]
-                          [--profile]
+                          [--train-steps N] [--profile]
 
 Drives the port (nicr_mtsa_tpu_torch) end to end on the card, in
 phases; any failure exits non-zero and prints no result:
@@ -50,12 +50,37 @@ phases; any failure exits non-zero and prints no result:
    launches, 36 LayerNorm launches (every LN of the path), 1 bilinear
    finisher and 1 grouping launch a request;
 9. run that pipeline in f32 on one frame on the card and on the CPU:
-   semantic_idx must agree on >= 99.9 %.
+   semantic_idx must agree on >= 99.9 %;
+10. hold the Swin training path's window-attention core (forward,
+   flash-style backward and the deterministic dbias reduction) against
+   its plain versions at stage 1 (2400 windows, C=128, 4 heads) and
+   stage 4 (48, C=1024, 32 heads), both shifted: f32 within 1e-4 and
+   bf16 within 1e-2 of max |.|, the reduction exactly, the backward's
+   outputs bit-equal over two runs; timed against the bound and
+   F.scaled_dot_product_attention;
+11. train `emsaformer_dve_v2` (`bench.py --train`: 480 x 640, bf16,
+   AdamW 1e-4, the random batch at B=8, stochastic depth and dropout
+   from a CUDA generator): a warm-up step, then three timed rounds of N
+   steps, each ending in a sync on the loss, counters set to 0 just
+   before: exactly 12 forward, 12 backward and 12 dbias launches of the
+   core a step and none of the serving kernels (the window-attention
+   sub-block, the LayerNorm); every loss finite, the total loss of the
+   last step below the first's;
+12. take one f32 training step with drop rates 0 on the card and on the
+   CPU from the same weights and batch (B=8 at 256 x 320, the
+   orientation head's bias away from 0: see `TRAIN_CPU_HW`): losses
+   within rtol 1e-5, the BatchNorm running statistics within 1e-5,
+   each gradient within 1e-3 of its tensor's max |grad|, or within 4x
+   what the CPU's other summation orders (channels-last, no oneDNN)
+   move it in the same run where that is more; the card's step with a
+   planted 1 % fault (row 7's dbias; the instance losses) must fail
+   that check.
 
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
 chiprun_out/chip_smoke.json. Needs no network and no JAX."""
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -83,6 +108,37 @@ EVAL_KERNELS = {'resize_reduce': 1, 'semantic_reduce': 1,
 # semantic and the instance decoder), one finisher, one grouping
 SWIN_KERNELS = {'finisher4x_bilinear': 1, 'window_attention_block': 12,
                 'layernorm': 36, 'grouping': 1}
+# launches of each kernel in one Swin training step: the attention core's
+# forward, backward and dbias reduction once per Swin block; the serving
+# kernels never (training LayerNorms run their plain version, as the
+# JAX package trains through XLA)
+TRAIN_KERNELS = {'window_attention_core_fwd': 12,
+                 'window_attention_core_bwd': 12,
+                 'window_attention_core_dbias': 12,
+                 'window_attention_block': 0, 'layernorm': 0}
+# the training card-vs-CPU step: 256 x 320 (sides multiples of 32, as
+# the MLP decoders need) shifts the windows of stages 1-3; B=8, the
+# training batch: at B=1 or 4 the PPM's training BatchNorms normalise a
+# handful of values, an f32 variance so ill-conditioned that another
+# summation order on the CPU alone moves some gradients by percents of
+# their max
+TRAIN_CPU_HW, TRAIN_CPU_BATCH = (256, 320), 8
+# orientation bias of that step: raw orientation vectors away from 0,
+# where unit_length's gradient (growing as 1 / |x|) amplifies rounding
+TRAIN_CPU_ORIENTATION_BIAS = (1.0, -0.5)
+# other f32 summation orders the CPU can take for the same step: its
+# convs on channels-last tensors, and without oneDNN (other algorithms)
+TRAIN_CPU_ORDERS = ('channels_last', 'no_mkldnn')
+# a tensor's card-vs-CPU gradient limit, as a share of its max |grad|:
+# 1e-3, or TRAIN_SPREAD_FACTOR times the most the CPU's other orders
+# move it in the same run, where that is more
+TRAIN_GRAD_TOL, TRAIN_SPREAD_FACTOR = 1e-3, 4.0
+# planted faults the gradient check must catch, each of this relative
+# size, and the tensors whose gradients each moves by all of it: row 7's
+# dbias (the CPB MLPs), the instance losses (the instance decoder)
+TRAIN_FAULTS = {'core_dbias': '.attn.cpb_fc',
+                'instance_losses': 'instance_decoder.'}
+TRAIN_FAULT_SIZE = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -500,6 +556,170 @@ def check_window_attention(wa, report):
                                  'projection'}), flush=True)
 
 
+# row 7 at its training shapes (B=8, 480 x 640): stage 1 and stage 4,
+# both shifted v2 blocks on their padded window grids
+CORE_CASES = {'stage1': (2400, 128, (15, 20)), 'stage4': (48, 1024, (2, 3))}
+# bf16: a few ulps (2^-8 relative) of max |.|: another f32 summation
+# order moves a logit by ~1e-6 and can flip the rounding of P, dS or an
+# output value by one ulp
+CORE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _core_inputs(g, Bw, C, dt):
+    """Scaled q (v2: unit rows x ~10), unit k, v, the v2 bias range and
+    an upstream gradient, in `dt` (bias f32)."""
+    h = C // 32
+    rnd = lambda *s: torch.randn(*s, device='cuda', generator=g)
+    unit = lambda t: t / t.norm(dim=-1, keepdim=True)
+    q = (unit(rnd(Bw, 64, h, 32)) * 10).reshape(Bw, 64, C)
+    k = unit(rnd(Bw, 64, h, 32)).reshape(Bw, 64, C)
+    bias = 16 * torch.sigmoid(rnd(h, 64, 64))
+    return [t.to(dt) for t in (q, k, rnd(Bw, 64, C), rnd(Bw, 64, C))] \
+        + [bias]
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def _core_bound(Bw, C, elt, backward: bool, peak):
+    """Row 7's bound: forward 4 Bw N C elements + the lse, 4 Bw h N^2 d
+    flops; backward 7 Bw N C elements + the lse, 10 Bw h N^2 d flops."""
+    h, N = C // 32, 64
+    n_bytes = (7 if backward else 4) * Bw * N * C * elt + Bw * h * N * 4
+    return bound(n_bytes, (10 if backward else 4) * Bw * h * N * N * 32,
+                 peak)
+
+
+def check_window_attention_core(wac, report):
+    """Row 7 against its plain versions at stage 1 (2400 windows, C 128,
+    4 heads) and stage 4 (48, C 1024, 32 heads), shifted: the forward
+    (out and lse), the backward (dq, dk, dv, dbias, from the plain
+    lse; its dbias sums the windows in another order than the plain
+    version's `ds.sum(0)`) in f32 within 1e-4 and bf16 within 1e-2 of
+    max |.|, the dbias reduction alone bit for bit against its plain
+    version on partials of the stage's shape (the same f32 adds in the
+    same order), and the backward's outputs bit-equal over two runs.
+    Times bf16 against the bound, the plain versions and
+    F.scaled_dot_product_attention (scale 1, the bias and shift mask as
+    its float mask; forward alone and forward + backward, q, k, v
+    gradients only)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device='cuda').manual_seed(9)
+    errs, max_abs, times = {}, {}, {}
+    for case, (Bw, C, grid) in CORE_CASES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do, bias = _core_inputs(g, Bw, C, dt)
+            args = (q, k, v, bias, grid, (4, 4))
+            got = wac.window_attention_core_forward(*args)
+            torch.cuda.synchronize()
+            want = wac.window_attention_core_reference(*args)
+            lse = want[1]
+            bargs = (q, k, v, bias, do, lse, grid, (4, 4))
+            got += wac.window_attention_core_backward(*bargs)
+            torch.cuda.synchronize()
+            again = wac.window_attention_core_backward(*bargs)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got[2:], again)):
+                fail(f'window_attention_core {case} {dt}: two backward runs '
+                     f'differ (dbias must be deterministic)')
+            want += wac.window_attention_core_backward_reference(*bargs)
+            for name, a, b in zip(('out', 'lse', 'dq', 'dk', 'dv',
+                                   'dbias_bwd'), got, want):
+                tol = 1e-4 if name == 'lse' else CORE_TOL[dt]
+                err = _rel_err(a, b)
+                errs[f'{case}_{str(dt)[6:]}_{name}'] = err
+                max_abs[name] = max(max_abs.get(name, 0.0), float(
+                    (a.float() - b.float()).abs().max()))
+                if not err <= tol:
+                    fail(f'window_attention_core {case} {dt} {name}: max '
+                         f'error {err} x max |.| > {tol}')
+        # the reduction alone, on partials of the backward's shape at
+        # this stage: the same f32 adds in the same order as its plain
+        # version, so bit for bit
+        h = C // 32
+        wpb = max(1, Bw * h // wac.BWD_BLOCKS)
+        parts = torch.randn(-(-Bw // wpb), h, 64, 64, device='cuda',
+                            generator=g)
+        got = wac.dbias_reduce(parts)
+        torch.cuda.synchronize()
+        want = wac.dbias_reduce_reference(parts)
+        errs[f'{case}_dbias_reduce'] = _rel_err(got, want)
+        max_abs['dbias_reduce'] = max(max_abs.get('dbias_reduce', 0.0),
+                                      float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            fail(f'window_attention_core {case}: the dbias reduction of '
+                 f'{tuple(parts.shape)} partials differs from its plain '
+                 f'version by {max_abs["dbias_reduce"]}')
+        # timings in bf16 (the training dtype)
+        q, k, v, do, bias = _core_inputs(g, Bw, C, torch.bfloat16)
+        args = (q, k, v, bias, grid, (4, 4))
+        _, lse = wac.window_attention_core_forward(*args)
+        bargs = (q, k, v, bias, do, lse, grid, (4, 4))
+        mask = wac.shift_attn_mask(grid, 8, (4, 4), 'cuda')
+        nW = mask.shape[0]
+        fmask = (bias[None, None] + mask[None, :, None]).expand(
+            Bw // nW, -1, -1, -1, -1).reshape(Bw, h, 64, 64).to(
+                torch.bfloat16)
+        heads = [t.view(Bw, 64, h, 32).transpose(1, 2)
+                 for t in (q, k, v, do)]
+        leaves = [t.detach().clone().requires_grad_() for t in heads[:3]]
+
+        def sdpa_fwd_bwd():
+            for t in leaves:
+                t.grad = None
+            F.scaled_dot_product_attention(
+                *leaves, attn_mask=fmask, scale=1.0).backward(heads[3])
+
+        times[case] = {
+            'fwd': cuda_ms(lambda: wac.window_attention_core_forward(*args)),
+            'fwd_plain': cuda_ms(
+                lambda: wac.window_attention_core_reference(*args)),
+            'bwd': cuda_ms(
+                lambda: wac.window_attention_core_backward(*bargs)),
+            'bwd_plain': cuda_ms(
+                lambda: wac.window_attention_core_backward_reference(*bargs)),
+            'dbias': cuda_ms(lambda: wac.dbias_reduce(parts)),
+            'dbias_plain': cuda_ms(lambda: wac.dbias_reduce_reference(parts)),
+            'dbias_library': cuda_ms(lambda: parts.sum(0)),
+            'sdpa_fwd': cuda_ms(lambda: F.scaled_dot_product_attention(
+                *heads[:3], attn_mask=fmask, scale=1.0)),
+            'sdpa_fwd_bwd': cuda_ms(sdpa_fwd_bwd),
+            'fwd_bound': _core_bound(Bw, C, 2, False, PEAK_BF16_FLOPS),
+            'bwd_bound': _core_bound(Bw, C, 2, True, PEAK_BF16_FLOPS),
+            'dbias_bound': bound(parts.numel() * 4 + h * 64 * 64 * 4,
+                                 parts.numel()),
+            'dbias_partials': list(parts.shape)}
+    t1 = times['stage1']
+    src = 'nicr_mtsa_tpu_torch/ops/cuda/csrc/window_attention_core.cu'
+    rows = (('window_attention_core_fwd', 'fwd', ('out', 'lse'), 533,
+             'sdpa_fwd'),
+            ('window_attention_core_bwd', 'bwd',
+             ('dq', 'dk', 'dv', 'dbias_bwd'), 563, 'sdpa_fwd_bwd'),
+            ('window_attention_core_dbias', 'dbias', ('dbias_reduce',), 563,
+             'dbias_library'))
+    for name, key, err_keys, line, lib in rows:
+        report[name] = dict(
+            name=name, route='cuda', source=src,
+            replaces=f'nicr_mtsa_tpu/ops/pallas/window_attention.py:{line}',
+            max_abs_err=max(max_abs[n] for n in err_keys),
+            ms=t1[key], plain_ms=t1[f'{key}_plain'],
+            bound_ms=t1[f'{key}_bound'][0], bound_by=t1[f'{key}_bound'][1],
+            library_ms=t1[lib])
+    print(json.dumps({'phase': 'kernel_window_attention_core',
+                      'shapes': {c: [Bw, 64, C] for c, (Bw, C, _) in
+                                 CORE_CASES.items()},
+                      'rel_err': errs, 'times': times,
+                      'library': 'F.scaled_dot_product_attention(scale=1, '
+                                 'float mask): forward, and forward + '
+                                 'backward (q, k, v) for the backward row; '
+                                 'torch.sum for the dbias reduction'}),
+          flush=True)
+    for name, *_ in rows:
+        print(json.dumps({'phase': 'kernel', **report[name]}), flush=True)
+
+
 def _ulp_check(got, want):
     """(values beyond one bf16 ulp of `want`, values beyond both one
     ulp and the f32 noise floor 1e-6 x max |want|): where the affine
@@ -784,6 +1004,218 @@ def serve_swin(args, kernels, card, result):
     return {k: launches[k] for k in SWIN_KERNELS}
 
 
+def train_swin(args, kernels, card, result):
+    """`emsaformer_dve_v2` training at B=8, 480 x 640, bf16: a warm-up
+    step, then three timed rounds of N steps, each round ending in a
+    sync on the total loss; frames/s is the median round."""
+    from nicr_mtsa_tpu_torch.pipeline import build_train_pipeline
+    from nicr_mtsa_tpu_torch.testing import build_train_batch
+    B = 8
+    pipe = build_train_pipeline(device='cuda', seed=0)
+    batch = build_train_batch(B, 480, 640, seed=0, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    state = pipe.create_train_state()
+    state, losses = pipe.train_step(state, batch, gen)
+    first = float(losses['total_loss'])
+    history = [torch.stack(list(losses.values()))]
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(args.train_steps):
+            state, losses = pipe.train_step(state, batch, gen)
+            history.append(torch.stack(list(losses.values())))
+        float(losses['total_loss'])
+        rounds.append(B * args.train_steps / (time.perf_counter() - t0))
+    n = 3 * args.train_steps
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    per_step = {k: launches[k] / n for k in TRAIN_KERNELS}
+    for k, want in TRAIN_KERNELS.items():
+        if per_step[k] != want:
+            fail(f'kernel {k}: {per_step[k]} launches a training step, '
+                 f'expected {want}')
+    history = torch.stack(history).float().cpu()
+    if not bool(torch.isfinite(history).all()):
+        fail('train_swin: a loss is not finite')
+    last = float(losses['total_loss'])
+    if not last < first:
+        fail(f'train_swin: total loss {last} at the last step is not below '
+             f'{first} at the first')
+    fps = float(np.median(rounds))
+    result['train_swin'] = dict(
+        batch=B, steps_per_round=args.train_steps,
+        rounds_frames_per_s=rounds, frames_per_s=fps, card=card,
+        launches_per_step=per_step, first_total_loss=first,
+        last_total_loss=last,
+        total_loss_per_step=[float(v) for v in history[:, -1]],
+        losses={k: float(v) for k, v in losses.items()},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps({'phase': 'train_swin', 'frames_per_s': fps,
+                      'rounds_frames_per_s': rounds, 'batch': B,
+                      'steps': n, 'launches_per_step': per_step,
+                      'first_total_loss': first, 'last_total_loss': last,
+                      'peak_mem_gb': result['train_swin']['peak_mem_gb'],
+                      'card': card}), flush=True)
+    if args.profile:
+        profile(lambda: pipe.train_step(state, batch, gen), result,
+                'train_swin')
+    return {k: launches[k] for k in TRAIN_KERNELS}
+
+
+@contextlib.contextmanager
+def _planted_fault(fault, pipe):
+    """`fault` (None or one of TRAIN_FAULTS) planted for one step of
+    `pipe`: row 7's dbias, or the instance losses, scaled by 1 +
+    TRAIN_FAULT_SIZE."""
+    from nicr_mtsa_tpu_torch.ops.cuda import window_attention_core as wac
+    scale = 1.0 + TRAIN_FAULT_SIZE
+    core = wac._WindowAttentionCore
+    backward, compute_losses = core.backward, pipe.compute_losses
+    if fault == 'core_dbias':
+        def faulty(ctx, dout):
+            dq, dk, dv, dbias, *rest = backward(ctx, dout)
+            return (dq, dk, dv, dbias * scale, *rest)
+        core.backward = staticmethod(faulty)
+    elif fault == 'instance_losses':
+        pipe.compute_losses = lambda b, p: {
+            k: v * scale if k.startswith('instance_') else v
+            for k, v in compute_losses(b, p).items()}
+    try:
+        yield
+    finally:
+        core.backward = staticmethod(backward)
+        pipe.compute_losses = compute_losses
+
+
+def _train_step_result(cfg, hw, batch, dev, order=None, fault=None):
+    """(losses, gradients, BatchNorm statistics, seconds) of one f32
+    training step on `dev` from seed 0's weights and batch seed 2; on
+    the CPU in summation `order` (None or one of TRAIN_CPU_ORDERS), on
+    the card with `fault` planted."""
+    from nicr_mtsa_tpu_torch.pipeline import (MultiTaskPipeline,
+                                              build_train_pipeline)
+    from nicr_mtsa_tpu_torch.testing import build_train_batch
+    pipe = build_train_pipeline(cfg, device=dev, seed=0)
+    if order == 'channels_last':
+        pipe = MultiTaskPipeline(pipe.model, pipe.postprocessors,
+                                 pipe.task_helpers, channels_last=True)
+    with torch.no_grad():
+        pipe.model.instance_decoder.task_head.conv_orientation.bias.copy_(
+            torch.tensor(TRAIN_CPU_ORIENTATION_BIAS))
+    batch_t = build_train_batch(batch, *hw, seed=2, device=dev)
+    state = pipe.create_train_state()
+    t0 = time.perf_counter()
+    with torch.backends.mkldnn.flags(enabled=order != 'no_mkldnn'), \
+            _planted_fault(fault, pipe):
+        state, losses = pipe.train_step(state, batch_t,
+                                        torch.Generator(device=dev))
+        losses = {k: float(v) for k, v in losses.items()}
+    return (losses, {n: (torch.zeros_like(p) if p.grad is None
+                         else p.grad).cpu()
+                     for n, p in state['params'].items()},
+            {n: b.cpu() for n, b in state['batch_stats'].items()},
+            time.perf_counter() - t0)
+
+
+def train_card_vs_cpu(result, hw=TRAIN_CPU_HW, batch=TRAIN_CPU_BATCH):
+    """One f32 training step with drop rates 0 on the card and on the
+    CPU (`batch` at `hw`; the same seed builds the same weights and
+    batch): losses within rtol 1e-5, BatchNorm statistics within 1e-5,
+    and each gradient within its limit of its tensor's max |grad| (of
+    1e-5 x the step's largest, for a tensor whose exact gradient is 0):
+    TRAIN_GRAD_TOL, or TRAIN_SPREAD_FACTOR times the spread of the same
+    step on the CPU in its other summation orders, taken in this run,
+    where that is more. Controls: the card's step again with each of
+    TRAIN_FAULTS planted must fail the same check, in every tensor the
+    fault moves whose limit lies below a quarter of the fault."""
+    from nicr_mtsa_tpu_torch.pipeline import emsaformer_train_config
+    cfg = emsaformer_train_config(hw, 'float32', stochastic_depth=0.0,
+                                  decoder_dropout=0.0)
+    l_card, g_card, s_card, t_card = _train_step_result(cfg, hw, batch,
+                                                        'cuda')
+    faulty = {f: _train_step_result(cfg, hw, batch, 'cuda', fault=f)[1]
+              for f in TRAIN_FAULTS}
+    l_cpu, g_cpu, s_cpu, t_cpu = _train_step_result(cfg, hw, batch, 'cpu')
+    seconds = {'cuda': t_card, 'cpu': t_cpu}
+    g_orders = {}
+    for order in TRAIN_CPU_ORDERS:
+        _, g_orders[order], _, seconds[f'cpu_{order}'] = _train_step_result(
+            cfg, hw, batch, 'cpu', order)
+    loss_err = max(abs(l_card[k] - v) / max(abs(v), 1e-30)
+                   for k, v in l_cpu.items())
+    if not loss_err <= 1e-5:
+        fail(f'train card vs CPU: losses differ by rtol {loss_err}')
+    largest = max(float(g.abs().max()) for g in g_cpu.values())
+    den = {n: max(float(g.abs().max()), 1e-5 * largest)
+           for n, g in g_cpu.items()}
+
+    def errs(grads):
+        return {n: float((grads[n] - g).abs().max()) / den[n]
+                for n, g in g_cpu.items()}
+    spread = {n: max(e[n] for e in map(errs, g_orders.values()))
+              for n in g_cpu}
+    limit = {n: max(TRAIN_GRAD_TOL, TRAIN_SPREAD_FACTOR * spread[n])
+             for n in g_cpu}
+    grad_err = errs(g_card)
+    ratio = {n: grad_err[n] / limit[n] for n in g_cpu}
+    worst = max(ratio, key=ratio.get)
+    table = sorted(((ratio[n], grad_err[n], limit[n], spread[n],
+                     float(g_cpu[n].abs().max()), n) for n in g_cpu),
+                   reverse=True)
+    controls = {}
+    for fault, grads in faulty.items():
+        e = errs(grads)
+        # the tensors of the fault's group it moves by at least half its
+        # size (not those whose exact gradient is 0); where the limit
+        # is under a quarter of it, the check cannot miss the fault
+        group = [n for n in g_cpu if TRAIN_FAULTS[fault] in n]
+        moved = [n for n in group if float((grads[n] - g_card[n]).abs()
+                                           .max()) / den[n]
+                 >= TRAIN_FAULT_SIZE / 2]
+        controls[fault] = dict(
+            n_group=len(group), n_moved=len(moved),
+            n_flagged=sum(e[n] > limit[n] for n in moved),
+            missed=[n for n in moved if limit[n] < TRAIN_FAULT_SIZE / 4
+                    and not e[n] > limit[n]],
+            hidden=[n for n in moved if limit[n] >= TRAIN_FAULT_SIZE])
+    print(json.dumps({'phase': 'train_card_vs_cpu_grads',
+                      'largest_grad': largest,
+                      'worst': [list(r) for r in table[:12]],
+                      'n_limit_above_tol': sum(
+                          v > TRAIN_GRAD_TOL for v in limit.values()),
+                      'max_limit': max(limit.values()),
+                      'controls': controls,
+                      'seconds': seconds}), flush=True)
+    if not ratio[worst] <= 1.0:
+        fail(f'train card vs CPU: gradient of {worst} differs by '
+             f'{grad_err[worst]} of its max, above its limit {limit[worst]}')
+    for fault, c in controls.items():
+        if c['missed'] or not c['n_flagged']:
+            fail(f'train card vs CPU: a planted {TRAIN_FAULT_SIZE} fault in '
+                 f'{fault} passed the gradient check of {c["missed"]}')
+    stat_err = max(float((s_card[n] - b).abs().max() / (1 + b.abs().max()))
+                   for n, b in s_cpu.items() if b.is_floating_point())
+    if not stat_err <= 1e-5:
+        fail(f'train card vs CPU: BatchNorm statistics differ by {stat_err}')
+    result['train_card_vs_cpu'] = dict(
+        size=list(hw), batch=batch, loss_rel_err=loss_err,
+        worst_grad=worst, worst_grad_rel_err=grad_err[worst],
+        worst_grad_limit=limit[worst], bn_stat_err=stat_err,
+        step_seconds=seconds, controls=controls,
+        grads=[dict(zip(('err_over_limit', 'err', 'limit', 'cpu_spread',
+                         'max_abs_grad', 'name'), r)) for r in table])
+    print(json.dumps({'phase': 'train_card_vs_cpu', 'size': list(hw),
+                      'batch': batch, 'loss_rel_err': loss_err,
+                      'worst_grad': worst,
+                      'worst_grad_rel_err': grad_err[worst],
+                      'worst_grad_limit': limit[worst],
+                      'bn_stat_err': stat_err, 'step_seconds': seconds}),
+          flush=True)
+
+
 EVAL_LOG_KEYS = ('semantic_miou', 'panoptic_deeplab_semantic_miou',
                  'panoptic_all_deeplab_pq', 'instance_all_deeplab_pq',
                  'scene_acc')
@@ -905,9 +1337,12 @@ def main():
                     help='Swin requests per timed round (3 rounds)')
     ap.add_argument('--steps', type=int, default=5,
                     help='eval steps per timed round (3 rounds)')
+    ap.add_argument('--train-steps', type=int, default=3,
+                    help='Swin training steps per timed round (3 rounds)')
     ap.add_argument('--profile', action='store_true',
-                    help='also trace 3 requests of each serving path '
-                         'and 3 eval steps with torch.profiler')
+                    help='also trace 3 requests of each serving path, '
+                         '3 eval steps and 3 training steps with '
+                         'torch.profiler')
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -920,7 +1355,8 @@ def main():
     from nicr_mtsa_tpu_torch.ops.cuda import (_build, finisher4x, grouping,
                                               intersection, layernorm,
                                               resize_reduce, semantic_reduce,
-                                              window_attention)
+                                              window_attention,
+                                              window_attention_core)
     from nicr_mtsa_tpu_torch.pipeline import (emsaformer_bench_config,
                                               emsanet_bench_config)
     build_s = kernels.build_all()
@@ -950,14 +1386,19 @@ def main():
     swin_launches = serve_swin(args, kernels, card, result)
     card_vs_cpu(result, emsaformer_bench_config(dtype='float32'),
                 'swin_card_vs_cpu', frame_seed=4)
+    check_window_attention_core(window_attention_core, report)
+    train_launches = train_swin(args, kernels, card, result)
+    train_card_vs_cpu(result)
 
     # each kernel's launches from the run of its own path (the grouping
     # from the EMSANet serving run)
     launches.update({n: eval_launches[n] for n in EVAL_KERNELS})
     launches.update({n: swin_launches[n] for n in SWIN_KERNELS
                      if n not in launches})
+    core = [n for n in TRAIN_KERNELS if n.startswith('window_attention_core')]
+    launches.update({n: train_launches[n] for n in core})
     names = (*SERVING_KERNELS, *EVAL_KERNELS,
-             *(n for n in SWIN_KERNELS if n not in SERVING_KERNELS))
+             *(n for n in SWIN_KERNELS if n not in SERVING_KERNELS), *core)
     line = {'kernels': [dict(report[n], launches=launches[n])
                         for n in names]}
     result['kernels'] = line['kernels']

@@ -1,5 +1,7 @@
 """PyTorch/CUDA port of nicr_mtsa_tpu: EMSANet panoptic serving (slice
-1) and the metric-inclusive fused eval step (slice 2).
+1), the metric-inclusive fused eval step (slice 2), EMSAFormer
+(SwinV2-T-128 RGB-D) serving (slice 3) and its training step
+(slice 4).
 
 The JAX package `nicr_mtsa_tpu` stays the reference; this package is
 held against it on the same weights and inputs (tests/test_torch_*.py).
@@ -12,8 +14,9 @@ on the card the kernels of both paths (ops/cuda/) are hand-written
 CUDA C++ for sm_90a, built at first use."""
 from .models.multi_task import MultiTaskModelConfig, build_model
 from .pipeline import (MultiTaskPipeline, PanopticInferencePipeline,
-                       build_eval_pipeline, build_serving_pipeline)
+                       build_eval_pipeline, build_serving_pipeline,
+                       build_train_pipeline)
 
 __all__ = ['MultiTaskModelConfig', 'build_model', 'MultiTaskPipeline',
            'PanopticInferencePipeline', 'build_eval_pipeline',
-           'build_serving_pipeline']
+           'build_serving_pipeline', 'build_train_pipeline']

@@ -1,8 +1,11 @@
-"""Losses, forward only, as the eval step computes them (counterpart of
-nicr_mtsa_tpu/losses/). A loss maps per-scale (input, target) pairs to
-(loss_sum, n_elements) tuples; n_elements stays a device scalar.
+"""Losses of the eval step and, under autograd, of the training step
+(counterpart of nicr_mtsa_tpu/losses/). A loss maps per-scale (input,
+target) pairs to (loss_sum, n_elements) tuples; n_elements stays a
+device scalar.
 Dense inputs are NCHW, maps (B, H, W)."""
 import torch
+
+from .utils.dtypes import upcast
 
 
 class LossBase:
@@ -29,7 +32,7 @@ class CrossEntropyLossSemantic(LossBase):
         t = target.long() - 1
         valid = t >= 0
         tclip = t.clamp(0, n_classes - 1)
-        logp = torch.log_softmax(input_.float(), dim=1)
+        logp = torch.log_softmax(upcast(input_), dim=1)
         nll = -torch.gather(logp, 1, tclip[:, None])[:, 0]
         if self._label_smoothing > 0.0:
             ls = self._label_smoothing
@@ -51,19 +54,19 @@ def _reduce_sum(loss):
 
 class L1Loss(LossBase):
     def _compute_loss(self, input_, target):
-        return _reduce_sum(torch.abs(input_.float() - target.float()))
+        return _reduce_sum(torch.abs(upcast(input_) - upcast(target)))
 
 
 class MSELoss(LossBase):
     def _compute_loss(self, input_, target):
-        diff = input_.float() - target.float()
+        diff = upcast(input_) - upcast(target)
         return _reduce_sum(diff * diff)
 
 
 def von_mises_biternion(input_, target, kappa: float = 1.0):
     """Per-pixel von Mises loss 1 - exp(kappa * (cos(delta) - 1)) of
     biternion maps (B, 2, H, W) -> (B, H, W)."""
-    cos_delta = (input_.float() * target.float()).sum(dim=1)
+    cos_delta = (upcast(input_) * upcast(target)).sum(dim=1)
     return 1.0 - torch.exp(kappa * (cos_delta - 1.0))
 
 

@@ -18,7 +18,9 @@ KNOWN_BACKBONES = (
 
 def get_backbone(name: str, resnet_block=None, n_input_channels: int = 3,
                  normalization: str = 'batchnorm', activation: str = 'relu',
-                 generator=None) -> Backbone:
+                 stochastic_depth=None, generator=None) -> Backbone:
+    """`stochastic_depth` (Swin only): the last block's rate, None for
+    the variant's default."""
     name = name.lower()
     if name not in KNOWN_BACKBONES:
         raise ValueError(f"Unsupported backbone in this port: '{name}'")
@@ -29,6 +31,7 @@ def get_backbone(name: str, resnet_block=None, n_input_channels: int = 3,
                                    activation=activation,
                                    generator=generator)
     return get_swin_backbone(name, n_input_channels=n_input_channels,
+                             stochastic_depth=stochastic_depth,
                              generator=generator)
 
 

@@ -18,5 +18,7 @@ class Backbone(nn.Module):
     def n_stages(self) -> int:
         return len(self.stages_n_channels)
 
-    def forward_stage(self, idx: int, x):
+    def forward_stage(self, idx: int, x, generator=None):
+        """Stage `idx` of NCHW x; `generator` feeds the stage's random
+        parts in training mode, if it has any."""
         raise NotImplementedError

@@ -52,7 +52,8 @@ class ResNetBackbone(Backbone):
     def stages_downsampling(self) -> List[int]:
         return [2, 4, 8, 16, 32]
 
-    def forward_stage(self, idx: int, x):
+    def forward_stage(self, idx: int, x, generator=None):
+        """No random parts: `generator` is not read."""
         if idx == 0:
             return self.act(self.norm1(self.conv1(x)))
         if idx == 1:

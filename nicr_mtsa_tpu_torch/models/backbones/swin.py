@@ -1,4 +1,4 @@
-"""Swin Transformer backbone v1 / v2, inference only (counterpart of
+"""Swin Transformer backbone v1 / v2 (counterpart of
 nicr_mtsa_tpu/models/backbones/swin.py). Five stages, callable through
 `forward_stage`:
   0: patch embed (4x4)                          ds 4
@@ -9,7 +9,8 @@ nicr_mtsa_tpu/models/backbones/swin.py). Five stages, callable through
 v1: 7x7 windows, pre-norm, a relative-position bias table; v2: 8x8
 windows, post-norm, cosine attention with a learned logit scale and the
 log-spaced continuous position bias MLP. Shifted windows on every
-second block. Stochastic depth is the identity at inference.
+second block. Stochastic depth rises linearly over the blocks (to 0.2
+for Swin-T) and is the identity at inference.
 
 Layout: the blocks work on NHWC tensors (the LayerNorms and the window
 partition read the channel axis last); `forward_stage` takes and
@@ -20,7 +21,15 @@ product, attention, the output projection, and back) is one call of
 ops/cuda/window_attention.py `window_attention_image`, and every
 LayerNorm goes through ops/cuda/layernorm.py (the kernels on the card,
 their plain versions on the CPU); the MLP's dense layers and the patch
-merging's reduction are plain `F.linear`."""
+merging's reduction are plain `F.linear`.
+
+Training mode (`nn.Module.train()`) takes the JAX package's training
+path: the qkv product, the v2 cosine normalisation and the logit scale
+folded into q in plain differentiable torch, the pad, roll and window
+partition in torch, and the attention itself through the differentiable
+ops/cuda/window_attention_core.py (row 7's forward and backward kernels
+on the card); the LayerNorms run their plain version, and the random
+parts (DropPath) draw from the generator passed to `forward_stage`."""
 import math
 from typing import List, Tuple
 
@@ -29,10 +38,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.cuda.window_attention import (window_attention_block,
-                                         window_attention_image)
-from ..common import (Conv2d, FusedLayerNorm, Linear, cached_weight,
-                      trunc_normal_)
+from ...ops.cuda.window_attention import (
+    image_windows, window_attention_block, window_attention_image,
+    window_partition, window_unpartition)
+from ...ops.cuda.window_attention_core import window_attention_core
+from ...utils.dtypes import upcast
+from ..common import (Conv2d, FusedLayerNorm, Linear, bernoulli_keep,
+                      cached_weight, trunc_normal_)
 from .base import Backbone
 
 
@@ -57,7 +69,11 @@ def log_cpb_coords(ws: int) -> np.ndarray:
 
 def _derived(module: nn.Module, key: str, params, build):
     """`build()` of several parameters, cached until one of them is
-    modified in place or moved (as `cached_weight`)."""
+    modified in place or moved (as `cached_weight`); built inside the
+    autograd graph, uncached, where grad is on and a parameter requires
+    it."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return build()
     ver = tuple((p.device, p.data_ptr(), p._version) for p in params)
     cache = module.__dict__.setdefault('_derived_cache', {})
     hit = cache.get(key)
@@ -65,6 +81,25 @@ def _derived(module: nn.Module, key: str, params, build):
         with torch.no_grad():
             hit = cache[key] = (ver, build())
     return hit[1]
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth on a residual branch in training
+    mode: a sample is kept with probability 1 - rate and then divided
+    by it (the flax module's `where(mask, x / keep, 0)`)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = bernoulli_keep((x.shape[0],) + (1,) * (x.dim() - 1), keep,
+                              generator, x.device)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 class WindowAttention(nn.Module):
@@ -99,7 +134,8 @@ class WindowAttention(nn.Module):
             idx = torch.from_numpy(relative_position_index(ws).reshape(-1))
             if self.v2:
                 dev = self.cpb_fc1.weight.device
-                coords = torch.from_numpy(log_cpb_coords(ws)).to(dev)
+                coords = torch.from_numpy(log_cpb_coords(ws)).to(
+                    dev, self.cpb_fc1.weight.dtype)
                 t = F.relu(F.linear(coords, self.cpb_fc1.weight,
                                     self.cpb_fc1.bias))
                 table = F.linear(t, self.cpb_fc2.weight)
@@ -107,7 +143,7 @@ class WindowAttention(nn.Module):
                 table = self.relative_position_bias_table
             bias = table[idx.to(table.device)].view(N, N, h).permute(2, 0, 1)
             bias = 16.0 * torch.sigmoid(bias) if self.v2 else bias
-            return bias.float().contiguous()
+            return upcast(bias).contiguous()
 
         params = ((self.cpb_fc1.weight, self.cpb_fc1.bias,
                    self.cpb_fc2.weight) if self.v2
@@ -117,17 +153,20 @@ class WindowAttention(nn.Module):
     def v2_scale(self) -> torch.Tensor:
         """(h,) f32 logit scale exp(min(s, log 100))."""
         return _derived(self, 'v2_scale', (self.logit_scale,), lambda: torch.exp(
-            torch.minimum(self.logit_scale.float(),
+            torch.minimum(upcast(self.logit_scale),
                           torch.log(torch.tensor(100.0)).to(
                               self.logit_scale.device))).view(-1))
 
     def qkv_bias(self) -> torch.Tensor:
         """(3C,) f32 qkv bias; v2 zeroes its k third on every forward
-        (k is normalised per head, so a key bias is not a no-op)."""
+        (k is normalised per head, so a key bias is not a no-op): an
+        exact 0 forward and an exact 0 gradient."""
         def build():
-            b = self.qkv.bias.float().clone()
+            b = upcast(self.qkv.bias)
             if self.v2:
-                b[self.dim:2 * self.dim] = 0.0
+                C = self.dim
+                b = torch.cat([b[:C], torch.zeros_like(b[C:2 * C]),
+                               b[2 * C:]])
             return b
         return _derived(self, 'qkv_bias', (self.qkv.bias,), build)
 
@@ -149,21 +188,66 @@ class WindowAttention(nn.Module):
                                       bias, self.n_heads, grid_hw, shift,
                                       scale)
 
+    def forward_train(self, windows, grid_hw: Tuple[int, int] = (1, 1),
+                      shift=None):
+        """The training path on windows (Bw, N, C), as the flax module
+        takes them with `train=True`: qkv, (v2) q and k divided by
+        max(||.||, 1e-6) per head and the logit scale folded into q in
+        f32, rounded back (v1: q x d^-0.5), then the differentiable
+        attention core and `proj`."""
+        Bw, N, C = windows.shape
+        h, dt = self.n_heads, windows.dtype
+        qkv = F.linear(windows, cached_weight(self.qkv, 'weight', dt),
+                       self.qkv_bias().to(dt))
+        q, k, v = qkv.split(C, dim=-1)
+        if self.v2:
+            def unit(t):
+                t32 = upcast(t.reshape(Bw, N, h, C // h))
+                nrm = torch.linalg.vector_norm(t32, dim=-1, keepdim=True)
+                return (t32 / nrm.clamp_min(1e-6)).to(dt)
+            scale = self.v2_scale().view(1, 1, h, 1)
+            q = (upcast(unit(q)) * scale).to(dt).reshape(Bw, N, C)
+            k = unit(k).reshape(Bw, N, C)
+        else:
+            q = q * float(C // h) ** -0.5
+        out = window_attention_core(q, k, v,
+                                    self.position_bias(), grid_hw, shift)
+        return self.proj(out)
+
     def forward_image(self, x, shift: int = 0):
         """A Swin block's attention part on its (B, H, W, C) image:
-        padding, the cyclic shift and the window partition included."""
+        padding, the cyclic shift and the window partition included;
+        in training mode through `forward_train`."""
+        if self.training:
+            return self._train_image(x, shift)
         wqkv, bqkv, wproj, bproj, bias, scale = self._weights(x.dtype)
         return window_attention_image(x, wqkv, bqkv, wproj, bproj, bias,
                                       self.n_heads, self.window_size,
                                       shift, scale)
 
+    def _train_image(self, x, shift: int):
+        B, H, W, C = x.shape
+        ws = self.window_size
+        pad_h, pad_w, grid_hw, (sh, sw) = image_windows(H, W, ws, shift)
+        if pad_h or pad_w:
+            x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+        if sh or sw:
+            x = torch.roll(x, (-sh, -sw), dims=(1, 2))
+        y = self.forward_train(window_partition(x, ws), grid_hw,
+                               (sh, sw) if sh or sw else None)
+        y = window_unpartition(y, ws, H + pad_h, W + pad_w)
+        if sh or sw:
+            y = torch.roll(y, (sh, sw), dims=(1, 2))
+        return y[:, :H, :W] if pad_h or pad_w else y
+
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, n_heads: int, window_size: int,
                  shift: int = 0, mlp_ratio: float = 4.0, v2: bool = False,
-                 generator=None):
+                 drop_path: float = 0.0, generator=None):
         super().__init__()
         self.window_size, self.shift, self.v2 = window_size, shift, v2
+        self.drop_path = DropPath(drop_path)
         self.attn = WindowAttention(dim, n_heads, window_size, v2,
                                     generator)
         self.norm1 = FusedLayerNorm(dim)
@@ -179,13 +263,14 @@ class SwinBlock(nn.Module):
         # exact (erf) GELU, as the JAX package's
         return self.mlp_fc2(F.gelu(self.mlp_fc1(y)))
 
-    def forward(self, x):
-        """x: (B, H, W, C)."""
+    def forward(self, x, generator=None):
+        """x: (B, H, W, C); `generator` feeds DropPath in training."""
+        dp = lambda y: self.drop_path(y, generator)
         if self.v2:                    # post-norm
-            x = x + self.norm1(self._attention_part(x))
-            return x + self.norm2(self._mlp_part(x))
-        x = x + self._attention_part(self.norm1(x))
-        return x + self._mlp_part(self.norm2(x))
+            x = x + dp(self.norm1(self._attention_part(x)))
+            return x + dp(self.norm2(self._mlp_part(x)))
+        x = x + dp(self._attention_part(self.norm1(x)))
+        return x + dp(self._mlp_part(self.norm2(x)))
 
 
 class PatchMerging(nn.Module):
@@ -248,7 +333,7 @@ class SwinBackbone(Backbone):
                  window_size: int = 7, mlp_ratio: float = 4.0,
                  v2: bool = False, n_input_channels: int = 3,
                  multimodal: bool = False, embed_dim_depth: int = 32,
-                 generator=None):
+                 stochastic_depth: float = 0.2, generator=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.n_input_channels = n_input_channels
@@ -261,6 +346,7 @@ class SwinBackbone(Backbone):
             self.patch_embed = PatchEmbed(embed_dim, 4, n_input_channels,
                                           generator)
         self._layer_names: List[List[str]] = []
+        dp_rates = np.linspace(0, stochastic_depth, sum(depths))
         for i, (depth, heads) in enumerate(zip(depths, n_heads)):
             names = []
             for b in range(depth):
@@ -268,7 +354,9 @@ class SwinBackbone(Backbone):
                 self.add_module(name, SwinBlock(
                     embed_dim * 2 ** i, heads, window_size,
                     shift=0 if b % 2 == 0 else window_size // 2,
-                    mlp_ratio=mlp_ratio, v2=v2, generator=generator))
+                    mlp_ratio=mlp_ratio, v2=v2,
+                    drop_path=float(dp_rates[sum(depths[:i]) + b]),
+                    generator=generator))
                 names.append(name)
             self._layer_names.append(names)
         for i in range(1, 4):
@@ -285,33 +373,36 @@ class SwinBackbone(Backbone):
     def stages_downsampling(self) -> List[int]:
         return [4, 4, 8, 16, 32]
 
-    def forward_stage(self, idx: int, x):
-        """NCHW in, an NCHW view of the NHWC result out."""
+    def forward_stage(self, idx: int, x, generator=None):
+        """NCHW in, an NCHW view of the NHWC result out; `generator`
+        feeds the stochastic depth in training."""
         if idx == 0:
             return self.patch_embed(x).permute(0, 3, 1, 2)
         x = x.permute(0, 2, 3, 1).contiguous()
         if idx >= 2:
             x = getattr(self, f'merge{idx - 1}')(x)
         for name in self._layer_names[idx - 1]:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, generator)
         if idx == 4:
             x = self.norm(x)
         return x.permute(0, 3, 1, 2)
 
 
 def get_swin_backbone(name: str, n_input_channels: int = 3,
-                      generator=None) -> SwinBackbone:
+                      stochastic_depth=None, generator=None) -> SwinBackbone:
     """swin-{t,s,b}[-v2], swin-t[-v2]-128, and the swin-multi-*
-    variants with the merged rgb + depth patch embedder."""
+    variants with the merged rgb + depth patch embedder; stochastic
+    depth (the last block's rate) defaults to the variant's (0.2, 0.3,
+    0.5 for t, s, b)."""
     name = name.lower()
     v2 = '-v2' in name
     multimodal = name.startswith('swin-multi')
     if '-t' in name:
-        depths, heads, embed = (2, 2, 6, 2), (3, 6, 12, 24), 96
+        depths, heads, embed, sd = (2, 2, 6, 2), (3, 6, 12, 24), 96, 0.2
     elif '-s' in name:
-        depths, heads, embed = (2, 2, 18, 2), (3, 6, 12, 24), 96
+        depths, heads, embed, sd = (2, 2, 18, 2), (3, 6, 12, 24), 96, 0.3
     elif '-b' in name:
-        depths, heads, embed = (2, 2, 18, 2), (4, 8, 16, 32), 128
+        depths, heads, embed, sd = (2, 2, 18, 2), (4, 8, 16, 32), 128, 0.5
     else:
         raise ValueError(f"Unknown swin backbone: '{name}'")
     if name.endswith('-128'):
@@ -322,4 +413,7 @@ def get_swin_backbone(name: str, n_input_channels: int = 3,
     return SwinBackbone(embed_dim=embed, depths=depths, n_heads=heads,
                         window_size=8 if v2 else 7, v2=v2,
                         n_input_channels=n_input_channels,
-                        multimodal=multimodal, generator=generator)
+                        multimodal=multimodal,
+                        stochastic_depth=(sd if stochastic_depth is None
+                                          else stochastic_depth),
+                        generator=generator)

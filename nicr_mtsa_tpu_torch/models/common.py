@@ -3,9 +3,13 @@ last axis, a Dense layer, ConvNormAct, SqueezeAndExcitation
 (counterpart of nicr_mtsa_tpu/models/common.py).
 
 Parameters stay float32; every module casts its weights to the dtype
-of its input (once, then cached), as the flax modules compute in a
-threaded `dtype` with f32 masters. Submodule and parameter names
-follow the flax names (`conv`, `norm`, `fc1`, ...) so
+of its input (once, then cached; inside the autograd graph, uncached,
+where grad is on), as the flax modules compute in a threaded `dtype`
+with f32 masters. Training mode is `nn.Module.train()`: BatchNorm then
+normalises with batch statistics and updates its running ones,
+`FusedLayerNorm` runs its differentiable plain version, and `Dropout`
+draws its mask from the generator it is called with. Submodule and
+parameter names follow the flax names (`conv`, `norm`, `fc1`, ...) so
 utils/flax_weights.py maps the trees mechanically. Initialisation:
 He fan-out normal for convs (torch's kaiming_normal_(mode='fan_out',
 nonlinearity='relu')), BN and LN identity."""
@@ -15,6 +19,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..utils.dtypes import upcast
 
 KNOWN_NORMALIZATIONS = ('bn', 'batchnorm')
 KNOWN_ACTIVATIONS = ('relu', 'silu', 'swish')
@@ -31,10 +37,15 @@ def cached_weight(module: nn.Module, name: str, dtype, build=None):
     and cast to `dtype`, cached until it is modified in place or moved:
     a forward pass would otherwise launch one cast per weight (about
     1200 copies per serving request). Each transform (`build`'s code)
-    has its own slot, apart from the plain cast."""
+    has its own slot, apart from the plain cast. Where grad is on and
+    the parameter requires it, the cast is built inside the autograd
+    graph every call and not cached, so the parameter gets its
+    gradient."""
     p = getattr(module, name)
     if p is None:
         return None
+    if torch.is_grad_enabled() and p.requires_grad:
+        return (p if build is None else build(p)).to(dtype)
     key = (dtype, p.device, p.data_ptr(), p._version)
     slot = name if build is None else (name, build.__code__)
     cache = module.__dict__.setdefault('_weight_cache', {})
@@ -93,8 +104,15 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the channel axis (eps 1e-5, as the flax
-    `Norm`); running statistics are buffers."""
+    """BatchNorm over the channel axis of NCHW tensors (eps 1e-5,
+    momentum 0.9, as the flax `Norm`); running statistics are buffers.
+    Training mode follows flax's `nn.BatchNorm`: f32 batch statistics
+    over (N, H, W) with the fast variance E[x^2] - E[x]^2 clamped at 0,
+    y = (x - mean) * (rsqrt(var + eps) * weight) + bias in f32, one cast
+    to x's dtype; the running statistics move by ra = 0.9 ra + 0.1 batch
+    with the biased variance (`F.batch_norm` would use the unbiased
+    one)."""
+    momentum = 0.9
 
     def __init__(self, n_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -105,12 +123,29 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(n_channels))
 
     def forward(self, x):
+        if self.training:
+            return self._train_forward(x)
         dt = x.dtype
         return F.batch_norm(
             x, cached_weight(self, 'running_mean', dt),
             cached_weight(self, 'running_var', dt),
             cached_weight(self, 'weight', dt),
             cached_weight(self, 'bias', dt), False, 0.0, self.eps)
+
+    def _train_forward(self, x):
+        x32 = upcast(x)
+        mean = x32.mean(dim=(0, 2, 3))
+        var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
+            + self.bias.view(1, -1, 1, 1)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1.0 - m) * mean.detach())
+            self.running_var.copy_(m * self.running_var
+                                   + (1.0 - m) * var.detach())
+        return y.to(x.dtype)
 
 
 class FusedLayerNorm(nn.Module):
@@ -119,7 +154,9 @@ class FusedLayerNorm(nn.Module):
     statistics with the clamped fast variance, eps inside the rsqrt,
     the affine in f32, one cast at the end. eps 1e-5 is the JAX
     package's `FusedLayerNorm` (torch's default); the decoders' skip
-    LayerNorm is flax `nn.LayerNorm` and passes its 1e-6."""
+    LayerNorm is flax `nn.LayerNorm` and passes its 1e-6. In training
+    mode it runs the same arithmetic as the differentiable plain
+    version on every device, as the JAX package trains through XLA."""
 
     def __init__(self, n_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -129,8 +166,38 @@ class FusedLayerNorm(nn.Module):
 
     def forward(self, x):
         # imported here: ops/cuda imports this module's siblings
-        from ..ops.cuda.layernorm import fused_layer_norm
-        return fused_layer_norm(x, self.weight, self.bias, self.eps)
+        from ..ops.cuda.layernorm import (fused_layer_norm,
+                                          layer_norm_reference)
+        norm = layer_norm_reference if self.training else fused_layer_norm
+        return norm(x, self.weight, self.bias, self.eps)
+
+
+def bernoulli_keep(shape, keep: float, generator, device) -> torch.Tensor:
+    """Bool mask of `shape`, True with probability `keep`, drawn from
+    `generator` (on `device`, or on the generator's device and moved)."""
+    gdev = device if generator is None else generator.device
+    u = torch.rand(shape, generator=generator, device=gdev)
+    return (u < keep).to(device)
+
+
+class Dropout(nn.Module):
+    """Channel dropout of NCHW tensors in training mode (flax
+    `nn.Dropout(rate, broadcast_dims=(1, 2))` on NHWC): one keep/drop
+    draw per (sample, channel), broadcast over H and W; kept values
+    are divided by 1 - rate. The identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float = 0.1):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = bernoulli_keep((x.shape[0], x.shape[1], 1, 1), keep,
+                              generator, x.device)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 def trunc_normal_(t, std: float = 0.02, generator=None):

@@ -1,19 +1,23 @@
-"""Decoder bases (counterpart of nicr_mtsa_tpu/models/decoders/base.py),
-inference only; both return `(main, side_outputs)` with no side
-outputs.
+"""Decoder bases (counterpart of nicr_mtsa_tpu/models/decoders/base.py);
+both return `(main, side_outputs)` with no side outputs. The dense
+decoders are ported for inference only (their training side outputs
+are not).
 
 - `DenseDecoderBase`: the dense ladder; each step is ConvNormAct 3x3 +
   n residual blocks + 2x upsampling, followed by skip fusion.
 - `MLPDecoderBase`: SegFormer-style; a 1x1 embedding of the context
   features and of each (selected, LayerNormed) skip, all upsampled to
-  `downsampling_in_heads`, concatenated, fused by a 1x1 ConvNormAct
-  (dropout is the identity at inference), then the task head."""
+  `downsampling_in_heads`, concatenated, fused by a 1x1 ConvNormAct,
+  channel dropout (rate `dropout_p`, training mode only, drawn from the
+  generator passed to `forward`), then the task head: in training as
+  at inference the full-resolution bilinear prediction and no side
+  outputs."""
 from typing import Optional, Tuple
 
 import torch.nn as nn
 
 from ..blocks import make_block
-from ..common import ConvNormAct
+from ..common import ConvNormAct, Dropout
 from ..encoder_decoder_fusion import (EncoderDecoderFusion,
                                       parse_encoder_decoder_fusion)
 from ..upsampling import Upsampling
@@ -106,9 +110,10 @@ class DenseDecoderBase(nn.Module):
     def apply_task_head(self, x):
         raise NotImplementedError
 
-    def forward(self, x, skips):
+    def forward(self, x, skips, generator=None):
         """x: (context_features, context_branches); skips:
-        {str(ds): {modality: tensor}}. Returns (main, ())."""
+        {str(ds): {modality: tensor}}. Returns (main, ()); no random
+        parts (`generator` is not read)."""
         x, _ = x
         fusion_idx = 0
         for i, fds in enumerate(self._fusion_ds):
@@ -126,6 +131,7 @@ class MLPDecoderBase(nn.Module):
                  fusion_n_channels: Tuple[int, ...] = (),
                  fusion_downsamplings: Tuple[int, ...] = (16, 8, 4),
                  downsampling_in_heads: int = 4,
+                 dropout_p: float = 0.1,
                  n_channels_out: Optional[int] = None,
                  norm: str = 'batchnorm', act: str = 'relu',
                  upsampling: str = 'bilinear',
@@ -158,17 +164,20 @@ class MLPDecoderBase(nn.Module):
                                 else sum(n_channels) // len(n_channels))
         self.fuse = ConvNormAct(sum(n_channels), self.head_n_channels, 1,
                                 norm=norm, act=act, generator=generator)
+        self.dropout = Dropout(dropout_p)
 
     def apply_task_head(self, x):
         raise NotImplementedError
 
-    def forward(self, x, skips):
+    def forward(self, x, skips, generator=None):
         """x: (context_features, context_branches); skips:
-        {str(ds): {modality: tensor}}. Returns (main, ())."""
+        {str(ds): {modality: tensor}}; `generator` feeds the dropout in
+        training. Returns (main, ())."""
         x, _ = x
         features = [self.main_upsample(self.main_embedding(x))]
         for i, ds in enumerate(self.fusion_downsamplings):
             sel = getattr(self, f'skip_fusion{i}')(skips[str(ds)], None)
             sel = getattr(self, f'skip_embedding{i}')(sel)
             features.append(getattr(self, f'skip_upsample{i}')(sel))
-        return self.apply_task_head(self.fuse(features)), ()
+        return self.apply_task_head(
+            self.dropout(self.fuse(features), generator)), ()

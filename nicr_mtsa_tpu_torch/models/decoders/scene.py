@@ -21,7 +21,7 @@ class SceneClassificationDecoder(nn.Module):
                 0.0, 1.0 / math.sqrt(n_features), generator=generator)
             self.task_head.bias.zero_()
 
-    def forward(self, x, skips=None):
+    def forward(self, x, skips=None, generator=None):
         cm_output, cm_context_features = x
         if cm_context_features:
             feat = cm_context_features[0]

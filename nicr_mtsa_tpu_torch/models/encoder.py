@@ -61,12 +61,13 @@ class Encoder(nn.Module):
     def downsampling(self) -> int:
         return self.backbone.stages_downsampling[-1]
 
-    def forward(self, x: dict):
+    def forward(self, x: dict, generator=None):
+        """`generator` feeds the backbone's random parts in training."""
         assert len(x) == 1
         key, y = next(iter(x.items()))
         outs = []
         for i in range(self.backbone.n_stages):
-            y = self.backbone.forward_stage(i, y)
+            y = self.backbone.forward_stage(i, y, generator)
             outs.append(y)
         skips = {str(ds): {key: outs[i]}
                  for ds, i in zip(self.skip_downsamplings, self._skip_idx)}
@@ -113,15 +114,16 @@ class FusedRGBDEncoder(nn.Module):
     def downsampling(self) -> int:
         return self.backbone_rgb.stages_downsampling[-1]
 
-    def forward(self, x: dict):
+    def forward(self, x: dict, generator=None):
         idx_to_ds = {i: ds for ds, i in zip(self.skip_downsamplings,
                                             self._skip_idx)}
         skips = {}
         x_ = {'rgb': x['rgb'], 'depth': x['depth']}
         for i in range(self.backbone_rgb.n_stages):
-            x_ = {'rgb': self.backbone_rgb.forward_stage(i, x_['rgb']),
+            x_ = {'rgb': self.backbone_rgb.forward_stage(i, x_['rgb'],
+                                                         generator),
                   'depth': self.backbone_depth.forward_stage(
-                      i, x_['depth'])}
+                      i, x_['depth'], generator)}
             x_ = getattr(self, f'fusion{i}')(x_)
             if i in idx_to_ds:
                 skips[str(idx_to_ds[i])] = dict(x_)

@@ -5,8 +5,9 @@ family (fused dual-backbone RGB-D encoder, dense decoders) and the MLP
 family (a single 4-channel rgbd backbone such as the multimodal Swin,
 SegFormer-style MLP decoders, the dense-visual-embedding decoder).
 
-The config names its compute dtype as a string ('float32' or
-'bfloat16'); parameters are float32 and the modules compute in the
+The config names its compute dtype as a string ('float32',
+'bfloat16', or 'float64' for a reference run on the CPU, with the
+model's parameters in float64 too); parameters are float32 and the modules compute in the
 dtype of their inputs, which the serving pipeline sets from the
 config. `build_model` initialises from a seeded `torch.Generator` on
 the CPU, so a seed gives the same weights on every device, then moves
@@ -25,7 +26,8 @@ from .decoders import (EmbeddingMLPDecoder, InstanceDecoder,
                        SemanticDecoder, SemanticMLPDecoder)
 from .encoder import Encoder, FusedRGBDEncoder
 
-DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+          'float64': torch.float64}
 
 
 @dataclass
@@ -58,6 +60,11 @@ class MultiTaskModelConfig:
     semantic_n_classes: int = 40
     scene_n_classes: int = 10
     embedding_dim: int = 512
+    # the random parts of training: the Swin backbone's stochastic depth
+    # (its last block's rate; None: the variant's, 0.2 for Swin-T) and
+    # the MLP decoders' channel dropout (the JAX modules' defaults)
+    stochastic_depth: Optional[float] = None
+    decoder_dropout: float = 0.1
     # False, or 'all': both semantic prediction upsamplings returned as
     # a DeferredUpsampling2 (learned) or DeferredBilinear2 (bilinear)
     # for the fused 4x finisher
@@ -71,7 +78,9 @@ class MultiTaskModelConfig:
 
 class MultiTaskModel(nn.Module):
     """Composed network; `forward({'rgb', 'depth'})` (or `{'rgbd'}`)
-    returns {task: (main, side_outputs)} with NCHW tensors."""
+    returns {task: (main, side_outputs)} with NCHW tensors. Training
+    mode is `train()`: every decoder that runs then trains (BatchNorm
+    statistics, dropout, stochastic depth)."""
 
     def __init__(self, encoder, context_module,
                  semantic_decoder: Optional[nn.Module] = None,
@@ -87,10 +96,13 @@ class MultiTaskModel(nn.Module):
         self.embedding_decoder = embedding_decoder
 
     def forward(self, inputs: dict,
-                outputs: Optional[Sequence[str]] = None) -> dict:
-        """`outputs`: the task outputs to compute (None: all); a
-        decoder nobody reads does not run."""
-        enc_out, skips = self.encoder(inputs)
+                outputs: Optional[Sequence[str]] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """`outputs`: the task outputs to compute (None: all, as in
+        training); a decoder nobody reads does not run. `generator`
+        feeds the random parts of training mode (on the model's device,
+        or drawn on its own device and moved)."""
+        enc_out, skips = self.encoder(inputs, generator)
         # the context module consumes the (fused) primary modality
         x = self.context_module(enc_out['rgb'] if 'rgb' in enc_out
                                 else next(iter(enc_out.values())))
@@ -101,16 +113,19 @@ class MultiTaskModel(nn.Module):
                           ('dense_visual_embedding',
                            self.embedding_decoder)):
             if dec is not None and (outputs is None or task in outputs):
-                result[task] = dec(x, skips)
+                result[task] = dec(x, skips, generator)
         return result
 
 
-def _build_encoder(c: MultiTaskModelConfig, g):
+def _build_encoder(c: MultiTaskModelConfig, g, rgbd_backbone=None):
     def backbone(name, n_in):
         return get_backbone(name, resnet_block=c.resnet_block,
                             n_input_channels=n_in,
                             normalization=c.normalization,
-                            activation=c.activation, generator=g)
+                            activation=c.activation,
+                            stochastic_depth=c.stochastic_depth, generator=g)
+    if rgbd_backbone is not None:
+        return Encoder(rgbd_backbone, c.skip_downsamplings)
     if c.backbone_rgbd is not None:
         return Encoder(backbone(c.backbone_rgbd, 4), c.skip_downsamplings)
     if c.backbone_rgb is None or c.backbone_depth is None:
@@ -122,13 +137,15 @@ def _build_encoder(c: MultiTaskModelConfig, g):
 
 
 def build_model(config: MultiTaskModelConfig, device=None,
-                seed: int = 0) -> MultiTaskModel:
+                seed: int = 0, rgbd_backbone=None) -> MultiTaskModel:
     """Build the model, randomly initialised from `seed`, in eval mode
-    on `device` (default `cuda`)."""
+    on `device` (default `cuda`). `rgbd_backbone`: a 4-channel backbone
+    module to use in place of the one the config names (for example a
+    narrower Swin); the rest of the model is sized from it."""
     device = resolve_device(device)
     c = config
     g = torch.Generator().manual_seed(seed)
-    encoder = _build_encoder(c, g)
+    encoder = _build_encoder(c, g, rgbd_backbone)
     context = get_context_module(
         c.context_module, encoder.n_channels_out, c.context_n_channels,
         normalization=c.normalization, activation=c.activation,
@@ -158,6 +175,7 @@ def build_model(config: MultiTaskModelConfig, device=None,
     if is_mlp:
         common['n_channels'] = (c.decoder_n_channels[0],) + tuple(
             c.decoder_n_channels[:len(fusion_n_channels)])
+        common['dropout_p'] = c.decoder_dropout
     else:
         common.update(n_channels=c.decoder_n_channels,
                       downsamplings=c.decoder_downsamplings,

@@ -152,11 +152,15 @@ def two_tap_params(n: int, m: int):
 @lru_cache(maxsize=64)
 def _tap_tensors(n: int, m: int, device, dtype):
     """`two_tap_params(n, m)` as tensors on `device` (weights in `dtype`),
-    built once: a serving request resizes the same shapes every time."""
+    built once: a serving request resizes the same shapes every time.
+    Built outside inference mode even when first asked for inside it,
+    so a training step can save the weights for its backward."""
     lo, hi, w0, w1 = two_tap_params(n, m)
-    return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device),
-            torch.from_numpy(w0).to(device=device, dtype=dtype),
-            torch.from_numpy(w1).to(device=device, dtype=dtype))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(lo).to(device),
+                torch.from_numpy(hi).to(device),
+                torch.from_numpy(w0).to(device=device, dtype=dtype),
+                torch.from_numpy(w1).to(device=device, dtype=dtype))
 
 
 def _resize_axis_linear(x, m: int, dim: int):

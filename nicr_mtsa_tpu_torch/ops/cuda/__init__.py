@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port (sm_90a), with their plain
 PyTorch versions. `KERNELS` lists each wrapper, whose `launches`
-attribute counts the kernel launches it made."""
+attribute counts the kernel launches it made. The differentiable
+window-attention core is `window_attention_core.window_attention_core`
+(the module of the same name is not shadowed here)."""
 from ._build import build_all
 from .finisher4x import (finish_deferred_bilinear2,
                          finish_deferred_semantic2,
@@ -18,6 +20,10 @@ from .semantic_reduce import (semantic_argmax_score,
                               semantic_argmax_score_reference)
 from .window_attention import (window_attention_block,
                                window_attention_block_reference)
+from .window_attention_core import (
+    dbias_reduce, dbias_reduce_reference, window_attention_core_backward,
+    window_attention_core_backward_reference, window_attention_core_forward,
+    window_attention_core_reference)
 
 KERNELS = {'finisher4x': upsample4x_argmax_score,
            'grouping': group_pixels_kernel,
@@ -26,7 +32,10 @@ KERNELS = {'finisher4x': upsample4x_argmax_score,
            'intersection': intersection_matrix_kernel,
            'finisher4x_bilinear': upsample4x_bilinear_argmax_score,
            'window_attention_block': window_attention_block,
-           'layernorm': fused_layer_norm}
+           'layernorm': fused_layer_norm,
+           'window_attention_core_fwd': window_attention_core_forward,
+           'window_attention_core_bwd': window_attention_core_backward,
+           'window_attention_core_dbias': dbias_reduce}
 
 
 def reset_launch_counts() -> None:
@@ -45,4 +54,8 @@ __all__ = ['build_all', 'finish_deferred_semantic2',
            'semantic_argmax_score', 'semantic_argmax_score_reference',
            'window_attention_block', 'window_attention_block_reference',
            'fused_layer_norm', 'layer_norm_reference',
+           'window_attention_core_forward',
+           'window_attention_core_backward', 'window_attention_core_reference',
+           'window_attention_core_backward_reference', 'dbias_reduce',
+           'dbias_reduce_reference',
            'KERNELS', 'reset_launch_counts']

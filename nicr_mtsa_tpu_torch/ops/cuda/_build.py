@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -33,6 +35,17 @@ def is_cuda_tensor(t) -> bool:
     """The wrappers' dispatch test: the plain version runs only for
     tensors on the CPU."""
     return t.device.type == 'cuda'
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record through a kernel launch: the
+    kernels' outputs carry no `grad_fn`, so the gradients of inputs that
+    require grad would be lost without a word."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f'{what}: the CUDA kernel has no gradient, but '
+                           f'an input requires grad; run it under '
+                           f'torch.no_grad() or inference_mode()')
 
 
 def _nvcc() -> str:

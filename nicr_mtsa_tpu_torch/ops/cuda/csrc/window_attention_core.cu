@@ -1,0 +1,453 @@
+// Window-attention core with its flash-style backward for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of nicr_mtsa_tpu/ops/pallas/window_attention.py
+// `fused_window_attention` (the training path): the forward `_fwd_call`
+// and the backward `_bwd_call` of its custom VJP. For windows q, k, v of
+// N <= 64 tokens and width C = 32 h, per head j (columns 32 j .. 32 j + 31):
+//   L = q_j . k_j^T (f32) + bias_j + shift mask (-100 between regions),
+//   P = softmax(L) in f32, rounded to T; out_j = P . v_j rounded to T;
+//   lse = max(L) + log(sum exp(L - max)), f32, laid out (Bw, h, N).
+// q already carries the scale (v2: the cosine normalisation and the logit
+// scale are applied outside). The backward recomputes L and follows the
+// TPU kernel's rounding points:
+//   P32 = exp(L - lse) (f32), P = P32 rounded to T;
+//   dV = P^T dO; dP = dO V^T (f32); delta_n = sum_m P32 dP (over keys);
+//   dS = P32 (dP - delta) (f32); dbias += dS;
+//   dQ = dS_T K, dK = dS_T^T Q with dS_T = dS rounded to T;
+//   dq, dk, dv rounded to T.
+//
+// The shift mask is not read: each token's shift region comes from the
+// window's position on the padded image's window grid (windows in
+// image-major, then row-major grid order) and the token's coordinates,
+// the rule of `shift_region_ids`. For v1's N = 49 the tokens >= N are
+// left out inside the kernel (their tile rows are zero); no padded copy.
+//
+// dbias is deterministic: a backward block owns one head and a fixed
+// range of `wpb` windows, keeps the sum of its windows' dS in registers
+// (each thread owns 16 fixed (query, key) cells) and writes it to its own
+// slot of a (G, h, N, N) partial buffer; `wac_dbias_reduce` then sums the
+// G partials of each cell in order 0 .. G-1. No float atomics: two runs
+// give the same bits.
+//
+// What bounds it on an H100: the products are small (64 x 64 x 32 per
+// window and head), so a block is latency-bound on its own and the card
+// is bound by bytes once enough blocks are in flight: per window and head
+// the forward moves 4 N 32 elements (q, k, v in, out) plus N lse floats
+// for 4 N^2 32 flops, the backward 7 N 32 elements for 10 N^2 32 flops.
+//
+// Design. One block of 256 threads (8 warps) per (window, head) in the
+// forward, per (window range, head) in the backward. The head's q, k, v
+// (and dO) tiles are loaded once into shared memory (16-byte loads, rows
+// >= N zero), the logits, probabilities and dS live in shared memory.
+// - bf16: every product on the tensor cores (wmma 16x16x16, f32
+//   accumulators), each warp owning whole 16 x 16 output tiles; 50 KB of
+//   dynamic shared memory in the forward, 99 KB in the backward.
+// - f32 (the card-vs-CPU check): the same structure with fmaf loops on the
+//   CUDA cores.
+// Several heads per block and TMA-fed wgmma are the next steps.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+#include <type_traits>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int NMAX = 64;                  // tokens per window, at most
+constexpr int D = 32;                     // head width
+constexpr int HLD = D + 8;                // q, k, v, dO tiles   [64][40]
+constexpr int S_LD = NMAX + 4;            // f32 logits, dP      [64][68]
+constexpr int P_LD = NMAX + 8;            // P, dS in T          [64][72]
+constexpr int O_LD = D + 4;               // f32 product staging [64][36]
+constexpr int OWN = NMAX * NMAX / THREADS;   // (query, key) cells a thread owns
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// shift region of one coordinate of the padded image (see the header)
+__device__ __forceinline__ int axis_region(int pos, int n, int ws,
+                                           int shift) {
+  if (shift == 0) return 2;
+  return pos < n - ws ? 0 : (pos < n - shift ? 1 : 2);
+}
+
+__device__ __forceinline__ void window_regions(int* region, int g, int N,
+                                               int ws, int nWh, int nWw,
+                                               int shift_h, int shift_w) {
+  const int t = threadIdx.x;
+  if (t < N) {
+    const int loc = g % (nWh * nWw);
+    const int y = (loc / nWw) * ws + t / ws;
+    const int x = (loc % nWw) * ws + t % ws;
+    region[t] = axis_region(y, nWh * ws, ws, shift_h) * 3 +
+                axis_region(x, nWw * ws, ws, shift_w);
+  }
+}
+
+// head j's (N x 32) tile of window g of a (Bw, N, C) tensor into a
+// [64][HLD] shared tile, rows >= N zero; 16-byte loads
+template <typename E>
+__device__ __forceinline__ void load_tile(E* dst, const E* __restrict__ src,
+                                          int g, int j, int N, int C) {
+  constexpr int PER = 16 / sizeof(E);     // elements per 16-byte vector
+  constexpr int VPR = D / PER;            // vectors per row
+  for (int e = threadIdx.x; e < NMAX * VPR; e += THREADS) {
+    const int n = e / VPR, c = e % VPR;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (n < N)
+      val = *reinterpret_cast<const uint4*>(
+          src + ((size_t)g * N + n) * C + j * D + c * PER);
+    *reinterpret_cast<uint4*>(dst + n * HLD + c * PER) = val;
+  }
+}
+
+// rows < N of a [64][O_LD] f32 staging tile, rounded to E, into head j's
+// columns of window g of a (Bw, N, C) tensor
+template <typename E>
+__device__ __forceinline__ void store_tile(E* __restrict__ dst,
+                                           const float* src, int g, int j,
+                                           int N, int C) {
+  for (int e = threadIdx.x; e < N * D; e += THREADS) {
+    const int n = e / D, d = e % D;
+    dst[((size_t)g * N + n) * C + j * D + d] = from_f32<E>(src[n * O_LD + d]);
+  }
+}
+
+// C (64 x NC, f32, row-major ldc) = A . B, A (64 x K), B (K x NC):
+// A[i][k] at a[i lda + k] (A_COL: a[k lda + i]), B[k][j] at b[k ldb + j]
+// (B_COL: b[j ldb + k]).
+// f32: one output cell per thread and step, fmaf over k in order.
+template <bool A_COL, bool B_COL, int NC, int K>
+__device__ __forceinline__ void mm(const float* a, int lda, const float* b,
+                                   int ldb, float* c, int ldc) {
+  for (int e = threadIdx.x; e < NMAX * NC; e += THREADS) {
+    const int i = e / NC, jj = e % NC;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) {
+      const float av = A_COL ? a[k * lda + i] : a[i * lda + k];
+      const float bv = B_COL ? b[jj * ldb + k] : b[k * ldb + jj];
+      acc = fmaf(av, bv, acc);
+    }
+    c[i * ldc + jj] = acc;
+  }
+}
+
+// bf16: tensor cores, one 16 x 16 output tile per warp and step
+template <bool A_COL, bool B_COL, int NC, int K>
+__device__ __forceinline__ void mm(const bf16* a, int lda, const bf16* b,
+                                   int ldb, float* c, int ldc) {
+  using namespace nvcuda;
+  using LA = typename std::conditional<A_COL, wmma::col_major,
+                                       wmma::row_major>::type;
+  using LB = typename std::conditional<B_COL, wmma::col_major,
+                                       wmma::row_major>::type;
+  constexpr int TN = NC / 16;
+  const int warp = threadIdx.x >> 5;
+  for (int t = warp; t < (NMAX / 16) * TN; t += WARPS) {
+    const int ti = t / TN, tj = t % TN;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
+      wmma::load_matrix_sync(
+          fa, A_COL ? a + k0 * lda + ti * 16 : a + ti * 16 * lda + k0, lda);
+      wmma::load_matrix_sync(
+          fb, B_COL ? b + tj * 16 * ldb + k0 : b + k0 * ldb + tj * 16, ldb);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(c + ti * 16 * ldc + tj * 16, acc, ldc,
+                            wmma::mem_row_major);
+  }
+}
+
+template <typename E>
+constexpr size_t fwd_smem_bytes() {
+  return 3 * NMAX * HLD * sizeof(E) + NMAX * S_LD * 4 +
+         NMAX * P_LD * sizeof(E) + NMAX * O_LD * 4;
+}
+
+template <typename E>
+constexpr size_t bwd_smem_bytes() {
+  return 4 * NMAX * HLD * sizeof(E) + 2 * NMAX * S_LD * 4 +
+         2 * NMAX * P_LD * sizeof(E) + 3 * NMAX * O_LD * 4;
+}
+
+// grid (Bw, h): block (g, j) computes head j of window g
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+wac_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+               const E* __restrict__ v, const float* __restrict__ bias,
+               E* __restrict__ out, float* __restrict__ lse, int N, int C,
+               int ws, int nWh, int nWw, int shift_h, int shift_w) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int region[NMAX];
+  E* Qs = reinterpret_cast<E*>(smem);
+  E* Ks = Qs + NMAX * HLD;
+  E* Vs = Ks + NMAX * HLD;
+  float* S = reinterpret_cast<float*>(Vs + NMAX * HLD);
+  E* P = reinterpret_cast<E*>(S + NMAX * S_LD);
+  float* O = reinterpret_cast<float*>(P + NMAX * P_LD);
+
+  const int g = blockIdx.x, j = blockIdx.y, h = gridDim.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool masked = shift_h > 0 || shift_w > 0;
+  load_tile(Qs, q, g, j, N, C);
+  load_tile(Ks, k, g, j, N, C);
+  load_tile(Vs, v, g, j, N, C);
+  if (masked) window_regions(region, g, N, ws, nWh, nWw, shift_h, shift_w);
+  __syncthreads();
+
+  mm<false, true, NMAX, D>(Qs, HLD, Ks, HLD, S, S_LD);      // q . k^T
+  __syncthreads();
+
+  // + bias + mask, softmax over the keys of each query row, in f32
+  const float* pb = bias + (size_t)j * N * N;
+  for (int n = warp; n < NMAX; n += WARPS) {
+    E* prow = P + n * P_LD;
+    if (n >= N) {
+      prow[lane] = prow[lane + 32] = from_f32<E>(0.0f);
+      continue;
+    }
+    float l[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int m = lane + 32 * h2;
+      l[h2] = -INFINITY;
+      if (m < N) {
+        float x = __fadd_rn(S[n * S_LD + m], pb[n * N + m]);
+        if (masked) x = __fadd_rn(x, region[n] == region[m] ? 0.0f : -100.0f);
+        l[h2] = x;
+      }
+    }
+    const float mx = warp_max(fmaxf(l[0], l[1]));
+    const float e0 = lane < N ? expf(__fsub_rn(l[0], mx)) : 0.0f;
+    const float e1 = lane + 32 < N ? expf(__fsub_rn(l[1], mx)) : 0.0f;
+    const float s = warp_sum(__fadd_rn(e0, e1));
+    prow[lane] = from_f32<E>(__fdiv_rn(e0, s));
+    prow[lane + 32] = from_f32<E>(__fdiv_rn(e1, s));
+    if (lane == 0) lse[((size_t)g * h + j) * N + n] = __fadd_rn(mx, logf(s));
+  }
+  __syncthreads();
+
+  mm<false, false, D, NMAX>(P, P_LD, Vs, HLD, O, O_LD);     // P . v
+  __syncthreads();
+  store_tile(out, O, g, j, N, C);
+}
+
+// grid (G, h): block (grp, j) runs head j of windows [grp wpb, (grp+1) wpb)
+// and writes the sum of their dS to dbias_part[grp][j]
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+wac_bwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+               const E* __restrict__ v, const E* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ bias,
+               E* __restrict__ dq, E* __restrict__ dk, E* __restrict__ dv,
+               float* __restrict__ dbias_part, int Bw, int N, int C, int ws,
+               int nWh, int nWw, int shift_h, int shift_w, int wpb) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int region[NMAX];
+  __shared__ float lse_s[NMAX];
+  __shared__ float delta[NMAX];
+  E* Qs = reinterpret_cast<E*>(smem);
+  E* Ks = Qs + NMAX * HLD;
+  E* Vs = Ks + NMAX * HLD;
+  E* dOs = Vs + NMAX * HLD;
+  float* S = reinterpret_cast<float*>(dOs + NMAX * HLD);   // L, then P32
+  float* dP = S + NMAX * S_LD;
+  E* P = reinterpret_cast<E*>(dP + NMAX * S_LD);
+  E* dS = P + NMAX * P_LD;
+  float* Odv = reinterpret_cast<float*>(dS + NMAX * P_LD);
+  float* Odq = Odv + NMAX * O_LD;
+  float* Odk = Odq + NMAX * O_LD;
+
+  const int grp = blockIdx.x, j = blockIdx.y, h = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool masked = shift_h > 0 || shift_w > 0;
+  const float* pb = bias + (size_t)j * N * N;
+  float acc[OWN];
+#pragma unroll
+  for (int r = 0; r < OWN; ++r) acc[r] = 0.0f;
+
+  const int g_end = min(Bw, (grp + 1) * wpb);
+  for (int g = grp * wpb; g < g_end; ++g) {
+    load_tile(Qs, q, g, j, N, C);
+    load_tile(Ks, k, g, j, N, C);
+    load_tile(Vs, v, g, j, N, C);
+    load_tile(dOs, dout, g, j, N, C);
+    if (tid < N) lse_s[tid] = lse[((size_t)g * h + j) * N + tid];
+    if (masked) window_regions(region, g, N, ws, nWh, nWw, shift_h, shift_w);
+    __syncthreads();
+
+    mm<false, true, NMAX, D>(Qs, HLD, Ks, HLD, S, S_LD);    // q . k^T
+    mm<false, true, NMAX, D>(dOs, HLD, Vs, HLD, dP, S_LD);  // dO . v^T
+    __syncthreads();
+
+    // P32 = exp(L - lse) over the cells this thread owns; 0 off the window
+#pragma unroll
+    for (int r = 0; r < OWN; ++r) {
+      const int e = tid + r * THREADS, n = e / NMAX, m = e % NMAX;
+      float p = 0.0f;
+      if (n < N && m < N) {
+        float x = __fadd_rn(S[n * S_LD + m], pb[n * N + m]);
+        if (masked) x = __fadd_rn(x, region[n] == region[m] ? 0.0f : -100.0f);
+        p = expf(__fsub_rn(x, lse_s[n]));
+      }
+      S[n * S_LD + m] = p;
+      P[n * P_LD + m] = from_f32<E>(p);
+    }
+    __syncthreads();
+
+    // delta_n = sum over keys of P32 dP, one warp per query row; dV = P^T dO
+    for (int n = warp; n < NMAX; n += WARPS) {
+      const float* s = S + n * S_LD;
+      const float* dp = dP + n * S_LD;
+      const float t = __fadd_rn(__fmul_rn(s[lane], dp[lane]),
+                                __fmul_rn(s[lane + 32], dp[lane + 32]));
+      const float sum = warp_sum(t);
+      if (lane == 0) delta[n] = sum;
+    }
+    mm<true, false, D, NMAX>(P, P_LD, dOs, HLD, Odv, O_LD);
+    __syncthreads();
+
+    // dS = P32 (dP - delta), summed into the owned dbias cells
+#pragma unroll
+    for (int r = 0; r < OWN; ++r) {
+      const int e = tid + r * THREADS, n = e / NMAX, m = e % NMAX;
+      const float ds = __fmul_rn(S[n * S_LD + m],
+                                 __fsub_rn(dP[n * S_LD + m], delta[n]));
+      acc[r] = __fadd_rn(acc[r], ds);
+      dS[n * P_LD + m] = from_f32<E>(ds);
+    }
+    __syncthreads();
+
+    mm<false, false, D, NMAX>(dS, P_LD, Ks, HLD, Odq, O_LD);  // dS . k
+    mm<true, false, D, NMAX>(dS, P_LD, Qs, HLD, Odk, O_LD);   // dS^T . q
+    __syncthreads();
+    store_tile(dv, Odv, g, j, N, C);
+    store_tile(dq, Odq, g, j, N, C);
+    store_tile(dk, Odk, g, j, N, C);
+    __syncthreads();             // the next window reuses every buffer
+  }
+
+  float* part = dbias_part + ((size_t)grp * h + j) * N * N;
+#pragma unroll
+  for (int r = 0; r < OWN; ++r) {
+    const int e = tid + r * THREADS, n = e / NMAX, m = e % NMAX;
+    if (n < N && m < N) part[n * N + m] = acc[r];
+  }
+}
+
+// out[i] = sum over g = 0 .. G-1 (in that order) of part[g][i]
+__global__ void dbias_reduce_kernel(const float* __restrict__ part,
+                                    float* __restrict__ out, int G,
+                                    int total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float s = 0.0f;
+  for (int g = 0; g < G; ++g) s = __fadd_rn(s, part[(size_t)g * total + i]);
+  out[i] = s;
+}
+
+bool bad_shape(int N, int C, int h, int ws) {
+  return N <= 0 || N > NMAX || ws * ws != N || h <= 0 || C != h * D;
+}
+
+template <typename E>
+int forward(const void* q, const void* k, const void* v, const float* bias,
+            void* out, float* lse, int Bw, int N, int C, int h, int ws,
+            int nWh, int nWw, int shift_h, int shift_w, cudaStream_t stream) {
+  if (Bw <= 0) return (int)cudaSuccess;
+  if (bad_shape(N, C, h, ws)) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes<E>();
+  cudaError_t err = cudaFuncSetAttribute(
+      wac_fwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  wac_fwd_kernel<E><<<dim3(Bw, h), THREADS, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), bias, static_cast<E*>(out), lse, N, C, ws,
+      nWh, nWw, shift_h, shift_w);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int backward(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* bias, void* dq, void* dk,
+             void* dv, float* dbias_part, int Bw, int N, int C, int h,
+             int ws, int nWh, int nWw, int shift_h, int shift_w, int wpb,
+             cudaStream_t stream) {
+  if (Bw <= 0) return (int)cudaSuccess;
+  if (bad_shape(N, C, h, ws) || wpb <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes<E>();
+  cudaError_t err = cudaFuncSetAttribute(
+      wac_bwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = (Bw + wpb - 1) / wpb;
+  wac_bwd_kernel<E><<<dim3(G, h), THREADS, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const E*>(dout), lse, bias,
+      static_cast<E*>(dq), static_cast<E*>(dk), static_cast<E*>(dv),
+      dbias_part, Bw, N, C, ws, nWh, nWw, shift_h, shift_w, wpb);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define WAC_ENTRIES(SUFFIX, E)                                                \
+  extern "C" int wac_forward_##SUFFIX(                                        \
+      const void* q, const void* k, const void* v, const float* bias,         \
+      void* out, float* lse, int Bw, int N, int C, int h, int ws, int nWh,    \
+      int nWw, int shift_h, int shift_w, void* stream) {                      \
+    return forward<E>(q, k, v, bias, out, lse, Bw, N, C, h, ws, nWh, nWw,     \
+                      shift_h, shift_w, static_cast<cudaStream_t>(stream));   \
+  }                                                                           \
+  extern "C" int wac_backward_##SUFFIX(                                       \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const float* lse, const float* bias, void* dq, void* dk, void* dv,      \
+      float* dbias_part, int Bw, int N, int C, int h, int ws, int nWh,        \
+      int nWw, int shift_h, int shift_w, int wpb, void* stream) {             \
+    return backward<E>(q, k, v, dout, lse, bias, dq, dk, dv, dbias_part, Bw,  \
+                       N, C, h, ws, nWh, nWw, shift_h, shift_w, wpb,          \
+                       static_cast<cudaStream_t>(stream));                    \
+  }
+
+WAC_ENTRIES(f32, float)
+WAC_ENTRIES(bf16, __nv_bfloat16)
+
+extern "C" int wac_dbias_reduce(const float* part, float* out, int G,
+                                int total, void* stream) {
+  if (total <= 0) return (int)cudaSuccess;
+  if (G <= 0) return (int)cudaErrorInvalidValue;
+  dbias_reduce_kernel<<<(total + 255) / 256, 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(part, out, G,
+                                                             total);
+  return (int)cudaGetLastError();
+}

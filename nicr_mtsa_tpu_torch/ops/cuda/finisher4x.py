@@ -22,7 +22,7 @@ from ...models.upsampling import (DeferredBilinear2, DeferredUpsampling2,
                                   bilinear_kernel, finisher4x_logits_exact,
                                   fused_zeropad_2x_kernel)
 from ..reduce import semantic_score_idx
-from ._build import check, is_cuda_tensor, load_library
+from ._build import check, is_cuda_tensor, load_library, refuse_grad
 
 _FUNCS = {torch.float32: 'finisher4x_f32', torch.bfloat16: 'finisher4x_bf16'}
 
@@ -94,6 +94,7 @@ def upsample4x_argmax_score(x, kernel1, bias1, kernel2, bias2):
     if not is_cuda_tensor(x):
         return upsample4x_argmax_score_reference(x, kernel1, bias1,
                                                  kernel2, bias2)
+    refuse_grad('upsample4x_argmax_score', x, kernel1, bias1, kernel2, bias2)
     C, dt = x.shape[1], x.dtype
     stages = (_stage_weights(kernel1, bias1, C, dt, x.device)
               + _stage_weights(kernel2, bias2, C, dt, x.device))
@@ -109,6 +110,7 @@ def upsample4x_bilinear_argmax_score(x):
     CUDA tensors go to the kernel; CPU tensors to the plain version."""
     if not is_cuda_tensor(x):
         return upsample4x_bilinear_argmax_score_reference(x)
+    refuse_grad('upsample4x_bilinear_argmax_score', x)
     return _launch(x, _bilinear_stages(x.shape[1], x.dtype, x.device), True,
                    upsample4x_bilinear_argmax_score)
 

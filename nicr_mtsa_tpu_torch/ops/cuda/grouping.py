@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from ..reduce import first_argmin
-from ._build import check, is_cuda_tensor, load_library
+from ._build import check, is_cuda_tensor, load_library, refuse_grad
 
 BIG = 3.4e38
 
@@ -100,6 +100,7 @@ def group_pixels_kernel(loc_y, loc_x, centers_yx, centers_valid,
     if not is_cuda_tensor(loc_y):
         return group_pixels_reference(loc_y, loc_x, centers_yx,
                                       centers_valid, foreground)
+    refuse_grad('group_pixels_kernel', loc_y, loc_x, centers_yx)
     return _launch(loc_y, loc_x, centers_yx, centers_valid, foreground)
 
 

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from ._build import check, is_cuda_tensor, load_library
+from ._build import check, is_cuda_tensor, load_library, refuse_grad
 
 MAX_BINS = 232448 // 4          # int32 bins in one block's shared memory
 
@@ -67,6 +67,7 @@ def intersection_matrix_kernel(gt_slots, pred_slots, n_gt: int,
     if not is_cuda_tensor(gt_slots):
         return intersection_matrix_reference(gt_slots, pred_slots, n_gt,
                                              n_pred)
+    refuse_grad('intersection_matrix_kernel', gt_slots, pred_slots)
     return _launch(gt_slots, pred_slots, n_gt, n_pred)
 
 

@@ -10,7 +10,8 @@ import ctypes
 
 import torch
 
-from ._build import check, is_cuda_tensor, load_library
+from ...utils.dtypes import upcast
+from ._build import check, is_cuda_tensor, load_library, refuse_grad
 
 _NAMES = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
@@ -18,11 +19,11 @@ _NAMES = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 def layer_norm_reference(x, weight, bias, eps: float = 1e-5,
                          out_dtype=None):
     """Plain PyTorch version, the same arithmetic as the kernel."""
-    x32 = x.float()
+    x32 = upcast(x)
     mean = x32.mean(-1, keepdim=True)
     var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * weight.float() + bias.float()
+    y = y * upcast(weight) + upcast(bias)
     return y.to(out_dtype or x.dtype)
 
 
@@ -56,6 +57,7 @@ def fused_layer_norm(x, weight, bias, eps: float = 1e-5, out_dtype=None):
     CUDA tensors go to the kernel; CPU tensors to the plain version."""
     if not is_cuda_tensor(x):
         return layer_norm_reference(x, weight, bias, eps, out_dtype)
+    refuse_grad('fused_layer_norm', x, weight, bias)
     return _launch(x, weight, bias, eps, out_dtype or x.dtype)
 
 

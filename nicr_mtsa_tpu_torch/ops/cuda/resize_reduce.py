@@ -16,7 +16,7 @@ import torch
 
 from ...models.upsampling import resize_bilinear, two_tap_params
 from ..reduce import semantic_score_idx
-from ._build import check, is_cuda_tensor, load_library
+from ._build import check, is_cuda_tensor, load_library, refuse_grad
 
 _FUNCS = {torch.float32: 'resize_reduce_f32',
           torch.bfloat16: 'resize_reduce_bf16'}
@@ -92,6 +92,7 @@ def crop_resize_argmax_score(x, crop_slices, out_h: int, out_w: int):
     if not is_cuda_tensor(x):
         return crop_resize_argmax_score_reference(x, crop_slices, out_h,
                                                   out_w)
+    refuse_grad('crop_resize_argmax_score', x)
     return _launch(x, crop_slices, out_h, out_w)
 
 

@@ -11,7 +11,7 @@ import ctypes
 import torch
 
 from ..reduce import semantic_score_idx
-from ._build import check, is_cuda_tensor, load_library
+from ._build import check, is_cuda_tensor, load_library, refuse_grad
 
 _FUNCS = {torch.float32: 'semantic_score_idx_f32',
           torch.bfloat16: 'semantic_score_idx_bf16'}
@@ -51,6 +51,7 @@ def semantic_argmax_score(logits):
     kernel; CPU tensors to the plain version."""
     if not is_cuda_tensor(logits):
         return semantic_argmax_score_reference(logits)
+    refuse_grad('semantic_argmax_score', logits)
     return _launch(logits)
 
 

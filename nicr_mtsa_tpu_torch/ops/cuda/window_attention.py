@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._build import check, is_cuda_tensor, load_library
+from ._build import check, is_cuda_tensor, load_library, refuse_grad
 
 _FUNCS = {torch.float32: 'window_attention_block_f32',
           torch.bfloat16: 'window_attention_block_bf16'}
@@ -204,6 +204,8 @@ def window_attention_block(x, wqkv, bqkv, wproj, bproj, bias, n_heads: int,
         return window_attention_block_reference(
             x, wqkv, bqkv, wproj, bproj, bias, n_heads, grid_hw, shift,
             v2_scale)
+    refuse_grad('window_attention_block', x, wqkv, bqkv, wproj, bproj, bias,
+                v2_scale)
     ws = math.isqrt(x.shape[1])
     if ws * ws != x.shape[1]:
         raise ValueError(f'window_attention_block: {x.shape[1]} tokens are '
@@ -227,6 +229,8 @@ def window_attention_image(x, wqkv, bqkv, wproj, bproj, bias, n_heads: int,
     if not is_cuda_tensor(x):
         return window_attention_image_reference(
             x, wqkv, bqkv, wproj, bproj, bias, n_heads, ws, shift, v2_scale)
+    refuse_grad('window_attention_image', x, wqkv, bqkv, wproj, bproj, bias,
+                v2_scale)
     _, _, grid_hw, (sh, sw) = image_windows(x.shape[1], x.shape[2], ws, shift)
     return _launch(x, wqkv, bqkv, wproj, bproj, bias, n_heads, ws, grid_hw,
                    (sh, sw) if sh or sw else None, v2_scale, image=True)

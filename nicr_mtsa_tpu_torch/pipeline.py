@@ -15,6 +15,13 @@
   postprocessing with full-resolution keys, the shared GT slot map,
   the eval losses and the metric-state updates of every task helper,
   with the states carried by the caller on the device.
+- `MultiTaskPipeline.train_step`, the training path of `bench.py
+  --train` (`build_train_pipeline`, `emsaformer_train_config`): the
+  forward pass in training mode, the training pass-through of the
+  postprocessing, the task losses and their sum, the gradients, the
+  AdamW update (optim.py) and the new BatchNorm statistics. The model
+  holds the parameters and statistics and the step updates them in
+  place; the random parts draw from the caller's generator.
 
 On the card the model runs channels-last (NHWC activations and conv
 weights), cuDNN's fast layout."""
@@ -29,7 +36,10 @@ from .data.fullres import get_fullres
 from .models.encoder import Encoder
 from .models.multi_task import (MultiTaskModel, MultiTaskModelConfig,
                                 build_model)
+from .models.upsampling import DeferredBilinear2, DeferredUpsampling2
 from .ops.segments import ids_to_slots
+from .optim import AdamW
+from .tasks.base import TOTAL_LOSS_SUFFIX
 from .postprocessing import (InstancePostprocessing, PanopticPostprocessing,
                              ScenePostprocessing, SemanticPostprocessing)
 from .tasks import (InstanceTaskHelper, PanopticTaskHelper, SceneTaskHelper,
@@ -280,26 +290,99 @@ def default_postprocessors(tasks: Sequence[str],
 
 
 class MultiTaskPipeline:
-    """Model + postprocessors + task helpers, wired into the fused eval
-    step; the model computes in `compute_dtype`."""
+    """Model + postprocessors + task helpers (+ the optimizer), wired
+    into the training step and the fused eval step; the model computes
+    in `compute_dtype`."""
 
     def __init__(self, model: MultiTaskModel, postprocessors: dict,
                  task_helpers: dict, compute_dtype=torch.float32,
-                 channels_last: bool = None):
+                 channels_last: bool = None,
+                 optimizer: Optional[AdamW] = None):
         self.model = model
         self.postprocessors = postprocessors
         self.task_helpers = task_helpers
+        self.optimizer = optimizer or AdamW(1e-4)
         self.device = next(model.parameters()).device
         self._compute_dtype = compute_dtype
         self._channels_last = _set_layout(model, self.device, channels_last)
+        encoder = model.encoder
+        self._rgbd = (isinstance(encoder, Encoder)
+                      and encoder.backbone.n_input_channels == 4)
 
     def model_inputs(self, batch: dict) -> dict:
-        """The model's {'rgb', 'depth'} NCHW inputs in the compute dtype
-        (channels-last on the card)."""
+        """The model's NCHW inputs in the compute dtype (channels-last on
+        the card): {'rgb', 'depth'}, or {'rgbd'} for a 4-channel
+        backbone."""
         fmt = (torch.channels_last if self._channels_last
                else torch.contiguous_format)
+        keys = ('rgbd',) if self._rgbd else ('rgb', 'depth')
         return {k: batch[k].to(self._compute_dtype).contiguous(
-            memory_format=fmt) for k in ('rgb', 'depth') if k in batch}
+            memory_format=fmt) for k in keys if k in batch}
+
+    # --- training -----------------------------------------------------------
+    def create_train_state(self) -> dict:
+        """{'params', 'batch_stats' (the model's own tensors, updated in
+        place by `train_step`), 'opt_state', 'step'}."""
+        params = dict(self.model.named_parameters())
+        return {'params': params,
+                'batch_stats': dict(self.model.named_buffers()),
+                'opt_state': self.optimizer.init(params),
+                'step': torch.zeros((), dtype=torch.int32,
+                                    device=self.device)}
+
+    def compute_losses(self, batch: dict, predictions: dict) -> dict:
+        """Task losses of raw training outputs: the training
+        postprocessing is a pass-through (the semantic and instance
+        outputs under their task names, where the panoptic
+        postprocessor stands for both)."""
+        predictions_post = {}
+        for task, raw in predictions.items():
+            post = self.postprocessors.get(task)
+            if post is None and task in ('semantic', 'instance') \
+                    and 'panoptic' in self.postprocessors:
+                if isinstance(raw[0], (DeferredBilinear2,
+                                       DeferredUpsampling2)):
+                    raise ValueError('training takes a configuration '
+                                     'without deferred upsampling')
+                predictions_post[f'{task}_output'] = raw[0]
+                predictions_post[f'{task}_side_outputs'] = raw[1]
+            elif post is not None:
+                predictions_post.update(
+                    post.postprocess(raw, batch, is_training=True))
+        losses = {}
+        for task, helper in self.task_helpers.items():
+            if task != 'panoptic':
+                losses.update(helper.compute_losses(batch, predictions_post))
+        return losses
+
+    @staticmethod
+    def total_loss(losses: dict):
+        """Sum of the '*_total_loss' entries."""
+        return sum(v for k, v in losses.items()
+                   if k.endswith(TOTAL_LOSS_SUFFIX))
+
+    def train_step(self, state: dict, batch: dict,
+                   generator: Optional[torch.Generator] = None):
+        """One optimizer step: forward in training mode (random parts
+        from `generator`, on the model's device), losses, gradients
+        (left in the parameters' `.grad`), the AdamW update and the new
+        BatchNorm statistics, in place. Returns (state, losses) with
+        losses detached, 'total_loss' included; no host sync."""
+        self.model.train()
+        params = state['params']
+        for p in params.values():
+            p.grad = None
+        predictions = self.model(self.model_inputs(batch),
+                                 generator=generator)
+        losses = self.compute_losses(batch, predictions)
+        total = self.total_loss(losses)
+        del predictions
+        total.backward()
+        self.optimizer.step(params, {n: p.grad for n, p in params.items()},
+                            state['opt_state'])
+        state['step'] += 1
+        losses['total_loss'] = total
+        return state, {k: v.detach() for k, v in losses.items()}
 
     def postprocess_outputs(self, predictions: dict, batch: dict,
                             keys=None) -> dict:
@@ -389,6 +472,57 @@ class MultiTaskPipeline:
             examples.update(e)
             logs.update(lg)
         return artifacts, examples, logs
+
+
+def emsaformer_train_config(input_size: Tuple[int, int] = (480, 640),
+                            dtype: str = 'bfloat16',
+                            **overrides) -> MultiTaskModelConfig:
+    """The `emsaformer_dve_v2` preset (40 classes) as `bench.py --train
+    --model emsaformer_dve_v2` trains it: no deferred upsampling, no
+    remat; `overrides` replace further fields (for example
+    `stochastic_depth=0.0, decoder_dropout=0.0`)."""
+    return dataclasses.replace(
+        emsaformer_dve_v2(n_classes=40, input_size=tuple(input_size),
+                          dtype=dtype),
+        defer_semantic_prediction_upsampling=False, **overrides)
+
+
+def train_task_helpers(n_classes: int = 40, n_thing: int = 8,
+                       top_k: int = 64, scene_n_classes: int = 10) -> dict:
+    """The task helpers of the JAX package's `bench.py --train`:
+    semantic, instance (with void, the first `n_thing` classes are
+    things) and scene."""
+    is_thing_v = (False,) + tuple(i < n_thing for i in range(n_classes))
+    return {
+        'semantic': SemanticTaskHelper(n_classes=n_classes),
+        'instance': InstanceTaskHelper(
+            semantic_n_classes=n_classes + 1,
+            semantic_classes_is_thing=is_thing_v, top_k_instances=top_k),
+        'scene': SceneTaskHelper(n_classes=scene_n_classes),
+    }
+
+
+def build_train_pipeline(config: MultiTaskModelConfig = None, device=None,
+                         seed: int = 0, n_thing: int = 8,
+                         top_k: int = 64) -> MultiTaskPipeline:
+    """The training pipeline of `bench.py --train --model
+    emsaformer_dve_v2` on `device` (default `cuda`): the model of
+    `config` (default `emsaformer_train_config()`; random weights from
+    `seed`) in training mode, the postprocessors of the bench's tasks,
+    its task helpers and `AdamW(1e-4)`, computing in the config's
+    dtype."""
+    config = config or emsaformer_train_config()
+    model = build_model(config, device=device, seed=seed).train()
+    n = config.semantic_n_classes
+    post = default_postprocessors(
+        ('semantic', 'instance', 'orientation', 'scene', 'panoptic'),
+        semantic_classes_is_thing=tuple(i < n_thing for i in range(n)),
+        top_k_instances=top_k)
+    return MultiTaskPipeline(
+        model, post, train_task_helpers(n, n_thing, top_k,
+                                        config.scene_n_classes),
+        compute_dtype=config.torch_dtype,
+        optimizer=AdamW(1e-4))
 
 
 def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,

@@ -6,8 +6,9 @@ maps (B, H, W).
 `postprocess` takes an optional `keys`: the output keys a caller reads.
 Optional outputs not in it (the full-resolution maps, the PQ slot map)
 are not computed (the JAX package leaves their dead-code elimination
-to XLA); None computes them all. The training branches are not ported
-yet."""
+to XLA); None computes them all. In training only the pass-through of
+the scene head is ported (`is_training=True`); the training pipeline
+passes the semantic and instance outputs on itself."""
 from typing import Optional, Tuple
 
 from ..data.fullres import (get_fullres_key,
@@ -37,9 +38,12 @@ class PostprocessingBase:
     def postprocess(self, data, batch=None, is_training: bool = False,
                     keys: Optional[frozenset] = None):
         if is_training:
-            raise NotImplementedError(
-                'training postprocessing is not ported yet')
+            return self._postprocess_training(data, batch or {})
         return self._postprocess_inference(data, batch or {}, keys)
+
+    def _postprocess_training(self, data, batch):
+        raise NotImplementedError(
+            f'{type(self).__name__}: training postprocessing is not ported')
 
     def _postprocess_inference(self, data, batch, keys=None):
         raise NotImplementedError

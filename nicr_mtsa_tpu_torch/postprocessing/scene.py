@@ -7,6 +7,10 @@ from .base import PostprocessingBase
 
 
 class ScenePostprocessing(PostprocessingBase):
+    def _postprocess_training(self, data, batch):
+        output, _ = data
+        return {'scene_output': output}
+
     def _postprocess_inference(self, data, batch, keys=None):
         output, _ = data
         pred = torch.softmax(output.float(), dim=-1)

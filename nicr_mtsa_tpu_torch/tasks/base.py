@@ -1,9 +1,11 @@
 """Task-helper base (counterpart of nicr_mtsa_tpu/tasks/base.py).
 
 A task helper wires one task's losses and metric states around the
-shared batch dict, for the fused eval step:
+shared batch dict, for the training step and the fused eval step:
 
-- `compute_losses(batch, predictions_post) -> {name: loss}`,
+- `compute_losses(batch, predictions_post) -> {name: loss}` (under
+  autograd in training; `training_step` wraps it as the JAX helpers'
+  `(losses, logs)`),
 - `empty_metric_states(device)`, `update_metric_states(state, batch,
   predictions_post) -> state` (device tensors, no host sync),
 - `load_metric_states(state)` then `validation_epoch_end() ->
@@ -11,8 +13,9 @@ shared batch dict, for the fused eval step:
 
 `prediction_keys` names the postprocessed keys the helper reads; the
 step computes no full-resolution output beyond those and the caller's.
-Only the main scale is supervised: the eval forward pass has no side
-outputs, and multiscale targets are not ported yet."""
+Only the main scale is supervised: neither the eval forward pass nor the
+MLP decoders' training pass has side outputs, and multiscale targets
+are not ported yet."""
 import torch
 
 from ..data.fullres import get_fullres
@@ -36,6 +39,11 @@ class TaskHelperBase:
             raise NotImplementedError(
                 'side outputs (multiscale supervision) are not ported yet')
         return [predictions_post[key]], ['main']
+
+    def training_step(self, batch, batch_idx, predictions_post):
+        """(losses, logs) of one training batch: the losses of
+        `compute_losses`, no logs."""
+        return self.compute_losses(batch, predictions_post), {}
 
     @staticmethod
     def accumulate_losses(losses, n_elements):

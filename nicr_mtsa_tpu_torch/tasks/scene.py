@@ -7,6 +7,7 @@ import torch
 
 from ..metrics import confusion_matrix
 from ..metrics.base import to_numpy
+from ..utils.dtypes import upcast
 from .base import TaskHelperBase
 
 
@@ -23,7 +24,7 @@ class SceneTaskHelper(TaskHelperBase):
         self._cm_state = None
 
     def compute_losses(self, batch, predictions_post) -> dict:
-        logits = predictions_post['scene_output'].float()     # (B, C)
+        logits = upcast(predictions_post['scene_output'])     # (B, C)
         target = batch['scene'].long() - 1                     # -1 = void
         valid = target >= 0
         tclip = target.clamp(0, self._n_classes - 1)

@@ -1,5 +1,7 @@
-"""Synthetic eval batches: the host -> device hand-off of the eval path
-without JAX or OpenCV (in the manner of nicr_mtsa_tpu/testing/batch.py).
+"""Synthetic batches: the random training batch of the JAX package's
+`bench.py --train`, and eval batches, the host -> device hand-off of
+the eval path without JAX or OpenCV (in the manner of
+nicr_mtsa_tpu/testing/batch.py).
 
 Ground truth is made at full resolution from a seed: stuff bands, a
 void band and rectangular thing instances with one orientation each.
@@ -88,6 +90,40 @@ def eval_arrays(samples: List[GroundTruth], work_hw: Tuple[int, int],
         for k, v in sample.items():
             out.setdefault(k, []).append(v)
     return {k: np.stack(v) for k, v in out.items()}, overflow
+
+
+def train_arrays(B: int, H: int, W: int, seed: int = 0,
+                 n_classes: int = 40) -> Dict[str, np.ndarray]:
+    """The random training batch of `bench.py --train` for a 4-channel
+    backbone, in the JAX package's layouts (NHWC inputs, maps (B, H,
+    W)), drawn in its order from `np.random.default_rng(seed)`: 'rgbd'
+    (B, H, W, 4), 'semantic' in [0, n_classes] (0 void), the instance
+    centre, offset and masks, the orientation and its mask, and 'scene'
+    in [1, 10)."""
+    rng = np.random.default_rng(seed)
+    batch = {'rgbd': rng.normal(size=(B, H, W, 4)).astype(np.float32)}
+    batch.update({
+        'semantic': rng.integers(0, n_classes + 1, (B, H, W)).astype(
+            np.int32),
+        'instance_center': rng.random((B, H, W)).astype(np.float32),
+        'instance_offset': rng.normal(size=(B, H, W, 2)).astype(np.float32),
+        'instance_foreground': rng.random((B, H, W)) > 0.5,
+        'instance_center_mask': rng.random((B, H, W)) > 0.3,
+        'orientation': rng.normal(size=(B, H, W, 2)).astype(np.float32),
+        'orientation_foreground': rng.random((B, H, W)) > 0.5,
+        'scene': rng.integers(1, 10, (B,)).astype(np.int32),
+    })
+    return batch
+
+
+def build_train_batch(B: int, H: int, W: int, seed: int = 0, device=None,
+                      n_classes: int = 40) -> Dict[str, torch.Tensor]:
+    """`train_arrays` as tensors on `device` (default `cuda`): dense
+    images NCHW ('rgbd', 'instance_offset', 'orientation'), maps
+    (B, H, W) int32 or bool, 'scene' (B,) int32."""
+    device = resolve_device(device)
+    return {k: _to_device(v, device) for k, v in
+            train_arrays(B, H, W, seed, n_classes).items()}
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:

@@ -209,3 +209,162 @@ def test_chip_smoke_fails_alone(tmp_path):
     res = _run_chip_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+TRAIN_SLICE_MODULES = (
+    'nicr_mtsa_tpu_torch.optim',
+    'nicr_mtsa_tpu_torch.ops.cuda.window_attention_core',
+    'nicr_mtsa_tpu_torch.pipeline',
+    'nicr_mtsa_tpu_torch.testing',
+    'nicr_mtsa_tpu_torch.utils.dtypes',
+    'nicr_mtsa_tpu_torch.utils.flax_weights',
+)
+
+
+def test_train_slice_modules_import_with_jax_blocked():
+    """The training slice's modules import with jax, flax, optax and
+    the JAX package made unimportable."""
+    code = (
+        'import sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        '        if name.split(".")[0] in ("jax", "flax", "optax", '
+        '"jaxlib", "nicr_mtsa_tpu"):\n'
+        '            raise ImportError("blocked: " + name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import importlib\n'
+        f'for m in {TRAIN_SLICE_MODULES!r}:\n'
+        '    importlib.import_module(m)\n'
+        'from nicr_mtsa_tpu_torch import build_train_pipeline\n'
+        'from nicr_mtsa_tpu_torch.pipeline import emsaformer_train_config\n'
+        'print(emsaformer_train_config().defer_semantic_prediction_'
+        'upsampling)\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == 'False'
+
+
+def _core_args(requires_grad=False):
+    q = torch.zeros(2, 64, 32, requires_grad=requires_grad)
+    return q, torch.zeros(2, 64, 32), torch.zeros(2, 64, 32), \
+        torch.zeros(1, 64, 64)
+
+
+_CORE_CALLS = {
+    'forward': lambda wac, rg: wac.window_attention_core_forward(
+        *_core_args(rg)),
+    'backward': lambda wac, rg: wac.window_attention_core_backward(
+        *_core_args(rg), torch.zeros(2, 64, 32), torch.zeros(2, 1, 64)),
+    'dbias': lambda wac, rg: wac.dbias_reduce(
+        torch.zeros(3, 1, 64, 64, requires_grad=rg)),
+}
+_CORE_COUNTERS = {'forward': 'window_attention_core_forward',
+                  'backward': 'window_attention_core_backward',
+                  'dbias': 'dbias_reduce'}
+
+
+@pytest.mark.parametrize('entry', sorted(_CORE_CALLS))
+def test_window_attention_core_raises_without_library(monkeypatch, tmp_path,
+                                                      entry):
+    from nicr_mtsa_tpu_torch.ops.cuda import window_attention_core as wac
+    _no_library(monkeypatch, tmp_path, wac)
+    counter = getattr(wac, _CORE_COUNTERS[entry])
+    before = counter.launches
+    with pytest.raises(RuntimeError, match='nvcc'):
+        _CORE_CALLS[entry](wac, False)
+    assert counter.launches == before
+
+
+def _grad_calls():
+    """(module name, wrapper name, call with an input that requires
+    grad) of every ctypes kernel wrapper."""
+    x = lambda *s: torch.zeros(*s, requires_grad=True)
+    k = torch.zeros(3, 1, 3, 3)
+    return {
+        'finisher4x': ('finisher4x', 'upsample4x_argmax_score',
+                       lambda f: f(x(1, 3, 2, 2), k, None, k, None)),
+        'finisher4x_bilinear': ('finisher4x',
+                                'upsample4x_bilinear_argmax_score',
+                                lambda f: f(x(1, 3, 2, 2))),
+        'grouping': ('grouping', 'group_pixels_kernel',
+                     lambda f: f(x(1, 8), torch.zeros(1, 8),
+                                 torch.zeros(1, 2, 2),
+                                 torch.ones(1, 2, dtype=torch.bool),
+                                 torch.ones(1, 8, dtype=torch.bool))),
+        'semantic_reduce': ('semantic_reduce', 'semantic_argmax_score',
+                            lambda f: f(x(1, 3, 2, 2))),
+        'resize_reduce': ('resize_reduce', 'crop_resize_argmax_score',
+                          lambda f: f(x(1, 3, 4, 4),
+                                      (slice(0, 4), slice(0, 4)), 8, 8)),
+        # slot maps are integers: a float map stands for a graph input
+        'intersection': ('intersection', 'intersection_matrix_kernel',
+                         lambda f: f(x(1, 8), torch.zeros(1, 8), 4, 4)),
+        'layernorm': ('layernorm', 'fused_layer_norm',
+                      lambda f: f(x(4, 8), torch.ones(8), torch.zeros(8))),
+        'window_attention_block': (
+            'window_attention', 'window_attention_block',
+            lambda f: f(torch.zeros(2, 64, 32), x(32, 96), torch.zeros(96),
+                        torch.zeros(32, 32), torch.zeros(32),
+                        torch.zeros(1, 64, 64), 1)),
+        'window_attention_image': (
+            'window_attention', 'window_attention_image',
+            lambda f: f(x(1, 8, 8, 32), torch.zeros(32, 96),
+                        torch.zeros(96), torch.zeros(32, 32),
+                        torch.zeros(32), torch.zeros(1, 64, 64), 1, 8)),
+        'window_attention_core_fwd': (
+            'window_attention_core', 'window_attention_core_forward',
+            lambda f: f(*_core_args(True))),
+        'window_attention_core_dbias': (
+            'window_attention_core', 'dbias_reduce',
+            lambda f: f(x(3, 1, 64, 64))),
+    }
+
+
+@pytest.mark.parametrize('kernel', sorted(_grad_calls()))
+def test_kernel_wrappers_refuse_gradients(monkeypatch, tmp_path, kernel):
+    """A CUDA kernel's output has no grad_fn: with grad mode on and an
+    input that requires grad, every wrapper raises before it builds or
+    launches anything (no silently lost gradients); under no_grad it
+    goes on to the launch (here: no library, so nvcc is missing)."""
+    import importlib
+    module, name, call = _grad_calls()[kernel]
+    mod = importlib.import_module(f'nicr_mtsa_tpu_torch.ops.cuda.{module}')
+    _no_library(monkeypatch, tmp_path, mod)
+    fn = getattr(mod, name)
+    counter = (mod.window_attention_block if name == 'window_attention_image'
+               else fn)
+    before = counter.launches
+    with pytest.raises(RuntimeError, match='no gradient'):
+        call(fn)
+    with torch.no_grad(), pytest.raises(RuntimeError, match='nvcc'):
+        call(fn)
+    assert counter.launches == before
+
+
+@pytest.mark.parametrize('phase', ['check_window_attention_core',
+                                   'train_swin', 'train_card_vs_cpu'])
+def test_chip_smoke_training_phases_fail_without_card(phase):
+    """The training phases of chip_smoke.py raise on a machine without
+    a card: none of them falls back to the CPU."""
+    import argparse
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    try:
+        cs = importlib.import_module('chip_smoke')
+    finally:
+        sys.path.remove(str(ROOT))
+    from nicr_mtsa_tpu_torch.ops import cuda as kernels
+    from nicr_mtsa_tpu_torch.ops.cuda import window_attention_core as wac
+    calls = {
+        'check_window_attention_core': lambda: cs.check_window_attention_core(
+            wac, {}),
+        'train_swin': lambda: cs.train_swin(
+            argparse.Namespace(train_steps=1, profile=False), kernels,
+            'no card', {}),
+        'train_card_vs_cpu': lambda: cs.train_card_vs_cpu({}, (64, 96)),
+    }
+    with pytest.raises(RuntimeError):
+        calls[phase]()

@@ -180,21 +180,24 @@ def test_window_attention_matches_pallas_block_interpret(v2, ws, shifted):
     shift = (ws // 2, ws // 2) if shifted else None
     _, attn = _port_attention(v, x, v2, ws)
     p = v['params']
-    bqkv = attn.qkv_bias().numpy()
+    with torch.no_grad():      # the derived tensors, outside the graph
+        bqkv = attn.qkv_bias().numpy()
+        pos_bias = attn.position_bias()
+        v2_scale = attn.v2_scale() if v2 else None
     masks = (_shift_attn_mask(GRID[0] * ws, GRID[1] * ws, ws, *shift)
              if shifted else None)
     want = np.asarray(fused_window_attention_block(
         jnp.asarray(x), jnp.asarray(p['qkv']['kernel']), jnp.asarray(bqkv),
         jnp.asarray(p['proj']['kernel']), jnp.asarray(p['proj']['bias']),
-        jnp.asarray(attn.position_bias().numpy()), 2,
+        jnp.asarray(pos_bias.numpy()), 2,
         GRID if shifted else (1, 1), masks,
-        v2_scale=(jnp.asarray(attn.v2_scale().numpy()) if v2 else None),
+        v2_scale=(jnp.asarray(v2_scale.numpy()) if v2 else None),
         interpret=True))
     got = t_wa.window_attention_block(
         torch.from_numpy(x), torch.from_numpy(p['qkv']['kernel']),
         torch.from_numpy(bqkv), torch.from_numpy(p['proj']['kernel']),
-        torch.from_numpy(p['proj']['bias']), attn.position_bias(), 2, GRID,
-        shift, attn.v2_scale() if v2 else None).numpy()
+        torch.from_numpy(p['proj']['bias']), pos_bias, 2, GRID,
+        shift, v2_scale).numpy()
     err = np.abs(got - want).max()
     assert err <= 1e-5 * np.abs(want).max(), err
 

@@ -64,7 +64,7 @@ def backbone_outputs(request):
     v = _np_tree(jax.jit(jb.init)(jax.random.PRNGKey(0), jnp.asarray(x)), 1)
     with jax.default_matmul_precision('highest'):
         want = [np.asarray(o) for o in jax.jit(jb.apply)(v, jnp.asarray(x))]
-    tb = TSwinBackbone(**kw)
+    tb = TSwinBackbone(**kw).eval()
     load_flax_variables(tb, v)
     with torch.no_grad():
         y = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
