@@ -74,7 +74,30 @@ phases; any failure exits non-zero and prints no result:
    what the CPU's other summation orders (channels-last, no oneDNN)
    move it in the same run where that is more; the card's step with a
    planted 1 % fault (row 7's dbias; the instance losses) must fail
-   that check.
+   that check;
+13. hold the 2x finisher of EMSANet's `--no-defer4x` variant against its
+   plain version at the path's (8, 40, 240, 320), channels-last as the
+   head gives it and contiguous, in bf16 and f32, plus tied classes and
+   an odd shape (idx exact, scores within rtol 1e-5), and time it;
+14. serve `emsanet_bench_config(defer=True)` (the head applies the first
+   prediction upsampling and defers the last) on B=8 requests, counters
+   set to 0 just before: exactly 1 finisher2x, 0 finisher4x and 1
+   grouping launch a request;
+15. run that pipeline in f32 on one frame on the card and on the CPU:
+   semantic_idx must agree on >= 99.9 %;
+16. hold the attention over the packed qkv of EMSAFormer's `--attn-qkv`
+   variant against its plain version at stage 1 (2400 windows, C=128,
+   4 heads) and stage 4 (48, C=1024, 32 heads; the qkv of a padded
+   image, whose pad tokens have k = 0 exactly), both shifted v2, and a
+   shifted v1 stage of 49-token windows, in bf16 (within 2e-2 of max
+   |out|) and f32 (1e-4); time it against the bound and
+   F.scaled_dot_product_attention;
+17. serve `emsaformer_bench_config(attn_backend='qkv')` on B=8 requests,
+   counters set to 0 just before: exactly 12 window_attention_qkv, 0
+   window_attention_block, 36 LayerNorm, 1 bilinear finisher and 1
+   grouping launch a request;
+18. run that pipeline in f32 on one frame on the card and on the CPU:
+   semantic_idx must agree on >= 99.9 %.
 
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
@@ -108,6 +131,13 @@ EVAL_KERNELS = {'resize_reduce': 1, 'semantic_reduce': 1,
 # semantic and the instance decoder), one finisher, one grouping
 SWIN_KERNELS = {'finisher4x_bilinear': 1, 'window_attention_block': 12,
                 'layernorm': 36, 'grouping': 1}
+# launches of each kernel in one request of the two serving variants:
+# EMSANet `--no-defer4x` (the 2x finisher in place of the 4x one) and
+# EMSAFormer `--attn-qkv` (attention over the packed qkv in place of
+# the whole sub-block, one per Swin block)
+DEFER2X_KERNELS = {'finisher2x': 1, 'finisher4x': 0, 'grouping': 1}
+QKV_KERNELS = {'window_attention_qkv': 12, 'window_attention_block': 0,
+               'layernorm': 36, 'finisher4x_bilinear': 1, 'grouping': 1}
 # launches of each kernel in one Swin training step: the attention core's
 # forward, backward and dbias reduction once per Swin block; the serving
 # kernels never (training LayerNorms run their plain version, as the
@@ -816,6 +846,171 @@ def check_finisher_bilinear(fin, report):
                                  'upsampling'}), flush=True)
 
 
+def check_finisher2x(fin, report):
+    """Row 4 at the `--no-defer4x` path's (8, 40, 240, 320) logits,
+    channels-last (the head's layout on the card) and contiguous, bf16
+    and f32; tied classes (the first index must win) and an odd shape
+    (3, 13, 7, 10) with no bias. Times bf16 channels-last."""
+    g = torch.Generator(device='cuda').manual_seed(10)
+    B, C, H, W = 8, 40, 240, 320
+    x = torch.randn(B, C, H, W, device='cuda', generator=g) * 3
+    k = torch.randn(C, 1, 3, 3, device='cuda', generator=g) * 0.3
+    b = torch.randn(C, device='cuda', generator=g) * 0.1
+    xo = torch.randn(3, 13, 7, 10, device='cuda', generator=g) * 3
+    ko = torch.randn(13, 1, 3, 3, device='cuda', generator=g) * 0.3
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        cases += [(xd.contiguous(memory_format=torch.channels_last), k, b),
+                  (xd, k, b), (xo.to(dt), ko, None)]
+    err = 0.0
+    for args in cases:
+        got = fin.upsample2x_argmax_score(*args)
+        torch.cuda.synchronize()
+        err = max(err, _same('finisher2x', got,
+                             fin.upsample2x_argmax_score_reference(*args)))
+    kt = torch.zeros(8, 1, 3, 3, device='cuda')
+    kt[:, :, 1, 1] = 1.0
+    xt = _tied_logits().contiguous(memory_format=torch.channels_last)
+    i_k, _ = fin.upsample2x_argmax_score(xt, kt, None)
+    torch.cuda.synchronize()
+    if not bool((i_k == 2).all()):
+        fail('finisher2x: tied classes did not resolve to the first index')
+    xd = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    ms = cuda_ms(lambda: fin.upsample2x_argmax_score(xd, k, b))
+    plain_ms = cuda_ms(lambda: fin.upsample2x_argmax_score_reference(xd, k, b))
+    P = B * 4 * H * W                         # output pixels
+    # logits read once, the (C, 16) kernel and (C,) bias in f32, idx and
+    # score written once; per output pixel-class 4 mul + 3 add taps, the
+    # bias add, max, subtract, exp and sum add; per pixel one divide
+    b_ms, b_by = bound(xd.numel() * 2 + C * 17 * 4 + P * 8, P * C * 12 + P)
+    report['finisher2x'] = dict(
+        name='finisher2x', route='cuda',
+        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/finisher2x.cu',
+        replaces='nicr_mtsa_tpu/ops/pallas/semantic_finisher.py:161',
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    print(json.dumps({'phase': 'kernel', **report['finisher2x'],
+                      'shape': [B, C, H, W],
+                      'library': 'none: no single PyTorch call gives the '
+                                 'argmax and max-softmax score of an '
+                                 'upsampling'}), flush=True)
+
+
+def _padded_stage_qkv(g, B, Hs, Ws, C, ws, shift, dt):
+    """The packed qkv (Bw, ws * ws, 3C) of a Swin block on a random
+    (B, Hs, Ws, C) image: zero-padded to window multiples, rolled by the
+    shift and partitioned, then x . Wqkv + b with the k third of b zero
+    (as v2 has it), so the pad tokens have k = 0 exactly. Returns (qkv
+    in dt, the window grid)."""
+    from nicr_mtsa_tpu_torch.ops.cuda.window_attention import (
+        image_windows, window_partition)
+    import torch.nn.functional as F
+    x = torch.randn(B, Hs, Ws, C, device='cuda', generator=g)
+    pad_h, pad_w, grid, (sh, sw) = image_windows(Hs, Ws, ws, shift)
+    x = torch.roll(F.pad(x, (0, 0, 0, pad_w, 0, pad_h)), (-sh, -sw), (1, 2))
+    w = torch.randn(C, 3 * C, device='cuda', generator=g) * C ** -0.5
+    bq = torch.randn(3 * C, device='cuda', generator=g) * 0.1
+    bq[C:2 * C] = 0.0
+    qkv = window_partition(x, ws).to(dt) @ w.to(dt) + bq.to(dt)
+    return qkv, grid
+
+
+def check_window_attention_qkv(waq, report):
+    """Row 9 against its plain version: stage 1 (2400 windows of 64
+    tokens, C=128, 4 heads) and stage 4 (the qkv of the B=8 15 x 20 image
+    padded to 16 x 24, C=1024, 32 heads: the pad tokens have k = 0), both
+    shifted v2, and a shifted v1 stage of 49-token windows (B=2, 120 x
+    160 padded to 126 x 161, C=128); bf16 within 2e-2 of max |out|, f32
+    within 1e-4, outputs finite. Times bf16 at stages 1 and 4 against the
+    bound and F.scaled_dot_product_attention on q, k, v sliced from the
+    same qkv (q and k normalised and the logit scale folded into q
+    outside the timed call; the bias plus the shift mask as its float
+    mask): SDPA's time leaves out the normalisation."""
+    import torch.nn.functional as F
+    from nicr_mtsa_tpu_torch.ops.cuda.window_attention import shift_attn_mask
+    g = torch.Generator(device='cuda').manual_seed(11)
+    rnd = lambda *shape, s=1.0: torch.randn(*shape, device='cuda',
+                                            generator=g) * s
+    v2w = lambda h: dict(bias=16 * torch.sigmoid(rnd(h, 64, 64)),
+                         v2_scale=torch.exp(torch.clamp(
+                             np.log(10.0) + rnd(h, s=0.3),
+                             max=float(np.log(100.0)))))
+    cases = {
+        'stage1': dict(v2w(4), qkv=rnd(2400, 64, 384), n_heads=4,
+                       grid_hw=(15, 20), shift=(4, 4)),
+        'stage4_padded': dict(v2w(32), n_heads=32, shift=(4, 4)),
+        'v1_49_tokens': dict(bias=rnd(4, 49, 49, s=0.5), n_heads=4,
+                             shift=(3, 3), v2_scale=None),
+    }
+    errs, max_abs, inputs = {}, 0.0, {}
+    for name, c in cases.items():
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = dict(c)
+            if name == 'stage4_padded':
+                args['qkv'], args['grid_hw'] = _padded_stage_qkv(
+                    g, 8, 15, 20, 1024, 8, 4, dt)
+            elif name == 'v1_49_tokens':
+                args['qkv'], args['grid_hw'] = _padded_stage_qkv(
+                    g, 2, 120, 160, 128, 7, 3, dt)
+            else:
+                args['qkv'] = args['qkv'].to(dt)
+            got = waq.window_attention_qkv(**args)
+            torch.cuda.synchronize()
+            want = waq.window_attention_qkv_reference(**args)
+            if not bool(torch.isfinite(got).all()):
+                fail(f'window_attention_qkv {name} {dt}: non-finite output')
+            err = float((got.float() - want.float()).abs().max())
+            ref = float(want.float().abs().max())
+            errs[f'{name}_{str(dt)[6:]}'] = err / ref
+            max_abs = max(max_abs, err)
+            if not err <= tol * ref:
+                fail(f'window_attention_qkv {name} {dt}: max error {err} > '
+                     f'{tol} x max |out| {ref}')
+            inputs[name, dt] = args
+    times = {}
+    for name in ('stage1', 'stage4_padded'):
+        args = inputs[name, torch.bfloat16]
+        qkv, h = args['qkv'], args['n_heads']
+        Bw, N, C3 = qkv.shape
+        q, k, v = (t.reshape(Bw, N, h, 32).transpose(1, 2)
+                   for t in qkv.split(C3 // 3, dim=-1))
+        unit = lambda t: t.float() / t.float().norm(
+            dim=-1, keepdim=True).clamp_min(1e-6)
+        q = (unit(q) * args['v2_scale'].view(1, h, 1, 1)).to(qkv.dtype)
+        k = unit(k).to(qkv.dtype)
+        mask = shift_attn_mask(args['grid_hw'], 8, args['shift'], 'cuda')
+        nW = mask.shape[0]
+        fmask = (args['bias'][None, None] + mask[None, :, None]).expand(
+            Bw // nW, -1, -1, -1, -1).reshape(Bw, h, N, N).to(qkv.dtype)
+        n_bytes = 4 * qkv.numel() // 3 * 2 + h * N * N * 4 + h * 4
+        times[name] = {
+            'ms': cuda_ms(lambda: waq.window_attention_qkv(**args)),
+            'plain_ms': cuda_ms(
+                lambda: waq.window_attention_qkv_reference(**args)),
+            'library_ms': cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=fmask, scale=1.0)),
+            'bound': bound(n_bytes, 4 * Bw * h * N * N * 32,
+                           PEAK_BF16_FLOPS),
+            'shape': list(qkv.shape)}
+    t1 = times['stage1']
+    report['window_attention_qkv'] = dict(
+        name='window_attention_qkv', route='cuda',
+        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/window_attention_qkv.cu',
+        replaces='nicr_mtsa_tpu/ops/pallas/window_attention.py:392',
+        max_abs_err=max_abs, ms=t1['ms'], plain_ms=t1['plain_ms'],
+        bound_ms=t1['bound'][0], bound_by=t1['bound'][1],
+        library_ms=t1['library_ms'])
+    print(json.dumps({'phase': 'kernel', **report['window_attention_qkv'],
+                      'shape': t1['shape'], 'rel_err': errs,
+                      'stage4': times['stage4_padded'],
+                      'library': 'F.scaled_dot_product_attention(scale=1, '
+                                 'float mask) on q, k, v sliced from the '
+                                 'qkv, q and k normalised beforehand: the '
+                                 'normalisation is not in its time'}),
+          flush=True)
+
+
 def frames(B, H=480, W=640, seed=0):
     rng = np.random.default_rng(seed)
     rgb = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
@@ -942,25 +1137,34 @@ def card_vs_cpu(result, cfg, key, frame_seed):
         del pipe
     check_outputs(outs['cuda'], 1, 480, 640, 40)
     agree = {k: float((outs['cuda'][k] == outs['cpu'][k]).float().mean())
-             for k in ('semantic_idx', 'panoptic', 'panoptic_instance')}
+             for k in ('semantic_idx', 'panoptic', 'panoptic_semantic',
+                       'panoptic_instance')}
+    # panoptic ids number the instances of a class in instance-id order:
+    # one instance more or less on one side renumbers the class's later
+    # instances, which the per-side instance counts show
+    n_instances = {dev: [len(torch.unique(o['panoptic_instance'][b]))
+                         for b in range(len(o['panoptic_instance']))]
+                   for dev, o in outs.items()}
     scene_err = float((outs['cuda']['scene_logits']
                        - outs['cpu']['scene_logits']).abs().max())
-    result[key] = dict(agreement=agree, scene_max_abs=scene_err)
+    result[key] = dict(agreement=agree, scene_max_abs=scene_err,
+                       n_instance_ids=n_instances)
     print(json.dumps({'phase': key, 'agreement': agree,
+                      'n_instance_ids': n_instances,
                       'scene_max_abs': scene_err}), flush=True)
     if agree['semantic_idx'] < 0.999:
         fail(f"{key}: semantic_idx agreement {agree['semantic_idx']}")
 
 
-def serve_swin(args, kernels, card, result):
-    """`emsaformer_dve_v2` serving at B=8: a warm-up request, then three
-    timed rounds of N requests with the counters set to 0 just before;
+def serve_exact(cfg, n_requests, want, kernels, card, result, key,
+                profile_it=False):
+    """Serving of `cfg` at B=8: a warm-up request, then three timed rounds
+    of `n_requests` requests with the counters set to 0 just before;
+    each kernel of `want` must have launched exactly its count a request;
     frames/s is the median round."""
-    from nicr_mtsa_tpu_torch.pipeline import (build_serving_pipeline,
-                                              emsaformer_bench_config)
+    from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
     B = 8
-    pipe = build_serving_pipeline(emsaformer_bench_config(), device='cuda',
-                                  seed=0)
+    pipe = build_serving_pipeline(cfg, device='cuda', seed=0)
     rgb, depth = frames(B)
     rgb_t = torch.from_numpy(rgb).cuda()
     depth_t = torch.from_numpy(depth).cuda()
@@ -974,34 +1178,34 @@ def serve_swin(args, kernels, card, result):
     rounds = []
     for _ in range(3):
         t0 = time.perf_counter()
-        for _ in range(args.swin_requests):
+        for _ in range(n_requests):
             out = pipe(rgb_t, depth_t)
         int(out['panoptic'][0, 0, 0])
-        rounds.append(B * args.swin_requests / (time.perf_counter() - t0))
-    n = 3 * args.swin_requests
+        rounds.append(B * n_requests / (time.perf_counter() - t0))
+    n = 3 * n_requests
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
     check_outputs(out, B, 480, 640, 40)
-    per_request = {k: launches[k] / n for k in SWIN_KERNELS}
-    for k, want in SWIN_KERNELS.items():
-        if per_request[k] != want:
-            fail(f'kernel {k}: {per_request[k]} launches a Swin request, '
-                 f'expected {want}')
+    per_request = {k: launches[k] / n for k in want}
+    for k, w in want.items():
+        if per_request[k] != w:
+            fail(f'{key}: kernel {k}: {per_request[k]} launches a request, '
+                 f'expected {w}')
     fps = float(np.median(rounds))
-    result['serving_swin'] = dict(
-        batch=B, requests_per_round=args.swin_requests,
+    result[key] = dict(
+        batch=B, requests_per_round=n_requests,
         rounds_frames_per_s=rounds, frames_per_s=fps, card=card,
         launches_per_request=per_request,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         n_instances=[int(v) for v in out['panoptic_instance'].amax(
             dim=(1, 2))])
-    print(json.dumps({'phase': 'serve_swin', 'frames_per_s': fps,
+    print(json.dumps({'phase': key, 'frames_per_s': fps,
                       'rounds_frames_per_s': rounds, 'batch': B,
                       'requests': n, 'launches_per_request': per_request,
-                      'peak_mem_gb': result['serving_swin']['peak_mem_gb'],
+                      'peak_mem_gb': result[key]['peak_mem_gb'],
                       'card': card}), flush=True)
-    if args.profile:
-        profile(lambda: pipe(rgb_t, depth_t), result, 'serving_swin')
-    return {k: launches[k] for k in SWIN_KERNELS}
+    if profile_it:
+        profile(lambda: pipe(rgb_t, depth_t), result, key)
+    return {k: launches[k] for k in want}
 
 
 def train_swin(args, kernels, card, result):
@@ -1332,9 +1536,11 @@ def eval_card_vs_cpu(pipe, result):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=10,
-                    help='requests per timed round (3 rounds)')
+                    help='EMSANet requests per timed round (3 rounds), '
+                         'for each of its two serving variants')
     ap.add_argument('--swin-requests', type=int, default=5,
-                    help='Swin requests per timed round (3 rounds)')
+                    help='Swin requests per timed round (3 rounds), for '
+                         'each of its two serving variants')
     ap.add_argument('--steps', type=int, default=5,
                     help='eval steps per timed round (3 rounds)')
     ap.add_argument('--train-steps', type=int, default=3,
@@ -1352,11 +1558,13 @@ def main():
     t_start = time.perf_counter()
 
     from nicr_mtsa_tpu_torch.ops import cuda as kernels
-    from nicr_mtsa_tpu_torch.ops.cuda import (_build, finisher4x, grouping,
-                                              intersection, layernorm,
-                                              resize_reduce, semantic_reduce,
+    from nicr_mtsa_tpu_torch.ops.cuda import (_build, finisher2x, finisher4x,
+                                              grouping, intersection,
+                                              layernorm, resize_reduce,
+                                              semantic_reduce,
                                               window_attention,
-                                              window_attention_core)
+                                              window_attention_core,
+                                              window_attention_qkv)
     from nicr_mtsa_tpu_torch.pipeline import (emsaformer_bench_config,
                                               emsanet_bench_config)
     build_s = kernels.build_all()
@@ -1383,12 +1591,27 @@ def main():
     check_window_attention(window_attention, report)
     check_layernorm(layernorm, report)
     check_finisher_bilinear(finisher4x, report)
-    swin_launches = serve_swin(args, kernels, card, result)
+    swin_launches = serve_exact(
+        emsaformer_bench_config(), args.swin_requests, SWIN_KERNELS, kernels,
+        card, result, 'serving_swin', args.profile)
     card_vs_cpu(result, emsaformer_bench_config(dtype='float32'),
                 'swin_card_vs_cpu', frame_seed=4)
     check_window_attention_core(window_attention_core, report)
     train_launches = train_swin(args, kernels, card, result)
     train_card_vs_cpu(result)
+    check_finisher2x(finisher2x, report)
+    defer2x_launches = serve_exact(
+        emsanet_bench_config(defer=True), args.requests, DEFER2X_KERNELS,
+        kernels, card, result, 'serving_defer2x', args.profile)
+    card_vs_cpu(result, emsanet_bench_config(dtype='float32', defer=True),
+                'defer2x_card_vs_cpu', frame_seed=5)
+    check_window_attention_qkv(window_attention_qkv, report)
+    qkv_launches = serve_exact(
+        emsaformer_bench_config(attn_backend='qkv'), args.swin_requests,
+        QKV_KERNELS, kernels, card, result, 'serving_qkv', args.profile)
+    card_vs_cpu(result, emsaformer_bench_config(dtype='float32',
+                                                attn_backend='qkv'),
+                'qkv_card_vs_cpu', frame_seed=6)
 
     # each kernel's launches from the run of its own path (the grouping
     # from the EMSANet serving run)
@@ -1397,8 +1620,14 @@ def main():
                      if n not in launches})
     core = [n for n in TRAIN_KERNELS if n.startswith('window_attention_core')]
     launches.update({n: train_launches[n] for n in core})
+    launches['finisher2x'] = defer2x_launches['finisher2x']
+    launches['window_attention_qkv'] = qkv_launches['window_attention_qkv']
     names = (*SERVING_KERNELS, *EVAL_KERNELS,
-             *(n for n in SWIN_KERNELS if n not in SERVING_KERNELS), *core)
+             *(n for n in SWIN_KERNELS if n not in SERVING_KERNELS), *core,
+             'finisher2x', 'window_attention_qkv')
+    if sorted(names) != sorted(kernels.KERNELS):
+        fail(f'the kernels line lists {sorted(names)}, the port has '
+             f'{sorted(kernels.KERNELS)}')
     line = {'kernels': [dict(report[n], launches=launches[n])
                         for n in names]}
     result['kernels'] = line['kernels']

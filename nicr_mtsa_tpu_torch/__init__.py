@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of nicr_mtsa_tpu: EMSANet panoptic serving (slice
 1), the metric-inclusive fused eval step (slice 2), EMSAFormer
-(SwinV2-T-128 RGB-D) serving (slice 3) and its training step
-(slice 4).
+(SwinV2-T-128 RGB-D) serving (slice 3), its training step (slice 4),
+and the two opt-in serving variants, EMSANet with the single 2x
+finisher and EMSAFormer with attention over the packed qkv (slice 5).
 
 The JAX package `nicr_mtsa_tpu` stays the reference; this package is
 held against it on the same weights and inputs (tests/test_torch_*.py).

@@ -1,5 +1,6 @@
 from .multi_task import MultiTaskModel, MultiTaskModelConfig, build_model
-from .upsampling import DeferredBilinear2, DeferredUpsampling2
+from .upsampling import (DeferredBilinear2, DeferredUpsampling,
+                         DeferredUpsampling2)
 
 __all__ = ['MultiTaskModel', 'MultiTaskModelConfig', 'build_model',
-           'DeferredBilinear2', 'DeferredUpsampling2']
+           'DeferredBilinear2', 'DeferredUpsampling', 'DeferredUpsampling2']

@@ -4,7 +4,7 @@ nonbottleneck1d blocks, and Swin v1/v2 (single- or multimodal).
 backbones/__init__.py)."""
 from .base import Backbone
 from .resnet import ResNetBackbone, get_resnet_backbone
-from .swin import SwinBackbone, get_swin_backbone
+from .swin import ATTN_BACKENDS, SwinBackbone, get_swin_backbone
 
 KNOWN_BACKBONES = (
     'resnet18', 'resnet34',
@@ -18,12 +18,18 @@ KNOWN_BACKBONES = (
 
 def get_backbone(name: str, resnet_block=None, n_input_channels: int = 3,
                  normalization: str = 'batchnorm', activation: str = 'relu',
-                 stochastic_depth=None, generator=None) -> Backbone:
+                 stochastic_depth=None, attn_backend: str = 'auto',
+                 generator=None) -> Backbone:
     """`stochastic_depth` (Swin only): the last block's rate, None for
-    the variant's default."""
+    the variant's default; `attn_backend` (Swin only; a ResNet takes
+    'auto'): one of ATTN_BACKENDS."""
     name = name.lower()
     if name not in KNOWN_BACKBONES:
         raise ValueError(f"Unsupported backbone in this port: '{name}'")
+    if attn_backend not in ATTN_BACKENDS:
+        raise ValueError(f"Unknown window-attention backend "
+                         f"'{attn_backend}'; the port has "
+                         f"{', '.join(map(repr, ATTN_BACKENDS))}")
     if name.startswith('resnet'):
         return get_resnet_backbone(name, block=resnet_block,
                                    n_input_channels=n_input_channels,
@@ -32,8 +38,9 @@ def get_backbone(name: str, resnet_block=None, n_input_channels: int = 3,
                                    generator=generator)
     return get_swin_backbone(name, n_input_channels=n_input_channels,
                              stochastic_depth=stochastic_depth,
-                             generator=generator)
+                             attn_backend=attn_backend, generator=generator)
 
 
-__all__ = ['Backbone', 'ResNetBackbone', 'SwinBackbone', 'KNOWN_BACKBONES',
-           'get_backbone', 'get_resnet_backbone', 'get_swin_backbone']
+__all__ = ['ATTN_BACKENDS', 'Backbone', 'ResNetBackbone', 'SwinBackbone',
+           'KNOWN_BACKBONES', 'get_backbone', 'get_resnet_backbone',
+           'get_swin_backbone']

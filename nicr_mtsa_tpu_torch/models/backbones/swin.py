@@ -15,10 +15,14 @@ for Swin-T) and is the identity at inference.
 Layout: the blocks work on NHWC tensors (the LayerNorms and the window
 partition read the channel axis last); `forward_stage` takes and
 returns NCHW views of them, so the encoder and the decoders see the
-port's usual NCHW shapes without a copy. The attention part of a block
-(pad to window multiples, cyclic shift, window partition, the qkv
-product, attention, the output projection, and back) is one call of
-ops/cuda/window_attention.py `window_attention_image`, and every
+port's usual NCHW shapes without a copy. At inference the attention
+part of a block (pad to window multiples, cyclic shift, window
+partition, the qkv product, attention, the output projection, and back)
+is, with the attention backend 'auto', one call of
+ops/cuda/window_attention.py `window_attention_image`; with 'qkv' the
+qkv product, the pad, roll and partition run in torch and the
+attention over the packed qkv is ops/cuda/window_attention_qkv.py
+`window_attention_qkv` (the JAX package's 'pallas-qkv'). Every
 LayerNorm goes through ops/cuda/layernorm.py (the kernels on the card,
 their plain versions on the CPU); the MLP's dense layers and the patch
 merging's reduction are plain `F.linear`.
@@ -28,7 +32,8 @@ path: the qkv product, the v2 cosine normalisation and the logit scale
 folded into q in plain differentiable torch, the pad, roll and window
 partition in torch, and the attention itself through the differentiable
 ops/cuda/window_attention_core.py (row 7's forward and backward kernels
-on the card); the LayerNorms run their plain version, and the random
+on the card) whatever the backend, except 'qkv', which has no gradient
+and raises; the LayerNorms run their plain version, and the random
 parts (DropPath) draw from the generator passed to `forward_stage`."""
 import math
 from typing import List, Tuple
@@ -42,10 +47,15 @@ from ...ops.cuda.window_attention import (
     image_windows, window_attention_block, window_attention_image,
     window_partition, window_unpartition)
 from ...ops.cuda.window_attention_core import window_attention_core
+from ...ops.cuda.window_attention_qkv import window_attention_qkv
 from ...utils.dtypes import upcast
 from ..common import (Conv2d, FusedLayerNorm, Linear, bernoulli_keep,
                       cached_weight, trunc_normal_)
 from .base import Backbone
+
+# window-attention backends at inference: the whole-sub-block kernel,
+# or the qkv product in torch and attention over the packed qkv
+ATTN_BACKENDS = ('auto', 'qkv')
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -105,13 +115,18 @@ class DropPath(nn.Module):
 class WindowAttention(nn.Module):
     """Window attention over (B_windows, N, C); parameter names follow
     the flax module (`qkv`, `proj`, v2 `cpb_fc1`/`cpb_fc2`/
-    `logit_scale`, v1 `relative_position_bias_table`)."""
+    `logit_scale`, v1 `relative_position_bias_table`). `backend`: one
+    of ATTN_BACKENDS, the inference path."""
 
     def __init__(self, dim: int, n_heads: int, window_size: int,
-                 v2: bool = False, generator=None):
+                 v2: bool = False, generator=None, backend: str = 'auto'):
         super().__init__()
+        if backend not in ATTN_BACKENDS:
+            raise ValueError(f"Unknown window-attention backend '{backend}'"
+                             f"; the port has "
+                             f"{', '.join(map(repr, ATTN_BACKENDS))}")
         self.dim, self.n_heads, self.window_size = dim, n_heads, window_size
-        self.v2 = v2
+        self.v2, self.backend = v2, backend
         self.qkv = Linear(dim, 3 * dim, generator=generator)
         self.proj = Linear(dim, dim, generator=generator)
         if v2:
@@ -182,11 +197,29 @@ class WindowAttention(nn.Module):
 
     def forward(self, windows, grid_hw: Tuple[int, int] = (1, 1),
                 shift=None):
-        """Windows (Bw, N, C), as the flax module takes them."""
+        """Windows (Bw, N, C), as the flax module takes them; the
+        inference path of the backend."""
+        if self.backend == 'qkv':
+            return self.forward_qkv(windows, grid_hw, shift)
         wqkv, bqkv, wproj, bproj, bias, scale = self._weights(windows.dtype)
         return window_attention_block(windows, wqkv, bqkv, wproj, bproj,
                                       bias, self.n_heads, grid_hw, shift,
                                       scale)
+
+    def forward_qkv(self, windows, grid_hw: Tuple[int, int] = (1, 1),
+                    shift=None):
+        """The 'qkv' inference path on windows (Bw, N, C): qkv = x @ Wqkv
+        rounded to the compute dtype, then + the (v2: k-zeroed) bias in
+        it (the JAX `QKVProjection`'s order, where `F.linear` would fuse
+        the bias into one rounding), attention over the packed qkv, and
+        the output projection in the same order."""
+        dt = windows.dtype
+        wqkv, _, wproj, _, bias, scale = self._weights(dt)
+        bqkv = _derived(self, f'qkv_bias_{dt}', (self.qkv.bias,),
+                        lambda: self.qkv_bias().to(dt))
+        out = window_attention_qkv(windows @ wqkv + bqkv, bias, self.n_heads,
+                                   grid_hw, shift, scale)
+        return out @ wproj + cached_weight(self.proj, 'bias', dt)
 
     def forward_train(self, windows, grid_hw: Tuple[int, int] = (1, 1),
                       shift=None):
@@ -217,15 +250,25 @@ class WindowAttention(nn.Module):
     def forward_image(self, x, shift: int = 0):
         """A Swin block's attention part on its (B, H, W, C) image:
         padding, the cyclic shift and the window partition included;
-        in training mode through `forward_train`."""
+        in training mode through `forward_train` (the 'qkv' backend
+        raises: it has no gradient)."""
         if self.training:
-            return self._train_image(x, shift)
+            if self.backend == 'qkv':
+                raise RuntimeError(
+                    "the 'qkv' window-attention backend is inference only "
+                    "(its kernel has no gradient); train with "
+                    "backbone_attn_backend='auto'")
+            return self._windowed(x, shift, self.forward_train)
+        if self.backend == 'qkv':
+            return self._windowed(x, shift, self.forward_qkv)
         wqkv, bqkv, wproj, bproj, bias, scale = self._weights(x.dtype)
         return window_attention_image(x, wqkv, bqkv, wproj, bproj, bias,
                                       self.n_heads, self.window_size,
                                       shift, scale)
 
-    def _train_image(self, x, shift: int):
+    def _windowed(self, x, shift: int, attend):
+        """attend(windows, grid_hw, shift) on the zero-padded, rolled and
+        partitioned (B, H, W, C) image, and back."""
         B, H, W, C = x.shape
         ws = self.window_size
         pad_h, pad_w, grid_hw, (sh, sw) = image_windows(H, W, ws, shift)
@@ -233,8 +276,8 @@ class WindowAttention(nn.Module):
             x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
         if sh or sw:
             x = torch.roll(x, (-sh, -sw), dims=(1, 2))
-        y = self.forward_train(window_partition(x, ws), grid_hw,
-                               (sh, sw) if sh or sw else None)
+        y = attend(window_partition(x, ws), grid_hw,
+                   (sh, sw) if sh or sw else None)
         y = window_unpartition(y, ws, H + pad_h, W + pad_w)
         if sh or sw:
             y = torch.roll(y, (sh, sw), dims=(1, 2))
@@ -244,12 +287,13 @@ class WindowAttention(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, n_heads: int, window_size: int,
                  shift: int = 0, mlp_ratio: float = 4.0, v2: bool = False,
-                 drop_path: float = 0.0, generator=None):
+                 drop_path: float = 0.0, generator=None,
+                 attn_backend: str = 'auto'):
         super().__init__()
         self.window_size, self.shift, self.v2 = window_size, shift, v2
         self.drop_path = DropPath(drop_path)
         self.attn = WindowAttention(dim, n_heads, window_size, v2,
-                                    generator)
+                                    generator, attn_backend)
         self.norm1 = FusedLayerNorm(dim)
         self.norm2 = FusedLayerNorm(dim)
         hidden = int(dim * mlp_ratio)
@@ -333,7 +377,8 @@ class SwinBackbone(Backbone):
                  window_size: int = 7, mlp_ratio: float = 4.0,
                  v2: bool = False, n_input_channels: int = 3,
                  multimodal: bool = False, embed_dim_depth: int = 32,
-                 stochastic_depth: float = 0.2, generator=None):
+                 stochastic_depth: float = 0.2, generator=None,
+                 attn_backend: str = 'auto'):
         super().__init__()
         self.embed_dim = embed_dim
         self.n_input_channels = n_input_channels
@@ -356,7 +401,7 @@ class SwinBackbone(Backbone):
                     shift=0 if b % 2 == 0 else window_size // 2,
                     mlp_ratio=mlp_ratio, v2=v2,
                     drop_path=float(dp_rates[sum(depths[:i]) + b]),
-                    generator=generator))
+                    generator=generator, attn_backend=attn_backend))
                 names.append(name)
             self._layer_names.append(names)
         for i in range(1, 4):
@@ -389,11 +434,12 @@ class SwinBackbone(Backbone):
 
 
 def get_swin_backbone(name: str, n_input_channels: int = 3,
-                      stochastic_depth=None, generator=None) -> SwinBackbone:
+                      stochastic_depth=None, generator=None,
+                      attn_backend: str = 'auto') -> SwinBackbone:
     """swin-{t,s,b}[-v2], swin-t[-v2]-128, and the swin-multi-*
     variants with the merged rgb + depth patch embedder; stochastic
     depth (the last block's rate) defaults to the variant's (0.2, 0.3,
-    0.5 for t, s, b)."""
+    0.5 for t, s, b); `attn_backend`: one of ATTN_BACKENDS."""
     name = name.lower()
     v2 = '-v2' in name
     multimodal = name.startswith('swin-multi')
@@ -416,4 +462,4 @@ def get_swin_backbone(name: str, n_input_channels: int = 3,
                         multimodal=multimodal,
                         stochastic_depth=(sd if stochastic_depth is None
                                           else stochastic_depth),
-                        generator=generator)
+                        generator=generator, attn_backend=attn_backend)

@@ -1,9 +1,11 @@
 """Task heads (counterpart of nicr_mtsa_tpu/models/decoders/heads.py).
 
 - `TaskHead`: 3x3 conv -> n x2 prediction upsamplings; with
-  `defer_last_upsampling='all'` both upsamplings of a two-step head are
-  returned as a DeferredUpsampling2 (learned-3x3-zeropad, same
-  parameters) or a DeferredBilinear2 (bilinear, parameter-free).
+  `defer_last_upsampling=True` the last learned-3x3-zeropad upsampling
+  is returned as a DeferredUpsampling, with `'all'` both upsamplings of
+  a two-step head as a DeferredUpsampling2 (learned-3x3-zeropad) or a
+  DeferredBilinear2 (bilinear, parameter-free); the parameters are the
+  same in every case.
 - `InstanceHead`: shared 3x3 ConvNormAct split into centre (sigmoid),
   offset (tanh) and orientation (unit length) convs; the concatenated
   raw maps are upsampled jointly before the activations."""
@@ -13,7 +15,8 @@ import torch
 import torch.nn as nn
 
 from ..common import Conv2d, ConvNormAct
-from ..upsampling import DeferredBilinear2, DeferredUpsampling2, Upsampling
+from ..upsampling import (DeferredBilinear2, DeferredUpsampling,
+                          DeferredUpsampling2, Upsampling)
 
 
 def unit_length(x, epsilon: float = 1e-7, dim: int = 1):
@@ -28,14 +31,14 @@ class TaskHead(nn.Module):
                  n_upsamplings: int = 0, defer_last_upsampling=False,
                  generator=None):
         super().__init__()
-        if defer_last_upsampling is True:
-            raise ValueError(
-                "defer_last_upsampling=True (the single 2x finisher) is "
-                "not ported yet; use False or 'all'")
         self.defer_all = defer_last_upsampling == 'all'
+        self.defer_last = defer_last_upsampling is True and n_upsamplings > 0
         if self.defer_all:
             assert n_upsamplings == 2, n_upsamplings
         self.bilinear = upsampling == 'bilinear'
+        if self.defer_last and self.bilinear:
+            raise ValueError('defer_last_upsampling=True defers a '
+                             'learned-3x3-zeropad upsampling, not bilinear')
         self.n_upsamplings = n_upsamplings
         k = 3 if n_upsamplings else 1
         self.conv = Conv2d(n_in, n_channels_out, k, use_bias=True,
@@ -53,8 +56,12 @@ class TaskHead(nn.Module):
             return DeferredUpsampling2(x=x, kernel1=u0.weight,
                                        bias1=u0.bias, kernel2=u1.weight,
                                        bias2=u1.bias)
-        for i in range(self.n_upsamplings):
+        n_applied = self.n_upsamplings - int(self.defer_last)
+        for i in range(n_applied):
             x = getattr(self, f'upsample_{i}')(x)
+        if self.defer_last:
+            u = getattr(self, f'upsample_{n_applied}')
+            return DeferredUpsampling(x=x, kernel=u.weight, bias=u.bias)
         return x
 
 

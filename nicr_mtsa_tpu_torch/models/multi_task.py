@@ -65,10 +65,16 @@ class MultiTaskModelConfig:
     # the MLP decoders' channel dropout (the JAX modules' defaults)
     stochastic_depth: Optional[float] = None
     decoder_dropout: float = 0.1
-    # False, or 'all': both semantic prediction upsamplings returned as
-    # a DeferredUpsampling2 (learned) or DeferredBilinear2 (bilinear)
-    # for the fused 4x finisher
+    # False; True: the last semantic prediction upsampling (learned)
+    # returned as a DeferredUpsampling for the fused 2x finisher; or
+    # 'all': both returned as a DeferredUpsampling2 (learned) or
+    # DeferredBilinear2 (bilinear) for the fused 4x finisher
     defer_semantic_prediction_upsampling: object = False
+    # window-attention backend of Swin blocks at inference: 'auto' (the
+    # whole-sub-block kernel; training always takes the differentiable
+    # core) or 'qkv' (the qkv product in torch, then attention over the
+    # packed qkv; inference only), see backbones.ATTN_BACKENDS
+    backbone_attn_backend: str = 'auto'
     dtype: str = 'float32'
 
     @property
@@ -123,7 +129,9 @@ def _build_encoder(c: MultiTaskModelConfig, g, rgbd_backbone=None):
                             n_input_channels=n_in,
                             normalization=c.normalization,
                             activation=c.activation,
-                            stochastic_depth=c.stochastic_depth, generator=g)
+                            stochastic_depth=c.stochastic_depth,
+                            attn_backend=c.backbone_attn_backend,
+                            generator=g)
     if rgbd_backbone is not None:
         return Encoder(rgbd_backbone, c.skip_downsamplings)
     if c.backbone_rgbd is not None:

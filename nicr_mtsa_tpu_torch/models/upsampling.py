@@ -6,14 +6,17 @@ two-stage forms (counterpart of nicr_mtsa_tpu/models/upsampling.py).
 4x4 kernel built from the 3x3 one by exact adds (`_phase_combine`);
 here that conv is a `conv_transpose2d` with the flipped 4x4 kernel.
 
-`DeferredUpsampling2` carries the semantic head's two prediction
-upsamplings as data, so postprocessing can fuse them with the argmax
-and score reduction (ops/cuda/finisher4x.py); `DeferredBilinear2` does
-the same for two half-pixel bilinear x2 upsamplings (the MLP decoders'
-semantic head), which are nearest x2 + a replication-padded depthwise
-3x3 with the fixed bilinear kernel. `finisher4x_logits_exact` is the
-dense form with that kernel's exact rounding order. All tensors here
-are NCHW; depthwise kernels are (C, 1, 3, 3).
+`DeferredUpsampling` carries the semantic head's last prediction
+upsampling as data and `DeferredUpsampling2` its two, so
+postprocessing can fuse them with the argmax and score reduction
+(ops/cuda/finisher2x.py, ops/cuda/finisher4x.py); `DeferredBilinear2`
+does the same for two half-pixel bilinear x2 upsamplings (the MLP
+decoders' semantic head), which are nearest x2 + a replication-padded
+depthwise 3x3 with the fixed bilinear kernel. `zeropad2x_logits_exact`
+and `finisher4x_logits_exact` are the dense forms with those kernels'
+exact rounding order; both build their last stage with
+`_zeropad_phases`. All tensors here are NCHW; depthwise kernels are
+(C, 1, 3, 3).
 
 `resize_bilinear` / `resize_nearest` resize the last two axes to a
 full resolution (the JAX package's `resize_bilinear` and
@@ -40,6 +43,13 @@ class DeferredBilinear2(NamedTuple):
     x: torch.Tensor                  # (B, C, H, W) quarter-res logits
 
 
+class DeferredUpsampling(NamedTuple):
+    """One learned-3x3-zeropad x2 upsampling captured as data."""
+    x: torch.Tensor                  # (B, C, H, W) half-res logits
+    kernel: torch.Tensor             # (C, 1, 3, 3) f32
+    bias: Optional[torch.Tensor]     # (C,) f32 or None
+
+
 class DeferredUpsampling2(NamedTuple):
     """Two chained learned-3x3-zeropad x2 upsamplings captured as data."""
     x: torch.Tensor                  # (B, C, H, W) quarter-res logits
@@ -47,6 +57,11 @@ class DeferredUpsampling2(NamedTuple):
     bias1: Optional[torch.Tensor]    # (C,) f32 or None
     kernel2: torch.Tensor
     bias2: Optional[torch.Tensor]
+
+
+# every deferred-upsampling marker a postprocessor may receive in place
+# of a dense output tensor
+DEFERRED_TYPES = (DeferredUpsampling, DeferredUpsampling2, DeferredBilinear2)
 
 
 def _phase_combine(k, dim: int):
@@ -80,6 +95,44 @@ def bilinear_kernel(n_channels: int, device=None):
     return k.view(1, 1, 3, 3).repeat(n_channels, 1, 1, 1)
 
 
+def _tap(k, i: int, j: int):
+    """Tap (i, j) of a (C, 4, 4) fused kernel as a (1, C, 1, 1) tensor."""
+    return k[:, i, j].view(1, -1, 1, 1)
+
+
+def _zeropad_phases(xp, kt, bias, dt):
+    """One learned-3x3-zeropad x2 stage on the padded f32 input xp
+    (B, C, H + 2, W + 2): output phase (py, px) is the four taps
+    kt[2a + py, 2b + px] * xp[py + a + i, px + b + j] multiplied and
+    summed in f32 in (a, b) order, rounded to `dt`, plus the f32 `bias`
+    (1, C, 1, 1), rounded again. kt: (C, 4, 4) f32 values rounded to
+    `dt`. Returns (B, C, 2H, 2W) in `dt`."""
+    B, C, Hp, Wp = xp.shape
+    H, W = Hp - 2, Wp - 2
+    out = xp.new_empty((B, C, 2 * H, 2 * W), dtype=dt)
+    for py in (0, 1):
+        for px in (0, 1):
+            acc = None
+            for a in (0, 1):
+                for b in (0, 1):
+                    t = _tap(kt, 2 * a + py, 2 * b + px) \
+                        * xp[:, :, py + a:py + a + H, px + b:px + b + W]
+                    acc = t if acc is None else acc + t
+            out[:, :, py::2, px::2] = (_round(acc, dt) + bias).to(dt)
+    return out
+
+
+def zeropad2x_logits_exact(x, kernel, bias):
+    """Dense (B, C, 2H, 2W) logits of one learned-3x3-zeropad x2 stage
+    with the 2x finisher's exact numerics (`_zeropad_phases` on the
+    zero-padded input, the fused 4x4 kernel rounded to x's dtype).
+    Returns x's dtype."""
+    C, dt = x.shape[1], x.dtype
+    kt = _round(fused_zeropad_2x_kernel(kernel)[:, 0], dt)   # (C, 4, 4)
+    return _zeropad_phases(F.pad(x, (1, 1, 1, 1)).float(), kt,
+                           _bias_f32(bias, C, dt, x.device), dt)
+
+
 def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2,
                             edge: bool = False):
     """Dense (B, C, 4H, 4W) logits with the 4x finisher's exact
@@ -97,9 +150,6 @@ def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2,
     xp = (F.pad(x.float(), (1, 1, 1, 1), mode='replicate') if edge
           else F.pad(x, (1, 1, 1, 1)).float())
 
-    def tap(k, i, j):
-        return k[:, i, j].view(1, C, 1, 1)
-
     # stage 1 incl. the stage-2 halo ring: phase (py, px) at H+1 rows
     # and W+1 cols lands on inter[2r + 1 - py, 2s + 1 - px]
     inter = x.new_empty((B, C, 2 * H + 2, 2 * W + 2), dtype=torch.float32)
@@ -108,7 +158,7 @@ def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2,
             acc = None
             for a in (0, 1):
                 for b in (0, 1):
-                    t = tap(k1t, 2 * a + py, 2 * b + px) \
+                    t = _tap(k1t, 2 * a + py, 2 * b + px) \
                         * xp[:, :, a:a + H + 1, b:b + W + 1]
                     acc = t if acc is None else acc + t
             inter[:, :, 1 - py::2, 1 - px::2] = acc
@@ -118,21 +168,8 @@ def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2,
         inter[:, :, -1] = 0.0
         inter[:, :, :, 0] = 0.0
         inter[:, :, :, -1] = 0.0
-    inter = _round(inter, dt)
-
-    # stage 2: phase (qy, qx) reads inter[qy + c + u, qx + d + v]
-    out = x.new_empty((B, C, 4 * H, 4 * W))
-    for qy in (0, 1):
-        for qx in (0, 1):
-            acc = None
-            for c in (0, 1):
-                for d in (0, 1):
-                    t = tap(k2t, 2 * c + qy, 2 * d + qx) \
-                        * inter[:, :, qy + c:qy + c + 2 * H,
-                                qx + d:qx + d + 2 * W]
-                    acc = t if acc is None else acc + t
-            out[:, :, qy::2, qx::2] = (_round(acc, dt) + b2).to(dt)
-    return out
+    # stage 2 is one zeropad x2 stage on the rounded, ringed plane
+    return _zeropad_phases(_round(inter, dt), k2t, b2, dt)
 
 
 def two_tap_params(n: int, m: int):

@@ -2,8 +2,12 @@
 PyTorch versions. `KERNELS` lists each wrapper, whose `launches`
 attribute counts the kernel launches it made. The differentiable
 window-attention core is `window_attention_core.window_attention_core`
-(the module of the same name is not shadowed here)."""
+and the attention over the packed qkv
+`window_attention_qkv.window_attention_qkv` (the modules of the same
+names are not shadowed here)."""
 from ._build import build_all
+from .finisher2x import (finish_deferred_semantic, upsample2x_argmax_score,
+                         upsample2x_argmax_score_reference)
 from .finisher4x import (finish_deferred_bilinear2,
                          finish_deferred_semantic2,
                          upsample4x_argmax_score,
@@ -24,6 +28,7 @@ from .window_attention_core import (
     dbias_reduce, dbias_reduce_reference, window_attention_core_backward,
     window_attention_core_backward_reference, window_attention_core_forward,
     window_attention_core_reference)
+from . import window_attention_qkv as _window_attention_qkv
 
 KERNELS = {'finisher4x': upsample4x_argmax_score,
            'grouping': group_pixels_kernel,
@@ -35,7 +40,9 @@ KERNELS = {'finisher4x': upsample4x_argmax_score,
            'layernorm': fused_layer_norm,
            'window_attention_core_fwd': window_attention_core_forward,
            'window_attention_core_bwd': window_attention_core_backward,
-           'window_attention_core_dbias': dbias_reduce}
+           'window_attention_core_dbias': dbias_reduce,
+           'finisher2x': upsample2x_argmax_score,
+           'window_attention_qkv': _window_attention_qkv.window_attention_qkv}
 
 
 def reset_launch_counts() -> None:
@@ -43,7 +50,9 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ['build_all', 'finish_deferred_semantic2',
+__all__ = ['build_all', 'finish_deferred_semantic',
+           'upsample2x_argmax_score', 'upsample2x_argmax_score_reference',
+           'finish_deferred_semantic2',
            'finish_deferred_bilinear2', 'upsample4x_argmax_score',
            'upsample4x_argmax_score_reference',
            'upsample4x_bilinear_argmax_score',

@@ -7,9 +7,10 @@ shared library with a plain C interface, loaded with `ctypes`:
          -Xcompiler -fPIC -fmad=false -Xptxas -v -o lib<name>-<hash>.so
 
 The libraries land in `_build/` beside this file (listed in
-.gitignore), named by a hash of source and flags, so an edited source
-is rebuilt. `build_all` starts one nvcc per source at once. Nothing
-is built or loaded when this module is imported."""
+.gitignore), named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header is
+rebuilt. `build_all` starts one nvcc per source at once. Nothing is
+built or loaded when this module is imported."""
 import ctypes
 import hashlib
 import os
@@ -61,6 +62,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f'{name}.cu'
     h = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.read_bytes())
     return src, BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
 
 

@@ -15,9 +15,8 @@
 //   stage 2: the same, without the ring;
 //   reduce: max, first index attaining it, then sum exp(l - max) in
 //     class order and its reciprocal.
-// Products and sums use __fmul_rn / __fadd_rn (and the library is built
-// with -fmad=false): a contracted acc + w * x rounds differently, and
-// the rounding to bf16 before each bias add can then flip an argmax.
+// The phase arithmetic (taps, rounding, bias) is zeropad_phase.cuh's,
+// shared with the 2x finisher (finisher2x.cu).
 //
 // Layout: x is NCHW (B, C, H, W) as the torch head writes it; the fused
 // 4x4 stage kernels arrive as (C, 16) f32 values already rounded to T,
@@ -36,11 +35,13 @@
 // for its 4 pixels. Two passes over the classes (max/argmax, then the
 // exp sum) recompute the logits rather than hold 40 of them per pixel in
 // registers; this simple form is the first, correct one.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 
+#include "zeropad_phase.cuh"
+
 namespace {
+
+using namespace zeropad_phase;
 
 constexpr int TILE_Y = 16;            // output rows per block
 constexpr int TILE_X = 64;            // output cols per block
@@ -48,25 +49,6 @@ constexpr int THREADS = 256;
 constexpr int PIX_PER_THREAD = TILE_Y * TILE_X / THREADS;   // 4
 constexpr int INT_ROWS = TILE_Y / 2 + 2;                    // 10
 constexpr int INT_COLS = TILE_X / 2 + 2;                    // 34
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// round an f32 value to T and back
-template <typename T> __device__ __forceinline__ float round_t(float v);
-template <> __device__ __forceinline__ float round_t<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float round_t<__nv_bfloat16>(
-    float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // one input value of the padded quarter-res plane xp (index i, j of
 // the (H+2, W+2) padded plane): zero pad, or edge replication
@@ -132,22 +114,13 @@ finisher4x_kernel(const T* __restrict__ x, const float* __restrict__ k1,
           // intermediate row q is phase py of stage-1 row r
           const int py = (q + 1) & 1, r = q >> 1;
           const int px = (sc + 1) & 1, t = sc >> 1;
-          float acc = 0.0f;
-          bool first = true;
-          for (int a = 0; a < 2; ++a) {
-            for (int bb = 0; bb < 2; ++bb) {
-              const float w = kc1[(2 * a + py) * 4 + 2 * bb + px];
-              const float tv = __fmul_rn(
-                  w, xp_at<T, EDGE>(plane, r + a, t + bb, H, W));
-              acc = first ? tv : __fadd_rn(acc, tv);
-              first = false;
-            }
-          }
-          v = __fadd_rn(round_t<T>(acc), bias1);
+          v = logit<T>(taps(kc1, py, px, [&](int a, int bb) {
+                         return xp_at<T, EDGE>(plane, r + a, t + bb, H, W);
+                       }), bias1);
+          // the stage-2 zero ring, after the bias (0 rounds to 0)
           if (!EDGE && (q == 0 || q == QMAX || sc == 0 || sc == SMAX)) {
             v = 0.0f;
           }
-          v = round_t<T>(v);
         }
         inter[qi][si] = v;
       }
@@ -159,18 +132,10 @@ finisher4x_kernel(const T* __restrict__ x, const float* __restrict__ k1,
           const int Y = Y0 + ty + 4 * k;
           if (Y >= HO) break;
           const int u = Y >> 1, qy = Y & 1;
-          float acc = 0.0f;
-          bool first = true;
-          for (int cc = 0; cc < 2; ++cc) {
-            for (int d = 0; d < 2; ++d) {
-              const float w = kc2[(2 * cc + qy) * 4 + 2 * d + qx];
-              const float tv = __fmul_rn(
-                  w, inter[u + qy + cc - Q0][v0 + qx + d - S0]);
-              acc = first ? tv : __fadd_rn(acc, tv);
-              first = false;
-            }
-          }
-          const float l = round_t<T>(__fadd_rn(round_t<T>(acc), bias2));
+          const float l = logit<T>(taps(kc2, qy, qx, [&](int cc, int d) {
+                                     return inter[u + qy + cc - Q0]
+                                                 [v0 + qx + d - S0];
+                                   }), bias2);
           if (pass == 0) {
             if (l > m[k]) {                 // strict: first index wins
               m[k] = l;

@@ -33,9 +33,10 @@ def upsample4x_argmax_score_reference(x, kernel1, bias1, kernel2, bias2):
     return semantic_score_idx(logits, dim=1)
 
 
-def _stage_weights(kernel, bias, C, dt, device):
+def stage_weights(kernel, bias, C, dt, device):
     """Fused 4x4 kernel as (C, 16) and bias as (C,), f32 values rounded
-    to the compute dtype (what the kernel multiplies and adds)."""
+    to the compute dtype (what a finisher kernel multiplies and adds, at
+    each of its learned-3x3-zeropad stages)."""
     kt = fused_zeropad_2x_kernel(kernel)[:, 0].to(dt).float()
     b = (torch.zeros(C) if bias is None else bias.to(dt).float())
     return (kt.reshape(C, 16).to(device).contiguous(),
@@ -45,7 +46,7 @@ def _stage_weights(kernel, bias, C, dt, device):
 @lru_cache(maxsize=16)
 def _bilinear_stages(C: int, dt, device):
     """The bilinear entry's fixed stage weights on `device`, built once."""
-    k, b = _stage_weights(bilinear_kernel(C), None, C, dt, device)
+    k, b = stage_weights(bilinear_kernel(C), None, C, dt, device)
     return k, b, k, b
 
 
@@ -59,7 +60,7 @@ def upsample4x_bilinear_argmax_score_reference(x):
 
 
 def _launch(x, stages, edge: bool, counter):
-    """stages: (k1, b1, k2, b2) from `_stage_weights` on x's device."""
+    """stages: (k1, b1, k2, b2) from `stage_weights` on x's device."""
     if x.dim() != 4 or x.dtype not in _FUNCS:
         raise ValueError(f'finisher4x takes (B, C, H, W) float32/bfloat16 '
                          f'logits, got {tuple(x.shape)} {x.dtype}')
@@ -96,8 +97,8 @@ def upsample4x_argmax_score(x, kernel1, bias1, kernel2, bias2):
                                                  kernel2, bias2)
     refuse_grad('upsample4x_argmax_score', x, kernel1, bias1, kernel2, bias2)
     C, dt = x.shape[1], x.dtype
-    stages = (_stage_weights(kernel1, bias1, C, dt, x.device)
-              + _stage_weights(kernel2, bias2, C, dt, x.device))
+    stages = (stage_weights(kernel1, bias1, C, dt, x.device)
+              + stage_weights(kernel2, bias2, C, dt, x.device))
     return _launch(x, stages, False, upsample4x_argmax_score)
 
 

@@ -87,16 +87,21 @@ def shift_attn_mask(grid_hw, ws: int, shift, device=None) -> torch.Tensor:
                        0.0).float()
 
 
-def window_attention_block_reference(x, wqkv, bqkv, wproj, bproj, bias,
-                                     n_heads: int, grid_hw=(1, 1),
-                                     shift: Optional[Tuple[int, int]] = None,
-                                     v2_scale=None):
-    """Plain PyTorch version (see `window_attention_block`)."""
-    Bw, N, C = x.shape
-    h, dt = n_heads, x.dtype
+def attention_from_qkv(qkv, bias, n_heads: int, grid_hw=(1, 1),
+                       shift: Optional[Tuple[int, int]] = None,
+                       v2_scale=None):
+    """Plain PyTorch attention over the packed qkv (Bw, N, 3C), its last
+    axis (3, h, d), at the TPU kernels' rounding points: (v2) q and k
+    divided by max(||.||, 1e-6) in f32 and rounded; f32 logits x the
+    scale, + bias, + the shift mask; f32 softmax rounded to qkv's dtype;
+    the product with v in f32, rounded. Returns (Bw, N, C); shared by
+    the plain versions of the sub-block and of
+    window_attention_qkv.py."""
+    Bw, N, C3 = qkv.shape
+    h, dt = n_heads, qkv.dtype
+    C = C3 // 3
     d = C // h
-    qkv = (x.float() @ wqkv.to(dt).float()).to(dt) + bqkv.to(dt)
-    q, k, v = qkv.view(Bw, N, 3, h, d).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv.reshape(Bw, N, 3, h, d).permute(2, 0, 3, 1, 4)
     if v2_scale is not None:
         def cos_norm(t):
             t32 = t.float()
@@ -109,13 +114,23 @@ def window_attention_block_reference(x, wqkv, bqkv, wproj, bproj, bias,
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale \
         + bias.float()[None]
     if shift is not None:
-        mask = shift_attn_mask(grid_hw, math.isqrt(N), shift, x.device)
+        mask = shift_attn_mask(grid_hw, math.isqrt(N), shift, qkv.device)
         nW = mask.shape[0]
         logits = (logits.view(Bw // nW, nW, h, N, N)
                   + mask[None, :, None]).view(Bw, h, N, N)
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(dt)
-    o = (p.float() @ v.float()).to(dt).transpose(1, 2).reshape(Bw, N, C)
+    return (p.float() @ v.float()).to(dt).transpose(1, 2).reshape(Bw, N, C)
+
+
+def window_attention_block_reference(x, wqkv, bqkv, wproj, bproj, bias,
+                                     n_heads: int, grid_hw=(1, 1),
+                                     shift: Optional[Tuple[int, int]] = None,
+                                     v2_scale=None):
+    """Plain PyTorch version (see `window_attention_block`)."""
+    dt = x.dtype
+    qkv = (x.float() @ wqkv.to(dt).float()).to(dt) + bqkv.to(dt)
+    o = attention_from_qkv(qkv, bias, n_heads, grid_hw, shift, v2_scale)
     return (o.float() @ wproj.to(dt).float()).to(dt) + bproj.to(dt)
 
 

@@ -5,8 +5,10 @@
   (and, on request, the raw outputs of further heads such as the dense
   visual embedding). Normalisation, the forward pass, centre NMS,
   grouping and the merge all run on the model's device. It serves both
-  families: `emsanet_bench_config` (EMSANet, the default) and
-  `emsaformer_bench_config` (EMSAFormer on SwinV2-T-128 RGB-D). At the
+  families: `emsanet_bench_config` (EMSANet, the default; with
+  `defer=True` the `--no-defer4x` variant and its 2x finisher) and
+  `emsaformer_bench_config` (EMSAFormer on SwinV2-T-128 RGB-D; with
+  `attn_backend='qkv'` the `--attn-qkv` variant). At the
   boundary the layouts are the JAX package's: rgb (B, H, W, 3) uint8,
   depth (B, H, W) uint16 (numpy arrays or torch tensors), output maps
   (B, H, W). Depth is converted to int32 at the boundary: torch's
@@ -36,7 +38,7 @@ from .data.fullres import get_fullres
 from .models.encoder import Encoder
 from .models.multi_task import (MultiTaskModel, MultiTaskModelConfig,
                                 build_model)
-from .models.upsampling import DeferredBilinear2, DeferredUpsampling2
+from .models.upsampling import DEFERRED_TYPES
 from .ops.segments import ids_to_slots
 from .optim import AdamW
 from .tasks.base import TOTAL_LOSS_SUFFIX
@@ -171,7 +173,10 @@ def emsanet_bench_config(input_size: Tuple[int, int] = (480, 640),
     2x ResNet-34 NBt1D, context 512, decoders (512, 256, 128) x 3
     blocks, learned-3x3-zeropad upsampling. Serving defers both
     semantic prediction upsamplings to the fused 4x finisher
-    (`defer='all'`); eval runs them in the head (`defer=False`)."""
+    (`defer='all'`, `bench.py`'s default `--defer4x`); `defer=True` is
+    `bench.py --no-defer4x`, the head applying the first upsampling
+    and deferring the last to the fused 2x finisher; eval runs both in
+    the head (`defer=False`)."""
     return MultiTaskModelConfig(
         tasks=('semantic', 'instance', 'orientation', 'scene'),
         backbone_rgb='resnet34', backbone_depth='resnet34',
@@ -184,15 +189,22 @@ def emsanet_bench_config(input_size: Tuple[int, int] = (480, 640),
 
 
 def emsaformer_bench_config(input_size: Tuple[int, int] = (480, 640),
-                            dtype: str = 'bfloat16') -> MultiTaskModelConfig:
+                            dtype: str = 'bfloat16',
+                            attn_backend: str = 'auto'
+                            ) -> MultiTaskModelConfig:
     """The `emsaformer_dve_v2` preset (40 classes) as the JAX package's
     `bench.py --model emsaformer_dve_v2` serves it: multimodal
     SwinV2-T-128 RGB-D, MLP decoders, bilinear upsampling, both semantic
-    prediction upsamplings deferred to the fused bilinear 4x finisher."""
+    prediction upsamplings deferred to the fused bilinear 4x finisher.
+    `attn_backend='qkv'` is `bench.py --attn-qkv`: each Swin block's
+    qkv product in torch and attention over the packed qkv
+    (ops/cuda/window_attention_qkv.py) in place of the whole-sub-block
+    kernel."""
     return dataclasses.replace(
         emsaformer_dve_v2(n_classes=40, input_size=tuple(input_size),
                           dtype=dtype),
-        defer_semantic_prediction_upsampling='all')
+        defer_semantic_prediction_upsampling='all',
+        backbone_attn_backend=attn_backend)
 
 
 def serving_postprocessing(n_classes: int = 40, n_thing: int = 8,
@@ -340,8 +352,7 @@ class MultiTaskPipeline:
             post = self.postprocessors.get(task)
             if post is None and task in ('semantic', 'instance') \
                     and 'panoptic' in self.postprocessors:
-                if isinstance(raw[0], (DeferredBilinear2,
-                                       DeferredUpsampling2)):
+                if isinstance(raw[0], DEFERRED_TYPES):
                     raise ValueError('training takes a configuration '
                                      'without deferred upsampling')
                 predictions_post[f'{task}_output'] = raw[0]

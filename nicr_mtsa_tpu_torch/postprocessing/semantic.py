@@ -1,14 +1,17 @@
 """Semantic postprocessing, inference branch (counterpart of
 nicr_mtsa_tpu/postprocessing/semantic.py): first-argmax idx and
-max-softmax score from the fused 4x finisher for a deferred head
-(learned-3x3-zeropad or bilinear), else
-from the logits by the score/argmax kernel; with a valid region in the
+max-softmax score from the fused 2x finisher for a head that deferred
+its last upsampling, from the fused 4x finisher for a head that
+deferred both (learned-3x3-zeropad or bilinear), else from the logits
+by the score/argmax kernel; with a valid region in the
 batch, the full-resolution idx/score come from the crop + resize +
 reduce kernel without building the full-resolution logits. Keys follow
 the JAX package; the dense softmax and full-resolution logits keys are
 not computed (nothing on the ported paths reads them)."""
 from ..data.fullres import get_fullres_key, has_valid_region
-from ..models.upsampling import DeferredBilinear2, DeferredUpsampling2
+from ..models.upsampling import (DEFERRED_TYPES, DeferredBilinear2,
+                                DeferredUpsampling, DeferredUpsampling2)
+from ..ops.cuda.finisher2x import finish_deferred_semantic
 from ..ops.cuda.finisher4x import (finish_deferred_bilinear2,
                                    finish_deferred_semantic2)
 from ..ops.cuda.resize_reduce import crop_resize_argmax_score
@@ -24,15 +27,15 @@ class SemanticPostprocessing(DensePostprocessingBase):
         output, side_outputs = data
         want_fullres = (has_valid_region(batch)
                         and any(wants(keys, k) for k in _FULLRES_KEYS))
-        if isinstance(output, (DeferredUpsampling2, DeferredBilinear2)):
+        if isinstance(output, DEFERRED_TYPES):
             if want_fullres:
                 raise NotImplementedError(
                     'full-resolution keys of a deferred semantic head are '
                     'not ported yet')
-            finish = (finish_deferred_bilinear2
-                      if isinstance(output, DeferredBilinear2)
-                      else finish_deferred_semantic2)
-            idx, score = finish(output)
+            finish = {DeferredUpsampling: finish_deferred_semantic,
+                      DeferredUpsampling2: finish_deferred_semantic2,
+                      DeferredBilinear2: finish_deferred_bilinear2}
+            idx, score = finish[type(output)](output)
         else:
             idx, score = semantic_argmax_score(output)
         r_dict = {'semantic_output': output,

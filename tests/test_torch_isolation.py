@@ -189,6 +189,33 @@ def test_finisher_bilinear_raises_without_library(monkeypatch, tmp_path):
             fin.upsample4x_argmax_score.launches) == before
 
 
+_VARIANT_CALLS = {
+    'finisher2x': ('finisher2x', 'upsample2x_argmax_score',
+                   lambda f: f(torch.zeros(1, 3, 2, 2),
+                               torch.zeros(3, 1, 3, 3), None)),
+    'window_attention_qkv': ('window_attention_qkv', 'window_attention_qkv',
+                             lambda f: f(torch.zeros(2, 64, 96),
+                                         torch.zeros(1, 64, 64), 1)),
+}
+
+
+@pytest.mark.parametrize('kernel', sorted(_VARIANT_CALLS))
+def test_serve_variant_kernel_raises_without_library(monkeypatch, tmp_path,
+                                                     kernel):
+    """The serving variants' kernels (the 2x finisher, attention over the
+    packed qkv): a CUDA tensor without a library raises, no launch is
+    counted."""
+    import importlib
+    module, name, call = _VARIANT_CALLS[kernel]
+    mod = importlib.import_module(f'nicr_mtsa_tpu_torch.ops.cuda.{module}')
+    _no_library(monkeypatch, tmp_path, mod)
+    fn = getattr(mod, name)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match='nvcc'):
+        call(fn)
+    assert fn.launches == before
+
+
 def _run_chip_smoke(cwd):
     env = dict(os.environ)
     env.pop('PYTHONPATH', None)
@@ -320,6 +347,11 @@ def _grad_calls():
         'window_attention_core_dbias': (
             'window_attention_core', 'dbias_reduce',
             lambda f: f(x(3, 1, 64, 64))),
+        'finisher2x': ('finisher2x', 'upsample2x_argmax_score',
+                       lambda f: f(x(1, 3, 2, 2), k, None)),
+        'window_attention_qkv': (
+            'window_attention_qkv', 'window_attention_qkv',
+            lambda f: f(x(2, 64, 96), torch.zeros(1, 64, 64), 1)),
     }
 
 
