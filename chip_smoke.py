@@ -8,7 +8,9 @@ phases; any failure exits non-zero and prints no result:
 
 1. report the card (nvidia-smi name and power limit), build every CUDA
    kernel from nicr_mtsa_tpu_torch/ops/cuda/csrc (one nvcc per source,
-   in parallel), pin f32 convs and matmuls to full precision;
+   in parallel), print the registers, spills and resident blocks an SM
+   of the window-attention tile kernels, pin f32 convs and matmuls to
+   full precision;
 2. hold each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (idx, ids, min_d2 and counts exact,
    scores within rtol 1e-5; the intersection also against
@@ -53,11 +55,12 @@ phases; any failure exits non-zero and prints no result:
    semantic_idx must agree on >= 99.9 %;
 10. hold the Swin training path's window-attention core (forward,
    flash-style backward and the deterministic dbias reduction) against
-   its plain versions at stage 1 (2400 windows, C=128, 4 heads) and
-   stage 4 (48, C=1024, 32 heads), both shifted: f32 within 1e-4 and
-   bf16 within 1e-2 of max |.|, the reduction exactly, the backward's
-   outputs bit-equal over two runs; timed against the bound and
-   F.scaled_dot_product_attention;
+   its plain versions at stages 1 to 4 (2400 windows, C=128, 4 heads;
+   640, 256, 8; 160, 512, 16; 48, 1024, 32), all shifted: f32 within
+   1e-4 and bf16 within 1e-2 of max |.|, the reduction exactly, the
+   backward's outputs bit-equal over two runs; timed at every stage
+   against the bound, F.scaled_dot_product_attention and torch.sum, the
+   plain versions at stage 1;
 11. train `emsaformer_dve_v2` (`bench.py --train`: 480 x 640, bf16,
    AdamW 1e-4, the random batch at B=8, stochastic depth and dropout
    from a CUDA generator): a warm-up step, then three timed rounds of N
@@ -87,11 +90,12 @@ phases; any failure exits non-zero and prints no result:
    semantic_idx must agree on >= 99.9 %;
 16. hold the attention over the packed qkv of EMSAFormer's `--attn-qkv`
    variant against its plain version at stage 1 (2400 windows, C=128,
-   4 heads) and stage 4 (48, C=1024, 32 heads; the qkv of a padded
-   image, whose pad tokens have k = 0 exactly), both shifted v2, and a
-   shifted v1 stage of 49-token windows, in bf16 (within 2e-2 of max
-   |out|) and f32 (1e-4); time it against the bound and
-   F.scaled_dot_product_attention;
+   4 heads) and stages 2-4 (640, 256, 8; 160, 512, 16; 48, 1024, 32;
+   the qkv of padded images, whose pad tokens have k = 0 exactly), all
+   shifted v2, and a shifted v1 stage of 49-token windows, in bf16
+   (within 2e-2 of max |out|) and f32 (1e-4); time it at every stage
+   against the bound and F.scaled_dot_product_attention, the plain
+   version at stage 1;
 17. serve `emsaformer_bench_config(attn_backend='qkv')` on B=8 requests,
    counters set to 0 just before: exactly 12 window_attention_qkv, 0
    window_attention_block, 36 LayerNorm, 1 bilinear finisher and 1
@@ -106,6 +110,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -205,6 +210,57 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS):
     t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                  else 'operations')
+
+
+def ptxas_entries(log: str):
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from the `nvcc -Xptxas -v` output of one build."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and name:
+            out[name] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    return out
+
+
+# the kernels redesigned for Hopper in the window-attention sources, by
+# library: (a piece of the mangled name, the entry giving its resident
+# blocks an SM)
+TILE_KERNELS = {
+    'window_attention_core': (
+        ('wac_fwd_bf16_kernel', 'wac_forward_bf16_blocks_per_sm'),),
+    'window_attention_qkv': (
+        ('waq_bf16_kernelILb1E', 'window_attention_qkv_bf16_blocks_per_sm'),
+        ('waq_bf16_kernelILb0E', None)),
+}
+
+
+def kernel_resources(build, result):
+    """Print the registers, spills and resident blocks an SM of the
+    window-attention tile kernels (ptxas of this run's build)."""
+    import ctypes
+    res = {}
+    for lib, kernels in TILE_KERNELS.items():
+        entries = ptxas_entries(build.BUILD_LOGS.get(lib, ''))
+        for piece, occ in kernels:
+            found = [v for k, v in entries.items() if piece in k]
+            regs, st, ld = found[0] if found else (None, None, None)
+            per_sm = None
+            if occ is not None:
+                fn = getattr(build.load_library(lib), occ)
+                fn.restype, fn.argtypes = ctypes.c_int, []
+                per_sm = fn()
+            res[piece] = dict(registers=regs, spill_store_bytes=st,
+                              spill_load_bytes=ld, blocks_per_sm=per_sm)
+    result['tile_kernels'] = res
+    print(json.dumps({'phase': 'tile_kernels', 'kernels': res}), flush=True)
 
 
 def _finisher_bound(x):
@@ -586,9 +642,10 @@ def check_window_attention(wa, report):
                                  'projection'}), flush=True)
 
 
-# row 7 at its training shapes (B=8, 480 x 640): stage 1 and stage 4,
-# both shifted v2 blocks on their padded window grids
-CORE_CASES = {'stage1': (2400, 128, (15, 20)), 'stage4': (48, 1024, (2, 3))}
+# row 7 at its training shapes (B=8, 480 x 640): stages 1 to 4, each a
+# shifted v2 block on its padded window grid
+CORE_CASES = {'stage1': (2400, 128, (15, 20)), 'stage2': (640, 256, (8, 10)),
+              'stage3': (160, 512, (4, 5)), 'stage4': (48, 1024, (2, 3))}
 # bf16: a few ulps (2^-8 relative) of max |.|: another f32 summation
 # order moves a logit by ~1e-6 and can flip the rounding of P, dS or an
 # output value by one ulp
@@ -623,18 +680,19 @@ def _core_bound(Bw, C, elt, backward: bool, peak):
 
 
 def check_window_attention_core(wac, report):
-    """Row 7 against its plain versions at stage 1 (2400 windows, C 128,
-    4 heads) and stage 4 (48, C 1024, 32 heads), shifted: the forward
+    """Row 7 against its plain versions at stages 1 to 4 (2400 windows,
+    C 128, 4 heads; 640, 256, 8; 160, 512, 16; 48, 1024, 32), shifted:
+    the forward
     (out and lse), the backward (dq, dk, dv, dbias, from the plain
     lse; its dbias sums the windows in another order than the plain
     version's `ds.sum(0)`) in f32 within 1e-4 and bf16 within 1e-2 of
     max |.|, the dbias reduction alone bit for bit against its plain
     version on partials of the stage's shape (the same f32 adds in the
     same order), and the backward's outputs bit-equal over two runs.
-    Times bf16 against the bound, the plain versions and
+    Times bf16 at every stage against the bound and
     F.scaled_dot_product_attention (scale 1, the bias and shift mask as
     its float mask; forward alone and forward + backward, q, k, v
-    gradients only)."""
+    gradients only), the plain versions at stage 1."""
     import torch.nn.functional as F
     g = torch.Generator(device='cuda').manual_seed(9)
     errs, max_abs, times = {}, {}, {}
@@ -704,14 +762,9 @@ def check_window_attention_core(wac, report):
 
         times[case] = {
             'fwd': cuda_ms(lambda: wac.window_attention_core_forward(*args)),
-            'fwd_plain': cuda_ms(
-                lambda: wac.window_attention_core_reference(*args)),
             'bwd': cuda_ms(
                 lambda: wac.window_attention_core_backward(*bargs)),
-            'bwd_plain': cuda_ms(
-                lambda: wac.window_attention_core_backward_reference(*bargs)),
             'dbias': cuda_ms(lambda: wac.dbias_reduce(parts)),
-            'dbias_plain': cuda_ms(lambda: wac.dbias_reduce_reference(parts)),
             'dbias_library': cuda_ms(lambda: parts.sum(0)),
             'sdpa_fwd': cuda_ms(lambda: F.scaled_dot_product_attention(
                 *heads[:3], attn_mask=fmask, scale=1.0)),
@@ -721,6 +774,15 @@ def check_window_attention_core(wac, report):
             'dbias_bound': bound(parts.numel() * 4 + h * 64 * 64 * 4,
                                  parts.numel()),
             'dbias_partials': list(parts.shape)}
+        if case == 'stage1':
+            times[case].update(
+                fwd_plain=cuda_ms(
+                    lambda: wac.window_attention_core_reference(*args)),
+                bwd_plain=cuda_ms(lambda: wac.
+                                  window_attention_core_backward_reference(
+                                      *bargs)),
+                dbias_plain=cuda_ms(
+                    lambda: wac.dbias_reduce_reference(parts)))
     t1 = times['stage1']
     src = 'nicr_mtsa_tpu_torch/ops/cuda/csrc/window_attention_core.cu'
     rows = (('window_attention_core_fwd', 'fwd', ('out', 'lse'), 533,
@@ -916,17 +978,25 @@ def _padded_stage_qkv(g, B, Hs, Ws, C, ws, shift, dt):
     return qkv, grid
 
 
+# row 9's padded stages 2-4 of B=8 480 x 640 serving: image (H, W, C)
+PADDED_STAGES = {'stage2_padded': (60, 80, 256),
+                 'stage3_padded': (30, 40, 512),
+                 'stage4_padded': (15, 20, 1024)}
+
+
 def check_window_attention_qkv(waq, report):
     """Row 9 against its plain version: stage 1 (2400 windows of 64
-    tokens, C=128, 4 heads) and stage 4 (the qkv of the B=8 15 x 20 image
-    padded to 16 x 24, C=1024, 32 heads: the pad tokens have k = 0), both
-    shifted v2, and a shifted v1 stage of 49-token windows (B=2, 120 x
-    160 padded to 126 x 161, C=128); bf16 within 2e-2 of max |out|, f32
-    within 1e-4, outputs finite. Times bf16 at stages 1 and 4 against the
-    bound and F.scaled_dot_product_attention on q, k, v sliced from the
-    same qkv (q and k normalised and the logit scale folded into q
+    tokens, C=128, 4 heads), stages 2, 3 and 4 (the qkv of the B=8 60 x
+    80, 30 x 40 and 15 x 20 images padded to 64 x 80, 32 x 40 and 16 x
+    24; C=256, 512, 1024; 8, 16, 32 heads: the pad tokens have k = 0),
+    all shifted v2, and a shifted v1 stage of 49-token windows (B=2, 120
+    x 160 padded to 126 x 161, C=128); bf16 within 2e-2 of max |out|,
+    f32 within 1e-4, outputs finite. Times bf16 at stages 1 to 4 against
+    the bound and F.scaled_dot_product_attention on q, k, v sliced from
+    the same qkv (q and k normalised and the logit scale folded into q
     outside the timed call; the bias plus the shift mask as its float
-    mask): SDPA's time leaves out the normalisation."""
+    mask): SDPA's time leaves out the normalisation. The plain version
+    is timed at stage 1."""
     import torch.nn.functional as F
     from nicr_mtsa_tpu_torch.ops.cuda.window_attention import shift_attn_mask
     g = torch.Generator(device='cuda').manual_seed(11)
@@ -939,6 +1009,8 @@ def check_window_attention_qkv(waq, report):
     cases = {
         'stage1': dict(v2w(4), qkv=rnd(2400, 64, 384), n_heads=4,
                        grid_hw=(15, 20), shift=(4, 4)),
+        'stage2_padded': dict(v2w(8), n_heads=8, shift=(4, 4)),
+        'stage3_padded': dict(v2w(16), n_heads=16, shift=(4, 4)),
         'stage4_padded': dict(v2w(32), n_heads=32, shift=(4, 4)),
         'v1_49_tokens': dict(bias=rnd(4, 49, 49, s=0.5), n_heads=4,
                              shift=(3, 3), v2_scale=None),
@@ -947,9 +1019,10 @@ def check_window_attention_qkv(waq, report):
     for name, c in cases.items():
         for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             args = dict(c)
-            if name == 'stage4_padded':
+            if name in PADDED_STAGES:
+                Hs, Ws, C = PADDED_STAGES[name]
                 args['qkv'], args['grid_hw'] = _padded_stage_qkv(
-                    g, 8, 15, 20, 1024, 8, 4, dt)
+                    g, 8, Hs, Ws, C, 8, 4, dt)
             elif name == 'v1_49_tokens':
                 args['qkv'], args['grid_hw'] = _padded_stage_qkv(
                     g, 2, 120, 160, 128, 7, 3, dt)
@@ -969,7 +1042,7 @@ def check_window_attention_qkv(waq, report):
                      f'{tol} x max |out| {ref}')
             inputs[name, dt] = args
     times = {}
-    for name in ('stage1', 'stage4_padded'):
+    for name in ('stage1', *PADDED_STAGES):
         args = inputs[name, torch.bfloat16]
         qkv, h = args['qkv'], args['n_heads']
         Bw, N, C3 = qkv.shape
@@ -986,14 +1059,14 @@ def check_window_attention_qkv(waq, report):
         n_bytes = 4 * qkv.numel() // 3 * 2 + h * N * N * 4 + h * 4
         times[name] = {
             'ms': cuda_ms(lambda: waq.window_attention_qkv(**args)),
-            'plain_ms': cuda_ms(
-                lambda: waq.window_attention_qkv_reference(**args)),
             'library_ms': cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=fmask, scale=1.0)),
             'bound': bound(n_bytes, 4 * Bw * h * N * N * 32,
                            PEAK_BF16_FLOPS),
             'shape': list(qkv.shape)}
     t1 = times['stage1']
+    t1['plain_ms'] = cuda_ms(lambda: waq.window_attention_qkv_reference(
+        **inputs['stage1', torch.bfloat16]))
     report['window_attention_qkv'] = dict(
         name='window_attention_qkv', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/window_attention_qkv.cu',
@@ -1003,7 +1076,7 @@ def check_window_attention_qkv(waq, report):
         library_ms=t1['library_ms'])
     print(json.dumps({'phase': 'kernel', **report['window_attention_qkv'],
                       'shape': t1['shape'], 'rel_err': errs,
-                      'stage4': times['stage4_padded'],
+                      'stages': {n: times[n] for n in PADDED_STAGES},
                       'library': 'F.scaled_dot_product_attention(scale=1, '
                                  'float mask) on q, k, v sliced from the '
                                  'qkv, q and k normalised beforehand: the '
@@ -1576,6 +1649,7 @@ def main():
     result = {'card': card, 'torch': torch.__version__,
               'cuda': torch.version.cuda, 'build_s': build_s,
               'ptxas': dict(_build.BUILD_LOGS)}
+    kernel_resources(_build, result)
     check_finisher(finisher4x, report)
     check_grouping(grouping, report)
     check_semantic_reduce(semantic_reduce, report)

@@ -29,24 +29,32 @@
 // G partials of each cell in order 0 .. G-1. No float atomics: two runs
 // give the same bits.
 //
-// What bounds it on an H100: the products are small (64 x 64 x 32 per
-// window and head), so a block is latency-bound on its own and the card
-// is bound by bytes once enough blocks are in flight: per window and head
-// the forward moves 4 N 32 elements (q, k, v in, out) plus N lse floats
-// for 4 N^2 32 flops, the backward 7 N 32 elements for 10 N^2 32 flops.
+// What bounds it on an H100: bytes. Per window and head the forward moves
+// 4 N 32 elements (q, k, v in, out) plus N lse floats for 4 N^2 32 flops,
+// the backward 7 N 32 elements for 10 N^2 32 flops: ~16 operations a byte
+// in bf16, far under the ~295 at which the tensor cores would bind. At
+// stage 1 of B=8 480 x 640 training ((2400, 64, 128) bf16) the forward's
+// bound is ~0.048 ms at 3.35 TB/s, the backward's ~0.083 ms. The dbias
+// reduction reads G h N^2 floats once (8.8 MB at stage 1, ~2.6 us).
 //
-// Design. One block of 256 threads (8 warps) per (window, head) in the
-// forward, per (window range, head) in the backward. The head's q, k, v
-// (and dO) tiles are loaded once into shared memory (16-byte loads, rows
-// >= N zero), the logits, probabilities and dS live in shared memory.
-// - bf16: every product on the tensor cores (wmma 16x16x16, f32
-//   accumulators), each warp owning whole 16 x 16 output tiles; 50 KB of
-//   dynamic shared memory in the forward, 99 KB in the backward.
-// - f32 (the card-vs-CPU check): the same structure with fmaf loops on the
-//   CUDA cores.
-// The tiles, the products and the forward's softmax are those of
-// window_tiles.cuh, shared with window_attention_qkv.cu.
-// Several heads per block and TMA-fed wgmma are the next steps.
+// Design.
+// - The bf16 forward is the forward tile of window_tiles.cuh (namespace
+//   `fwd`): a warpgroup walks the windows of one head with the head's
+//   bias in registers, a 2-stage cp.async ring ahead of mma.sync
+//   products, S and P in registers, 16-byte output stores.
+// - The backward: one block of 256 threads (8 warps) per (window range,
+//   head); the head's q, k, v and dO tiles are loaded once into shared
+//   memory (16-byte loads, rows >= N zero), the logits, probabilities and
+//   dS live in shared memory; bf16 products on the tensor cores (wmma
+//   16x16x16, f32 accumulators), each warp owning whole 16 x 16 output
+//   tiles; 99 KB of dynamic shared memory.
+// - f32 (the card-vs-CPU check), forward and backward: that structure
+//   with fmaf loops on the CUDA cores (74 KB in the forward).
+// - The dbias reduction: one thread a cell, adding its G partials in
+//   order (~4-5 us of card time at every stage of B=8 480 x 640
+//   training on an H100 80GB HBM3 at 700 W, below torch.sum's; a
+//   two-level order that fills every SM was tried and gained nothing
+//   over a training step, see PERF.md).
 #include "window_tiles.cuh"
 
 namespace {
@@ -55,11 +63,8 @@ using namespace window_tiles;
 
 constexpr int OWN = NMAX * NMAX / THREADS;   // (query, key) cells a thread owns
 
-template <typename E>
-constexpr size_t fwd_smem_bytes() {
-  return 3 * NMAX * HLD * sizeof(E) + NMAX * S_LD * 4 +
-         NMAX * P_LD * sizeof(E) + NMAX * O_LD * 4;
-}
+constexpr size_t FWD_F32_SMEM = 3 * NMAX * HLD * 4 + NMAX * S_LD * 4 +
+                                NMAX * P_LD * 4 + NMAX * O_LD * 4;
 
 template <typename E>
 constexpr size_t bwd_smem_bytes() {
@@ -67,21 +72,21 @@ constexpr size_t bwd_smem_bytes() {
          2 * NMAX * P_LD * sizeof(E) + 3 * NMAX * O_LD * 4;
 }
 
-// grid (Bw, h): block (g, j) computes head j of window g
-template <typename E>
+// f32: grid (Bw, h), block (g, j) computes head j of window g
 __global__ void __launch_bounds__(THREADS)
-wac_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
-               const E* __restrict__ v, const float* __restrict__ bias,
-               E* __restrict__ out, float* __restrict__ lse, int N, int C,
-               int ws, int nWh, int nWw, int shift_h, int shift_w) {
+wac_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ bias, float* __restrict__ out,
+                   float* __restrict__ lse, int N, int C, int ws, int nWh,
+                   int nWw, int shift_h, int shift_w) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int region[NMAX];
-  E* Qs = reinterpret_cast<E*>(smem);
-  E* Ks = Qs + NMAX * HLD;
-  E* Vs = Ks + NMAX * HLD;
-  float* S = reinterpret_cast<float*>(Vs + NMAX * HLD);
-  E* P = reinterpret_cast<E*>(S + NMAX * S_LD);
-  float* O = reinterpret_cast<float*>(P + NMAX * P_LD);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + NMAX * HLD;
+  float* Vs = Ks + NMAX * HLD;
+  float* S = Vs + NMAX * HLD;
+  float* P = S + NMAX * S_LD;
+  float* O = P + NMAX * P_LD;
 
   const int g = blockIdx.x, j = blockIdx.y, h = gridDim.y;
   const bool masked = shift_h > 0 || shift_w > 0;
@@ -102,6 +107,21 @@ wac_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
   mm<false, false, D, NMAX>(P, P_LD, Vs, HLD, O, O_LD);     // P . v
   __syncthreads();
   store_tile(out, O, g, j, N, C);
+}
+
+// bf16: the forward tile, grid (windows of a head in turn, h)
+__global__ void __launch_bounds__(fwd::THREADS, fwd::MIN_BLOCKS)
+wac_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const float* __restrict__ bias, bf16* __restrict__ out,
+                    float* __restrict__ lse, int Bw, int N, int C, int ws,
+                    int nWh, int nWw, int shift_h, int shift_w) {
+  __shared__ __align__(128) unsigned char tiles[fwd::SMEM_ELEMS * 2];
+  const int col = blockIdx.y * D;
+  fwd::attend_windows<false, true>(
+      reinterpret_cast<bf16*>(tiles), fwd::Cols{q + col, k + col, v + col, C},
+      bias + (size_t)blockIdx.y * N * N, 1.0f, out + col, C, lse, Bw, N, ws,
+      nWh, nWw, shift_h, shift_w);
 }
 
 // grid (G, h): block (grp, j) runs head j of windows [grp wpb, (grp+1) wpb)
@@ -218,6 +238,30 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
+int forward_f32(const float* q, const float* k, const float* v,
+                const float* bias, float* out, float* lse, int Bw, int N,
+                int C, int h, int ws, int nWh, int nWw, int shift_h,
+                int shift_w, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      wac_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FWD_F32_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  wac_fwd_f32_kernel<<<dim3(Bw, h), THREADS, FWD_F32_SMEM, stream>>>(
+      q, k, v, bias, out, lse, N, C, ws, nWh, nWw, shift_h, shift_w);
+  return (int)cudaGetLastError();
+}
+
+int forward_bf16(const bf16* q, const bf16* k, const bf16* v,
+                 const float* bias, bf16* out, float* lse, int Bw, int N,
+                 int C, int h, int ws, int nWh, int nWw, int shift_h,
+                 int shift_w, cudaStream_t stream) {
+  dim3 grid;
+  cudaError_t err = fwd::grid_for(wac_fwd_bf16_kernel, Bw, h, &grid);
+  if (err != cudaSuccess) return (int)err;
+  wac_fwd_bf16_kernel<<<grid, fwd::THREADS, 0, stream>>>(
+      q, k, v, bias, out, lse, Bw, N, C, ws, nWh, nWw, shift_h, shift_w);
+  return (int)cudaGetLastError();
+}
 
 template <typename E>
 int forward(const void* q, const void* k, const void* v, const float* bias,
@@ -225,16 +269,16 @@ int forward(const void* q, const void* k, const void* v, const float* bias,
             int nWh, int nWw, int shift_h, int shift_w, cudaStream_t stream) {
   if (Bw <= 0) return (int)cudaSuccess;
   if (bad_shape(N, C, h, ws)) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem_bytes<E>();
-  cudaError_t err = cudaFuncSetAttribute(
-      wac_fwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  wac_fwd_kernel<E><<<dim3(Bw, h), THREADS, smem, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), bias, static_cast<E*>(out), lse, N, C, ws,
-      nWh, nWw, shift_h, shift_w);
-  return (int)cudaGetLastError();
+  const E* qe = static_cast<const E*>(q);
+  const E* ke = static_cast<const E*>(k);
+  const E* ve = static_cast<const E*>(v);
+  E* oe = static_cast<E*>(out);
+  if constexpr (std::is_same<E, bf16>::value)
+    return forward_bf16(qe, ke, ve, bias, oe, lse, Bw, N, C, h, ws, nWh, nWw,
+                        shift_h, shift_w, stream);
+  else
+    return forward_f32(qe, ke, ve, bias, oe, lse, Bw, N, C, h, ws, nWh, nWw,
+                       shift_h, shift_w, stream);
 }
 
 template <typename E>
@@ -290,4 +334,9 @@ extern "C" int wac_dbias_reduce(const float* part, float* out, int G,
                         static_cast<cudaStream_t>(stream)>>>(part, out, G,
                                                              total);
   return (int)cudaGetLastError();
+}
+
+// resident blocks an SM of the bf16 forward, reported by chip_smoke.py
+extern "C" int wac_forward_bf16_blocks_per_sm() {
+  return fwd::blocks_per_sm(wac_fwd_bf16_kernel);
 }

@@ -28,55 +28,55 @@
 // would bind; at stage 1 of B=8 480 x 640 serving ((2400, 64, 384) bf16)
 // that is ~157 MB, ~0.047 ms at 3.35 TB/s.
 //
-// Design: row 7's forward (window_attention_core.cu) with the slicing and
-// the v2 normalisation moved in. One block of 256 threads per (window,
-// head) loads the head's q, k and v tiles from the packed rows once
-// (16-byte loads), normalises q and k in shared memory (a warp a token,
-// the sum of squares by shuffles), and keeps the logits and
-// probabilities in shared memory; bf16 products on the tensor cores
-// (wmma 16x16x16, f32 accumulators), f32 (the card-vs-CPU check) with
-// fmaf loops. Dynamic shared memory: 50 KB in bf16, 74 KB in f32.
-// Several heads a block and TMA-fed wgmma are the next steps.
+// Design.
+// - bf16 (serving): the forward tile of window_tiles.cuh (namespace
+//   `fwd`), row 7's forward read from the packed rows: a warpgroup walks
+//   the windows of one head with the head's bias and logit scale in
+//   registers; a 2-stage cp.async ring brings window g+1's q, k and v
+//   columns while window g computes; once a stage lands, q and k are
+//   normalised in place (a quad of threads a token, f32 sum of squares,
+//   max(norm, 1e-6), rounded to bf16); then S = q k^T and P v by
+//   mma.sync with S and P in registers, and 16-byte output stores.
+// - f32 (the card-vs-CPU check): one block of 256 threads per (window,
+//   head) loads the q, k and v tiles into shared memory (16-byte loads),
+//   normalises q and k there (a warp a token, the sum of squares by
+//   shuffles), keeps the logits and probabilities in shared memory and
+//   runs the products as fmaf loops (74 KB of dynamic shared memory).
 #include "window_tiles.cuh"
 
 namespace {
 
 using namespace window_tiles;
 
-template <typename E>
-constexpr size_t smem_bytes() {
-  return 3 * NMAX * HLD * sizeof(E) + NMAX * S_LD * 4 +
-         NMAX * P_LD * sizeof(E) + NMAX * O_LD * 4;
-}
+constexpr size_t F32_SMEM = 3 * NMAX * HLD * 4 + NMAX * S_LD * 4 +
+                            NMAX * P_LD * 4 + NMAX * O_LD * 4;
 
-// v2: rows < N of a [64][HLD] tile divided by max(||row||, 1e-6) in f32,
-// rounded to E; one warp a row, a lane a column
-template <typename E>
-__device__ __forceinline__ void unit_rows(E* tile, int N) {
+// v2: rows < N of a [64][HLD] f32 tile divided by max(||row||, 1e-6);
+// one warp a row, a lane a column
+__device__ __forceinline__ void unit_rows(float* tile, int N) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int n = warp; n < N; n += WARPS) {
-    E* row = tile + n * HLD;
-    const float f = to_f32(row[lane]);
+    float* row = tile + n * HLD;
+    const float f = row[lane];
     const float nrm = sqrtf(warp_sum(__fmul_rn(f, f)));
-    row[lane] = from_f32<E>(__fdiv_rn(f, fmaxf(nrm, 1e-6f)));
+    row[lane] = __fdiv_rn(f, fmaxf(nrm, 1e-6f));
   }
 }
 
-// grid (Bw, h): block (g, j) computes head j of window g
-template <typename E>
+// f32: grid (Bw, h), block (g, j) computes head j of window g
 __global__ void __launch_bounds__(THREADS)
-waq_kernel(const E* __restrict__ qkv, const float* __restrict__ bias,
-           const float* __restrict__ v2_scale, E* __restrict__ out, int N,
-           int C, int ws, int nWh, int nWw, int shift_h, int shift_w,
-           float v1_scale) {
+waq_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+               const float* __restrict__ v2_scale, float* __restrict__ out,
+               int N, int C, int ws, int nWh, int nWw, int shift_h,
+               int shift_w, float v1_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int region[NMAX];
-  E* Qs = reinterpret_cast<E*>(smem);
-  E* Ks = Qs + NMAX * HLD;
-  E* Vs = Ks + NMAX * HLD;
-  float* S = reinterpret_cast<float*>(Vs + NMAX * HLD);
-  E* P = reinterpret_cast<E*>(S + NMAX * S_LD);
-  float* O = reinterpret_cast<float*>(P + NMAX * P_LD);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + NMAX * HLD;
+  float* Vs = Ks + NMAX * HLD;
+  float* S = Vs + NMAX * HLD;
+  float* P = S + NMAX * S_LD;
+  float* O = P + NMAX * P_LD;
 
   const int g = blockIdx.x, j = blockIdx.y;
   const bool masked = shift_h > 0 || shift_w > 0;
@@ -101,20 +101,68 @@ waq_kernel(const E* __restrict__ qkv, const float* __restrict__ bias,
   store_tile(out, O, g, j, N, C);
 }
 
+// bf16: the forward tile, grid (windows of a head in turn, h); UNIT_QK
+// for v2 (q and k normalised, the head's logit scale), else v1_scale
+template <bool UNIT_QK>
+__global__ void __launch_bounds__(fwd::THREADS, fwd::MIN_BLOCKS)
+waq_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                const float* __restrict__ v2_scale, bf16* __restrict__ out,
+                int Bw, int N, int C, int ws, int nWh, int nWw, int shift_h,
+                int shift_w, float v1_scale) {
+  __shared__ __align__(128) unsigned char tiles[fwd::SMEM_ELEMS * 2];
+  const int j = blockIdx.y, col = j * D;
+  fwd::attend_windows<UNIT_QK, false>(
+      reinterpret_cast<bf16*>(tiles), fwd::Cols{qkv + col, qkv + C + col, qkv + 2 * C + col, 3 * C},
+      bias + (size_t)j * N * N, UNIT_QK ? v2_scale[j] : v1_scale, out + col,
+      C, nullptr, Bw, N, ws, nWh, nWw, shift_h, shift_w);
+}
+
+int launch_f32(const float* qkv, const float* bias, const float* v2_scale,
+               float* out, int Bw, int N, int C, int h, int ws, int nWh,
+               int nWw, int shift_h, int shift_w, float v1_scale,
+               cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      waq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)F32_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  waq_f32_kernel<<<dim3(Bw, h), THREADS, F32_SMEM, stream>>>(
+      qkv, bias, v2_scale, out, N, C, ws, nWh, nWw, shift_h, shift_w,
+      v1_scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool UNIT_QK>
+int launch_bf16(const bf16* qkv, const float* bias, const float* v2_scale,
+                bf16* out, int Bw, int N, int C, int h, int ws, int nWh,
+                int nWw, int shift_h, int shift_w, float v1_scale,
+                cudaStream_t stream) {
+  dim3 grid;
+  cudaError_t err = fwd::grid_for(waq_bf16_kernel<UNIT_QK>, Bw, h, &grid);
+  if (err != cudaSuccess) return (int)err;
+  waq_bf16_kernel<UNIT_QK><<<grid, fwd::THREADS, 0, stream>>>(
+      qkv, bias, v2_scale, out, Bw, N, C, ws, nWh, nWw, shift_h, shift_w,
+      v1_scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename E>
 int launch(const void* qkv, const float* bias, const float* v2_scale,
            void* out, int Bw, int N, int C, int h, int ws, int nWh, int nWw,
            int shift_h, int shift_w, float v1_scale, cudaStream_t stream) {
   if (Bw <= 0) return (int)cudaSuccess;
   if (bad_shape(N, C, h, ws)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<E>();
-  cudaError_t err = cudaFuncSetAttribute(
-      waq_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  waq_kernel<E><<<dim3(Bw, h), THREADS, smem, stream>>>(
-      static_cast<const E*>(qkv), bias, v2_scale, static_cast<E*>(out), N, C,
-      ws, nWh, nWw, shift_h, shift_w, v1_scale);
-  return (int)cudaGetLastError();
+  const E* in = static_cast<const E*>(qkv);
+  E* o = static_cast<E*>(out);
+  if constexpr (std::is_same<E, bf16>::value) {
+    if (v2_scale != nullptr)
+      return launch_bf16<true>(in, bias, v2_scale, o, Bw, N, C, h, ws, nWh,
+                               nWw, shift_h, shift_w, v1_scale, stream);
+    return launch_bf16<false>(in, bias, v2_scale, o, Bw, N, C, h, ws, nWh,
+                              nWw, shift_h, shift_w, v1_scale, stream);
+  } else {
+    return launch_f32(in, bias, v2_scale, o, Bw, N, C, h, ws, nWh, nWw,
+                      shift_h, shift_w, v1_scale, stream);
+  }
 }
 
 }  // namespace
@@ -131,3 +179,8 @@ int launch(const void* qkv, const float* bias, const float* v2_scale,
 
 WAQ_ENTRY(f32, float)
 WAQ_ENTRY(bf16, __nv_bfloat16)
+
+// resident blocks an SM of the bf16 kernel, v2 (reported by chip_smoke.py)
+extern "C" int window_attention_qkv_bf16_blocks_per_sm() {
+  return fwd::blocks_per_sm(waq_bf16_kernel<true>);
+}

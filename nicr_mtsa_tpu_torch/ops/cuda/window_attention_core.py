@@ -25,6 +25,7 @@ On CPU tensors each runs its plain version. `window_attention_core` is
 the differentiable entry (a `torch.autograd.Function` over the first
 two); the bias gradient flows on by autograd, the mask has none."""
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -141,6 +142,7 @@ def _grid(grid_hw, shift):
     return int(grid_hw[0]), int(grid_hw[1]), int(sh), int(sw)
 
 
+@functools.lru_cache(maxsize=None)
 def _entry(name: str, n_ptrs: int, n_ints: int):
     fn = getattr(load_library('window_attention_core'), name)
     fn.restype = ctypes.c_int

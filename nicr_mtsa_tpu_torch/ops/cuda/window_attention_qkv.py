@@ -12,6 +12,7 @@ tensors the wrapper runs the plain version,
 shift mask follows `shift_region_ids` on the (nWh, nWw) window grid
 `grid_hw`, windows in image-major, then row-major grid order."""
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -22,6 +23,15 @@ from .window_attention import HEAD_DIM, attention_from_qkv
 
 _FUNCS = {torch.float32: 'window_attention_qkv_f32',
           torch.bfloat16: 'window_attention_qkv_bf16'}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    fn = getattr(load_library('window_attention_qkv'), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    return fn
 
 
 # the plain version (see `window_attention_qkv`)
@@ -45,11 +55,7 @@ def _launch(qkv, bias, n_heads, grid_hw, shift, v2_scale):
     if (sh or sw) and Bw % (nWh * nWw):
         raise ValueError(f'window_attention_qkv: {Bw} windows are not whole '
                          f'images of a {nWh} x {nWw} window grid')
-    lib = load_library('window_attention_qkv')
-    fn = getattr(lib, _FUNCS[qkv.dtype])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
-        + [ctypes.c_float, ctypes.c_void_p]
+    fn = _entry(_FUNCS[qkv.dtype])
     dev = qkv.device
     qkv = qkv.contiguous()
     if qkv.data_ptr() % 16:             # the kernel loads 16-byte vectors

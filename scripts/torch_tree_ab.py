@@ -1,0 +1,190 @@
+"""Time two trees of the PyTorch/CUDA port on one NVIDIA GPU, in turns.
+
+    python3 scripts/torch_tree_ab.py --tree parent=_scratch/parent \\
+        --tree change=. --order parent,change,change,parent \\
+        [--train-steps 10] [--swin-requests 5] [--kernels-only]
+
+Each turn runs in its own process from the root of the named tree (a
+checkout, or a `git archive` unpacked into a directory that .gitignore
+lists), builds that tree's kernels and times, on the same inputs made
+from a seed:
+- row 7's bf16 forward (`window_attention_core_forward`) and its dbias
+  reduction (`dbias_reduce`, on partials of the backward's shape) at
+  the four Swin stages of B=8 480 x 640 training, shifted v2;
+- row 9 (`window_attention_qkv`, bf16, v2) at the four stages of B=8
+  480 x 640 serving;
+- the PyTorch calls for the same work at each stage (chip_smoke.py's
+  `library_ms`): F.scaled_dot_product_attention on bf16 (windows,
+  heads, 64, 32) q, k, v with a float mask, and torch.sum over the
+  dbias partials;
+each in two ways: `event_ms`, CUDA events around one call (as
+chip_smoke.py's `cuda_ms` times a kernel: the wrapper's host time shows
+whenever it exceeds the kernel's), and `stream_ms`, a batch of
+back-to-back calls queued behind a spin kernel, per call (the card's
+time alone). Unless --kernels-only, the turn then runs the tree's own
+chip_smoke.py phases 17 (`--attn-qkv` serving, B=8) and 11 (Swin
+training, B=8). The stages are those of this script's own tree
+(chip_smoke.py's CORE_CASES and PADDED_STAGES), passed to every turn.
+A tree under test needs chip_smoke.py's `_core_inputs`,
+`_padded_stage_qkv`, `card_line`, `serve_exact`, `train_swin` and
+`QKV_KERNELS` with the signatures this tree's chip_smoke.py has. Each
+turn prints one JSON line; all of them, with the card's name and power
+limit, go to chiprun_out/tree_ab.json. Needs no network and no JAX."""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# cycles of the spin kernel queued ahead of a batch (~6 ms at an H100's
+# ~1.7 GHz): longer than the host time of a batch of launches
+HEAD_START_CYCLES = 10_000_000
+N_TIMED, BATCH = 10, 10
+
+
+def _times(fn):
+    """{event_ms, stream_ms}: medians of N_TIMED timings of fn() after a
+    warm-up: one call between CUDA events, and a batch of BATCH
+    back-to-back calls behind a spin kernel, per call."""
+    import numpy as np
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for key, batch in (('event_ms', 1), ('stream_ms', BATCH)):
+        times = []
+        for _ in range(N_TIMED):
+            if batch > 1:
+                torch.cuda._sleep(HEAD_START_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(batch):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b) / batch)
+        out[key] = float(np.median(times))
+    return out
+
+
+def stages():
+    """{'core': {stage: (windows, C, window grid)}, 'qkv': {stage:
+    (image H, W, C)}} of B=8 480 x 640, from this tree's chip_smoke.py
+    (row 9's stage 1 is the unpadded 120 x 160 image)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    return {'core': cs.CORE_CASES,
+            'qkv': {'stage1': (120, 160, 128), **cs.PADDED_STAGES}}
+
+
+def child(args) -> None:
+    """One turn, from the tree's root (the working directory)."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from nicr_mtsa_tpu_torch.ops import cuda as kernels
+    from nicr_mtsa_tpu_torch.ops.cuda import (window_attention_core as wac,
+                                              window_attention_qkv as waq)
+    build_s = kernels.build_all()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {'tree': args.child, 'build_s': build_s, 'row7_fwd': {},
+           'row7_dbias': {}, 'row9': {}, 'sdpa': {}, 'torch_sum': {}}
+    table = json.loads(args.stages)
+    g = torch.Generator(device='cuda').manual_seed(9)
+    for stage, (Bw, C, grid) in table['core'].items():
+        q, k, v, _, bias = cs._core_inputs(g, Bw, C, torch.bfloat16)
+        fargs = (q, k, v, bias, grid, (4, 4))
+        out['row7_fwd'][stage] = _times(
+            lambda: wac.window_attention_core_forward(*fargs))
+        h = C // 32
+        wpb = max(1, Bw * h // wac.BWD_BLOCKS)
+        parts = torch.randn(-(-Bw // wpb), h, 64, 64, device='cuda',
+                            generator=g)
+        out['row7_dbias'][stage] = _times(lambda: wac.dbias_reduce(parts))
+        out['torch_sum'][stage] = _times(lambda: parts.sum(0))
+        heads = [torch.randn(Bw, h, 64, n, device='cuda', generator=g,
+                             dtype=torch.bfloat16) for n in (32, 32, 32, 64)]
+        out['sdpa'][stage] = _times(lambda: F.scaled_dot_product_attention(
+            *heads[:3], attn_mask=heads[3], scale=1.0))
+    for stage, (Hs, Ws, C) in table['qkv'].items():
+        h = C // 32
+        qkv, grid = cs._padded_stage_qkv(g, 8, Hs, Ws, C, 8, 4,
+                                         torch.bfloat16)
+        bias = 16 * torch.sigmoid(torch.randn(h, 64, 64, device='cuda',
+                                              generator=g))
+        scale = torch.full((h,), 10.0, device='cuda')
+        out['row9'][stage] = _times(lambda: waq.window_attention_qkv(
+            qkv, bias, h, grid, (4, 4), scale))
+    if not args.kernels_only:
+        from nicr_mtsa_tpu_torch.pipeline import emsaformer_bench_config
+        card, result = cs.card_line(), {}
+        cs.serve_exact(emsaformer_bench_config(attn_backend='qkv'),
+                       args.swin_requests, cs.QKV_KERNELS, kernels, card,
+                       result, 'serving_qkv')
+        cs.train_swin(argparse.Namespace(train_steps=args.train_steps,
+                                         profile=False), kernels, card,
+                      result)
+        for key in ('serving_qkv', 'train_swin'):
+            out[key] = {k: result[key][k] for k in
+                        ('frames_per_s', 'rounds_frames_per_s')}
+    print('TREE_AB ' + json.dumps(out), flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--tree', action='append', default=[],
+                    help='NAME=PATH of a tree to time (repeatable)')
+    ap.add_argument('--order', default='parent,change,change,parent',
+                    help='the turns, by tree name')
+    ap.add_argument('--train-steps', type=int, default=10)
+    ap.add_argument('--swin-requests', type=int, default=5)
+    ap.add_argument('--kernels-only', action='store_true')
+    ap.add_argument('--child', help=argparse.SUPPRESS)
+    ap.add_argument('--stages', help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        return child(args)
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit('torch_tree_ab: needs a CUDA device')
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    trees = dict(t.split('=', 1) for t in args.tree)
+    table = json.dumps(stages())
+    turns = []
+    for name in args.order.split(','):
+        t0 = time.perf_counter()
+        cmd = [sys.executable, os.path.abspath(__file__), '--child', name,
+               '--train-steps', str(args.train_steps),
+               '--swin-requests', str(args.swin_requests),
+               '--stages', table]
+        if args.kernels_only:
+            cmd.append('--kernels-only')
+        proc = subprocess.run(cmd, cwd=trees[name], capture_output=True,
+                              text=True)
+        lines = [ln[len('TREE_AB '):] for ln in proc.stdout.splitlines()
+                 if ln.startswith('TREE_AB ')]
+        if proc.returncode != 0 or not lines:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
+            sys.exit(f'torch_tree_ab: turn {name} failed')
+        turn = json.loads(lines[-1])
+        turn['seconds'] = time.perf_counter() - t0
+        turns.append(turn)
+        print(json.dumps(turn), flush=True)
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open(os.path.join('chiprun_out', 'tree_ab.json'), 'w') as f:
+        json.dump({'card': card, 'trees': trees, 'turns': turns}, f,
+                  indent=1)
+
+
+if __name__ == '__main__':
+    main()

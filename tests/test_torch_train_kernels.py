@@ -150,3 +150,16 @@ def test_dbias_reduce_plain_sums_in_order():
         size=(5, 2, 49, 49)).astype(np.float32))
     want = parts[0] + parts[1] + parts[2] + parts[3] + parts[4]
     assert torch.equal(wac.dbias_reduce(parts), want)
+
+
+@pytest.mark.parametrize('G, h', [(134, 4), (72, 8), (40, 16), (24, 32)])
+def test_dbias_reduce_plain_near_float64_sum(G, h):
+    """At the partial shapes of stages 1 to 4 of B=8 480 x 640 training
+    the plain reduction lies within G f32 ulps of max |.| of the float64
+    sum."""
+    parts = np.random.default_rng(G).normal(size=(G, h, 64, 64)).astype(
+        np.float32)
+    want = parts.astype(np.float64).sum(0)
+    got = wac.dbias_reduce(torch.from_numpy(parts)).numpy()
+    tol = G * float(np.spacing(np.float32(np.abs(want).max())))
+    assert float(np.abs(got - want).max()) <= tol
