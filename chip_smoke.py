@@ -9,8 +9,9 @@ phases; any failure exits non-zero and prints no result:
 1. report the card (nvidia-smi name and power limit), build every CUDA
    kernel from nicr_mtsa_tpu_torch/ops/cuda/csrc (one nvcc per source,
    in parallel), print the registers, spills and resident blocks an SM
-   of the window-attention tile kernels, pin f32 convs and matmuls to
-   full precision;
+   of the window-attention tile kernels (rows 7 and 9's forward tile,
+   row 8's two bf16 kernels), pin f32 convs and matmuls to full
+   precision;
 2. hold each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (idx, ids, min_d2 and counts exact,
    scores within rtol 1e-5; the intersection also against
@@ -36,12 +37,14 @@ phases; any failure exits non-zero and prints no result:
    outputs (B=2) on the card and on the CPU: integer states equal,
    float sums within rtol 1e-5;
 7. hold the Swin path's kernels against their plain versions at its
-   shapes: the window-attention sub-block at stage 1 (2400 windows,
-   C=128, 4 heads) and stage 4 (48 windows, C=1024, 32 heads), both
-   shifted v2, through its windows entry and through the image entry
-   the Swin blocks call (B=8 images, padded at stage 4), plus a shifted
-   v1 image of 49-token windows, in bf16 and f32 (within 1e-4 of max
-   |out| in f32, 2e-2 in bf16); the LayerNorm
+   shapes: the window-attention sub-block through the image entry the
+   Swin blocks call at all four stages of B=8 serving (120 x 160 x 128,
+   60 x 80 x 256, 30 x 40 x 512, 15 x 20 x 1024 padded to 16 x 24; 4 to
+   32 heads), v2 shifted and unshifted, through its windows entry at
+   stages 1 and 4 (2400 windows of 64 tokens, C=128; 48, C=1024),
+   shifted v2, plus a shifted v1 image of 49-token windows, in bf16 and
+   f32 (within 1e-4 of max |out| in f32, 2e-2 in bf16; outputs finite),
+   timed at every stage against the bound; the LayerNorm
    at (153600, 128) and (2400, 1024) bf16 (within 1 ulp, or 1e-6 of
    max |out| where the affine cancels to near 0) and in f32 (within
    1e-5); the bilinear 4x finisher at (8, 40, 120, 160) (idx
@@ -234,6 +237,11 @@ def ptxas_entries(log: str):
 # library: (a piece of the mangled name, the entry giving its resident
 # blocks an SM)
 TILE_KERNELS = {
+    'window_attention_block': (
+        ('qkv_attend_kernelILb1E',
+         'window_attention_block_qkv_attend_blocks_per_sm'),
+        ('qkv_attend_kernelILb0E', None),
+        ('proj_kernel', 'window_attention_block_proj_blocks_per_sm')),
     'window_attention_core': (
         ('wac_fwd_bf16_kernel', 'wac_forward_bf16_blocks_per_sm'),),
     'window_attention_qkv': (
@@ -568,37 +576,47 @@ def _wab_ops_bytes(Bw, N, C, n_elems, elt):
     return n_ops, n_bytes
 
 
-def check_window_attention(wa, report):
+# row 8's Swin stages of B=8 480 x 640 serving: image (H, W, C), each
+# padded to 8 x 8 windows (stage 4: 15 x 20 to 16 x 24)
+BLOCK_STAGES = {'stage1': (120, 160, 128), 'stage2': (60, 80, 256),
+                'stage3': (30, 40, 512), 'stage4': (15, 20, 1024)}
+
+
+def check_window_attention(wa, report, result):
     """Row 8 through both entries, bf16 and f32 (within 1e-4 of max |out|
-    in f32, 2e-2 in bf16): windows at stage 1 (2400 of 64 tokens, C=128)
-    and stage 4 (48, C=1024), shifted v2, and the image entry the Swin
-    blocks call, on the B=8 stage-1 (120 x 160, C=128) and stage-4
-    (15 x 20, padded to 16 x 24, C=1024) images, shifted v2, plus a
-    shifted v1 image (7 x 7 windows, 120 x 160 padded to 126 x 161).
-    Times the image entry in bf16 at stages 1 and 4."""
+    in f32, 2e-2 in bf16): the image entry the Swin blocks call at the
+    four stages of B=8 serving (`BLOCK_STAGES`, 4 to 32 heads), v2,
+    shifted and unshifted; the windows entry at stage 1 (2400 windows of
+    64 tokens, C=128) and stage 4 (48, C=1024), shifted v2; a shifted v1
+    image of 49-token windows (B=2, 120 x 160 padded to 126 x 161).
+    Times the image entry in bf16, shifted, at every stage against the
+    bound, the plain version at stages 1 and 4; the line carries the
+    ptxas figures of the two bf16 kernels (phase 1)."""
     g = torch.Generator(device='cuda').manual_seed(6)
     rnd = lambda *shape: torch.randn(*shape, device='cuda', generator=g)
-    w1, w4 = _wab_weights(g, 128, True, 8), _wab_weights(g, 1024, True, 8)
+    w = {st: _wab_weights(g, C, True, 8)
+         for st, (_, _, C) in BLOCK_STAGES.items()}
     wv1 = _wab_weights(g, 128, False, 7)
     cases = {
         'stage1_windows': (wa.window_attention_block, wa.
                            window_attention_block_reference,
-                           dict(w1, x=rnd(2400, 64, 128), grid_hw=(15, 20),
-                                shift=(4, 4))),
+                           dict(w['stage1'], x=rnd(2400, 64, 128),
+                                grid_hw=(15, 20), shift=(4, 4))),
         'stage4_windows': (wa.window_attention_block, wa.
                            window_attention_block_reference,
-                           dict(w4, x=rnd(48, 64, 1024), grid_hw=(2, 3),
-                                shift=(4, 4))),
-        'stage1_image': (wa.window_attention_image,
-                         wa.window_attention_image_reference,
-                         dict(w1, x=rnd(8, 120, 160, 128), ws=8, shift=4)),
-        'stage4_image': (wa.window_attention_image,
-                         wa.window_attention_image_reference,
-                         dict(w4, x=rnd(8, 15, 20, 1024), ws=8, shift=4)),
+                           dict(w['stage4'], x=rnd(48, 64, 1024),
+                                grid_hw=(2, 3), shift=(4, 4))),
         'v1_image': (wa.window_attention_image,
                      wa.window_attention_image_reference,
                      dict(wv1, x=rnd(2, 120, 160, 128), ws=7, shift=3)),
     }
+    for st, (H, W, C) in BLOCK_STAGES.items():
+        x = rnd(8, H, W, C)
+        for shift, tag in ((4, ''), (0, '_unshifted')):
+            cases[f'{st}_image{tag}'] = (
+                wa.window_attention_image,
+                wa.window_attention_image_reference,
+                dict(w[st], x=x, ws=8, shift=shift))
     errs, max_abs = {}, 0.0
     for name, (fn, ref_fn, c) in cases.items():
         for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
@@ -606,6 +624,9 @@ def check_window_attention(wa, report):
             got = fn(**args)
             torch.cuda.synchronize()
             want = ref_fn(**args)
+            if not bool(torch.isfinite(got).all()):
+                fail(f'window_attention_block {name} {dt}: non-finite '
+                     f'output')
             err = float((got.float() - want.float()).abs().max())
             ref = float(want.float().abs().max())
             errs[f'{name}_{str(dt)[6:]}'] = err / ref
@@ -613,29 +634,31 @@ def check_window_attention(wa, report):
             if not err <= tol * ref:
                 fail(f'window_attention_block {name} {dt}: max error '
                      f'{err} > {tol} x max |out| {ref}')
-    times = {}
-    for name in ('stage1_image', 'stage4_image'):
-        fn, ref_fn, c = cases[name]
+    stages = {}
+    for st, (H, W, C) in BLOCK_STAGES.items():
+        fn, ref_fn, c = cases[f'{st}_image']
         args = dict(c, x=c['x'].to(torch.bfloat16))
-        times[name] = (cuda_ms(lambda: fn(**args)),
-                       cuda_ms(lambda: ref_fn(**args)))
-    # the image entry's windows: 8 x 15 x 20 at stage 1, 8 x 2 x 3 at 4
-    n_ops, n_bytes = _wab_ops_bytes(2400, 64, 128, 8 * 120 * 160 * 128, 2)
-    b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
-    n_ops4, n_bytes4 = _wab_ops_bytes(48, 64, 1024, 8 * 15 * 20 * 1024, 2)
+        # the padded image's windows: B x ceil(H / 8) x ceil(W / 8)
+        Bw = 8 * -(-H // 8) * -(-W // 8)
+        n_ops, n_bytes = _wab_ops_bytes(Bw, 64, C, 8 * H * W * C, 2)
+        b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
+        stages[st] = dict(shape=[8, H, W, C], windows=Bw,
+                          ms=cuda_ms(lambda: fn(**args)), bound_ms=b_ms,
+                          bound_by=b_by)
+        if st in ('stage1', 'stage4'):
+            stages[st]['plain_ms'] = cuda_ms(lambda: ref_fn(**args))
+    s1 = stages['stage1']
     report['window_attention_block'] = dict(
         name='window_attention_block', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/window_attention_block.cu',
         replaces='nicr_mtsa_tpu/ops/pallas/window_attention.py:300',
-        max_abs_err=max_abs, ms=times['stage1_image'][0],
-        plain_ms=times['stage1_image'][1], bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
+        max_abs_err=max_abs, ms=s1['ms'], plain_ms=s1['plain_ms'],
+        bound_ms=s1['bound_ms'], bound_by=s1['bound_by'], library_ms=None)
+    ptxas = {k: v for k, v in result.get('tile_kernels', {}).items()
+             if 'attend_kernel' in k or k == 'proj_kernel'}
     print(json.dumps({'phase': 'kernel', **report['window_attention_block'],
-                      'shape': [8, 120, 160, 128], 'rel_err': errs,
-                      'stage4_ms': times['stage4_image'][0],
-                      'stage4_plain_ms': times['stage4_image'][1],
-                      'stage4_bound_ms': bound(n_bytes4, n_ops4,
-                                               PEAK_BF16_FLOPS)[0],
+                      'shape': s1['shape'], 'rel_err': errs,
+                      'stages': stages, 'ptxas': ptxas,
                       'library': 'none: no single PyTorch call computes '
                                  'the qkv product, cosine attention with '
                                  'bias and shift mask, and the output '
@@ -1662,7 +1685,7 @@ def main():
     eval_launches, pipe = evaluate(args, kernels, card, result)
     eval_card_vs_cpu(pipe, result)
     del pipe
-    check_window_attention(window_attention, report)
+    check_window_attention(window_attention, report, result)
     check_layernorm(layernorm, report)
     check_finisher_bilinear(finisher4x, report)
     swin_launches = serve_exact(

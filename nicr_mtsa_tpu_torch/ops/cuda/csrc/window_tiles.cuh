@@ -1,6 +1,8 @@
 // Per-(window, head) tiles of the window-attention kernels for Hopper
 // (sm_90a): shared by window_attention_core.cu (the training forward and
-// backward) and window_attention_qkv.cu (serving over the packed qkv).
+// backward), window_attention_qkv.cu (serving over the packed qkv) and
+// window_attention_block.cu (the whole sub-block: its bf16 kernel runs
+// `attend_rows` on the q, k and v it computes itself).
 //
 // Two designs live here.
 //
@@ -253,12 +255,26 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
+// 16 bytes, or (full false) 16 zero bytes and no read of src
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// all but the newest `PENDING` committed groups have landed
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
@@ -347,37 +363,22 @@ __device__ __forceinline__ void unit_rows_qk(bf16* stage) {
   }
 }
 
-// One block's share of a launch: head j (blockIdx.y) of the windows
-// g = blockIdx.x, + gridDim.x, ... < Bw. Per window: L = (q k^T) x scale +
-// bias (+ -100 between shift regions), P = softmax(L) (f32, e / s,
-// rounded to bf16), out = P v rounded to bf16; with LSE also
-// lse = max + log(s) into lse (Bw, h, N). UNIT_QK: q and k are first
-// normalised per token (v2). `bias` is the head's (N, N) f32 query-major;
-// `out` points at the head's first column of a (Bw, N, C) tensor.
-template <bool UNIT_QK, bool LSE>
-__device__ __forceinline__ void attend_windows(
-    bf16* tiles, const Cols cols, const float* __restrict__ bias,
-    float scale, bf16* __restrict__ out, int C, float* __restrict__ lse,
-    int Bw, int N, int ws, int nWh, int nWw, int shift_h, int shift_w) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;    // fragment row, column pair
-  const int j = blockIdx.y, h = gridDim.y;
-  const int row0 = warp * 16 + gq;            // rows row0 and row0 + 8
-
-  // rows >= N of every tile stay zero: finite logits, P v = 0 off window
-  for (int e = tid; e < STAGES * 3 * (NMAX - N) * 4; e += THREADS) {
-    const int t = e / ((NMAX - N) * 4), r = e % ((NMAX - N) * 4);
-    *reinterpret_cast<uint4*>(tiles + t * TILE + (N + (r >> 2)) * LD +
-                              (r & 3) * 8) = make_uint4(0u, 0u, 0u, 0u);
-  }
-  issue_window(tiles, cols, blockIdx.x, N);
-
-  // the bias of the cells this thread owns, and which of them straddle a
-  // row or a column region boundary (bit i 16 + nt 2 + c: row row0 + 8 i,
-  // key 8 nt + 2 tq + c) once the window lies on the last grid row or
-  // column; keys >= N are left out of the softmax
+// The head's (N, N) f32 bias cells that this thread's logit fragments
+// hold (rows row0 and row0 + 8 of the window, row0 = 16 w + lane / 4
+// for the window's warp w), and which of them straddle a row or a
+// column shift-region boundary once a window lies on the grid's last
+// row or column (bit i 16 + nt 2 + c: row row0 + 8 i, key 8 nt + 2 tq +
+// c); cells of keys or rows >= N hold 0
+struct HeadCells {
   float pb[2][16];
-  unsigned ydiff = 0u, xdiff = 0u;
+  unsigned ydiff, xdiff;
+};
+
+__device__ __forceinline__ void load_head_cells(
+    HeadCells& hc, const float* __restrict__ bias, int row0, int N, int ws,
+    int shift_h, int shift_w) {
+  const int tq = threadIdx.x & 3;
+  hc.ydiff = hc.xdiff = 0u;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int n = row0 + 8 * i;
@@ -387,13 +388,180 @@ __device__ __forceinline__ void attend_windows(
       for (int c = 0; c < 2; ++c) {
         const int m = nt * 8 + 2 * tq + c, b = i * 16 + nt * 2 + c;
         const bool ok = n < N && m < N;
-        pb[i][nt * 2 + c] = ok ? bias[n * N + m] : 0.0f;
+        hc.pb[i][nt * 2 + c] = ok ? bias[n * N + m] : 0.0f;
         if (ok && ((n / ws < ws - shift_h) != (m / ws < ws - shift_h)))
-          ydiff |= 1u << b;
+          hc.ydiff |= 1u << b;
         if (ok && ((n % ws < ws - shift_w) != (m % ws < ws - shift_w)))
-          xdiff |= 1u << b;
+          hc.xdiff |= 1u << b;
       }
   }
+}
+
+// One window for this warp's 16 query rows row0 - lane / 4 + 0 .. 15:
+// S = q k^T from qa (the rows' A fragments, keys 16 kk .. 16 kk + 15)
+// and the [64][LD] k tile; L = S x scale + the bias cells (bias(i, k):
+// cell k of row row0 + 8 i, as `HeadCells::pb` orders them), + -100 where
+// `maskbits` has a bit (when `edge`: the window lies on the grid's last
+// row or column), keys >= N out; P = softmax(L) (f32, e / s) rounded to
+// bf16; o = P v (v a [64][LD] tile) in f32. With LSE, lse[n] = max +
+// log(s) for rows n = row0, row0 + 8 below N. The shift mask and the
+// keys >= N take passes of their own behind uniform branches: most
+// windows need neither.
+template <bool LSE, typename Bias>
+__device__ __forceinline__ void attend_rows(
+    const unsigned (&qa)[2][4], const bf16* Ks, const bf16* Vs,
+    const Bias& bias, bool edge, unsigned maskbits, float scale, int N,
+    int row0, float* __restrict__ lse, float (&o)[4][4]) {
+  const int lane = threadIdx.x & 31, tq = lane & 3;
+  float sc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    unsigned kb[4];
+    ldsm_x4(kb, Ks + (nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8);
+    sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.0f;
+    mma(sc[nt], qa[0], kb[0], kb[1]);
+    mma(sc[nt], qa[1], kb[2], kb[3]);
+  }
+
+  // logits, then the softmax of rows row0 and row0 + 8 (a quad a row)
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        sc[nt][2 * i + c] = __fadd_rn(__fmul_rn(sc[nt][2 * i + c], scale),
+                                      bias(i, nt * 2 + c));
+  if (edge) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if ((maskbits >> (i * 16 + nt * 2 + c)) & 1u)
+            sc[nt][2 * i + c] = __fadd_rn(sc[nt][2 * i + c], -100.0f);
+  }
+  if (N < NMAX) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (nt * 8 + 2 * tq + c >= N)
+          sc[nt][c] = sc[nt][2 + c] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      mx[i] = fmaxf(mx[i], fmaxf(sc[nt][2 * i], sc[nt][2 * i + 1]));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        // keys >= N: exp(-inf) = 0
+        const float e = expf(__fsub_rn(sc[nt][2 * i + c], mx[i]));
+        sc[nt][2 * i + c] = e;
+        sum[i] = __fadd_rn(sum[i], e);
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] = __fadd_rn(sum[i], __shfl_xor_sync(0xffffffffu, sum[i], 1));
+    sum[i] = __fadd_rn(sum[i], __shfl_xor_sync(0xffffffffu, sum[i], 2));
+  }
+  if (LSE && tq == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row0 + 8 * i < N)
+        lse[row0 + 8 * i] = __fadd_rn(mx[i], logf(sum[i]));
+  }
+
+  // P = e / s (f32, rounded to bf16) as the A fragments of P v: keys
+  // 16 kk .. 16 kk + 15
+  const float rs[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+  unsigned pa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* e = sc[2 * kk + half];
+        pa[kk][half * 2 + i] = pack_bf16(div_by(e[2 * i], sum[i], rs[i]),
+                                         div_by(e[2 * i + 1], sum[i], rs[i]));
+      }
+#pragma unroll
+  for (int nd = 0; nd < 4; ++nd)
+    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      unsigned vb[4];
+      ldsm_x4_t(vb, Vs + (kk * 16 + (lane & 15)) * LD +
+                        (2 * p + (lane >> 4)) * 8);
+      mma(o[2 * p], pa[kk], vb[0], vb[1]);
+      mma(o[2 * p + 1], pa[kk], vb[2], vb[3]);
+    }
+}
+
+// o (this warp's 16 rows x 32, f32) rounded to bf16 through rows 16 w ..
+// 16 w + 15 of a [64][LD] tile the warp owns, then rows n < N in 16-byte
+// stores to out + (g N + n) C
+__device__ __forceinline__ void store_rows(const float (&o)[4][4], bf16* tile,
+                                           int w, bf16* __restrict__ out,
+                                           int C, int g, int N) {
+  const int lane = threadIdx.x & 31, row0 = w * 16 + (lane >> 2);
+#pragma unroll
+  for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<unsigned*>(tile + (row0 + 8 * i) * LD + nd * 8 +
+                                   2 * (lane & 3)) =
+          pack_bf16(o[nd][2 * i], o[nd][2 * i + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int e = lane + 32 * u, n = w * 16 + (e >> 2);
+    if (n < N)
+      *reinterpret_cast<uint4*>(out + ((size_t)g * N + n) * C + (e & 3) * 8) =
+          *reinterpret_cast<const uint4*>(tile + n * LD + (e & 3) * 8);
+  }
+}
+
+// One block's share of a launch: head j (blockIdx.y) of the windows
+// g = blockIdx.x, + gridDim.x, ... < Bw. Per window: `attend_rows`
+// (with LSE also lse into lse (Bw, h, N)) and the output's 16-byte
+// stores through the warp's own q rows. UNIT_QK: q and k are first
+// normalised per token (v2). `bias` is the head's (N, N) f32
+// query-major; `out` points at the head's first column of a (Bw, N, C)
+// tensor.
+template <bool UNIT_QK, bool LSE>
+__device__ __forceinline__ void attend_windows(
+    bf16* tiles, const Cols cols, const float* __restrict__ bias,
+    float scale, bf16* __restrict__ out, int C, float* __restrict__ lse,
+    int Bw, int N, int ws, int nWh, int nWw, int shift_h, int shift_w) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = blockIdx.y, h = gridDim.y;
+  const int row0 = warp * 16 + (lane >> 2);   // rows row0 and row0 + 8
+
+  // rows >= N of every tile stay zero: finite logits, P v = 0 off window
+  for (int e = tid; e < STAGES * 3 * (NMAX - N) * 4; e += THREADS) {
+    const int t = e / ((NMAX - N) * 4), r = e % ((NMAX - N) * 4);
+    *reinterpret_cast<uint4*>(tiles + t * TILE + (N + (r >> 2)) * LD +
+                              (r & 3) * 8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  issue_window(tiles, cols, blockIdx.x, N);
+  HeadCells hc;
+  load_head_cells(hc, bias, row0, N, ws, shift_h, shift_w);
 
   int s = 0;
   for (int g = blockIdx.x; g < Bw; g += gridDim.x, s ^= 1) {
@@ -412,133 +580,19 @@ __device__ __forceinline__ void attend_windows(
     const bool edge_y = shift_h > 0 && loc / nWw == nWh - 1;
     const bool edge_x = shift_w > 0 && loc % nWw == nWw - 1;
 
-    // S = q k^T: this warp's 16 rows x 64 keys
     unsigned qa[2][4];
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk)
       ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
                           (lane >> 4) * 8);
-    float sc[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      unsigned kb[4];
-      ldsm_x4(kb, Ks + (nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8);
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.0f;
-      mma(sc[nt], qa[0], kb[0], kb[1]);
-      mma(sc[nt], qa[1], kb[2], kb[3]);
-    }
-
-    // logits, then the softmax of rows row0 and row0 + 8 (a quad a row).
-    // The shift mask and the keys >= N take passes of their own behind
-    // block-uniform branches: most windows need neither.
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          sc[nt][2 * i + c] = __fadd_rn(__fmul_rn(sc[nt][2 * i + c], scale),
-                                        pb[i][nt * 2 + c]);
-    if (edge_y || edge_x) {
-      const unsigned maskbits = (edge_y ? ydiff : 0u) | (edge_x ? xdiff : 0u);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            if ((maskbits >> (i * 16 + nt * 2 + c)) & 1u)
-              sc[nt][2 * i + c] = __fadd_rn(sc[nt][2 * i + c], -100.0f);
-    }
-    if (N < NMAX) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          if (nt * 8 + 2 * tq + c >= N)
-            sc[nt][c] = sc[nt][2 + c] = -INFINITY;
-    }
-    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        mx[i] = fmaxf(mx[i], fmaxf(sc[nt][2 * i], sc[nt][2 * i + 1]));
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          // keys >= N: exp(-inf) = 0
-          const float e = expf(__fsub_rn(sc[nt][2 * i + c], mx[i]));
-          sc[nt][2 * i + c] = e;
-          sum[i] = __fadd_rn(sum[i], e);
-        }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] = __fadd_rn(sum[i], __shfl_xor_sync(0xffffffffu, sum[i], 1));
-      sum[i] = __fadd_rn(sum[i], __shfl_xor_sync(0xffffffffu, sum[i], 2));
-    }
-    if (LSE && tq == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (row0 + 8 * i < N)
-          lse[((size_t)g * h + j) * N + row0 + 8 * i] =
-              __fadd_rn(mx[i], logf(sum[i]));
-    }
-
-    // P = e / s (f32, rounded to bf16) as the A fragments of P v: keys
-    // 16 kk .. 16 kk + 15
-    const float rs[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
-    unsigned pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float* e = sc[2 * kk + half];
-          pa[kk][half * 2 + i] = pack_bf16(div_by(e[2 * i], sum[i], rs[i]),
-                                           div_by(e[2 * i + 1], sum[i], rs[i]));
-        }
     float o[4][4];
-#pragma unroll
-    for (int nd = 0; nd < 4; ++nd)
-      o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        unsigned vb[4];
-        ldsm_x4_t(vb, Vs + (kk * 16 + (lane & 15)) * LD +
-                          (2 * p + (lane >> 4)) * 8);
-        mma(o[2 * p], pa[kk], vb[0], vb[1]);
-        mma(o[2 * p + 1], pa[kk], vb[2], vb[3]);
-      }
-
-    // O to bf16 through this warp's own q rows, then 16-byte stores
-#pragma unroll
-    for (int nd = 0; nd < 4; ++nd)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<unsigned*>(Qs + (row0 + 8 * i) * LD + nd * 8 +
-                                     2 * tq) =
-            pack_bf16(o[nd][2 * i], o[nd][2 * i + 1]);
-    __syncwarp();
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int e = lane + 32 * u, n = warp * 16 + (e >> 2);
-      if (n < N)
-        *reinterpret_cast<uint4*>(out + ((size_t)g * N + n) * C +
-                                  (e & 3) * 8) =
-            *reinterpret_cast<const uint4*>(Qs + n * LD + (e & 3) * 8);
-    }
+    attend_rows<LSE>(qa, Ks, Vs,
+                     [&](int i, int k) { return hc.pb[i][k]; },
+                     edge_y || edge_x,
+                     (edge_y ? hc.ydiff : 0u) | (edge_x ? hc.xdiff : 0u),
+                     scale, N, row0,
+                     LSE ? lse + ((size_t)g * h + j) * N : nullptr, o);
+    store_rows(o, Qs, warp, out, C, g, N);
   }
 }
 

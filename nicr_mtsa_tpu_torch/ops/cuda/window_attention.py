@@ -15,24 +15,31 @@ Two entries share the kernel and its launch counter:
   partitioned copies. This is the entry the Swin backbone calls.
 
 On the card the work is done by csrc/window_attention_block.cu, which
-also computes the qkv and output-projection products itself; on CPU
-tensors the wrappers run the plain versions,
-`window_attention_block_reference` and `window_attention_image_reference`.
-Both round at the TPU kernel's points. The shift mask follows
-`shift_region_ids`: the kernel derives each token's region from the
-window's grid position instead of reading an (nW, N, N) mask."""
+also computes the qkv and output-projection products itself (in bf16
+two kernels a call: qkv and attention per (window, head), then the
+projection as a tiled GEMM over all windows' rows); on CPU tensors the
+wrappers run the plain versions, `window_attention_block_reference` and
+`window_attention_image_reference`. Both round at the TPU kernel's
+points. The shift mask follows `shift_region_ids`: the kernel derives
+each token's region from the window's grid position instead of reading
+an (nW, N, N) mask. The bf16 image entry finds each token's pixel in
+`image_token_rows`, a table cached per image shape."""
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ._build import check, is_cuda_tensor, load_library, refuse_grad
 
 _FUNCS = {torch.float32: 'window_attention_block_f32',
           torch.bfloat16: 'window_attention_block_bf16'}
 HEAD_DIM = 32                  # the kernel's head width
+KC = 64                        # the bf16 kernels' K chunk
+PROJ_BN = 128                  # the projection kernel's output columns a tile
 
 
 def window_partition(x, ws: int):
@@ -77,6 +84,23 @@ def shift_region_ids(grid_hw: Tuple[int, int], ws: int,
         + axis(nWw * ws, shift[1])[None, :]
     return img.reshape(nWh, ws, nWw, ws).permute(0, 2, 1, 3).reshape(
         nWh * nWw, ws * ws)
+
+
+@functools.lru_cache(maxsize=32)
+def image_token_rows(B: int, H: int, W: int, ws: int, shift: int,
+                     device=None) -> torch.Tensor:
+    """(B * nWh * nWw * ws * ws,) int32: the pixel b H W + y W + x of a
+    (B, H, W, C) image that each token of the Swin block's windows reads
+    (zero pad to window multiples, cyclic shift as `image_windows`
+    gives it, window partition; windows in image-major, then row-major
+    grid order), -1 for a token of the zero pad. The kernels' row table
+    of the image entry; cached per shape."""
+    pad_h, pad_w, _, (sh, sw) = image_windows(H, W, ws, shift)
+    idx = torch.arange(B * H * W, dtype=torch.int32, device=device)
+    idx = F.pad(idx.view(B, H, W, 1), (0, 0, 0, pad_w, 0, pad_h), value=-1)
+    if sh or sw:
+        idx = torch.roll(idx, (-sh, -sw), dims=(1, 2))
+    return window_partition(idx, ws).reshape(-1).contiguous()
 
 
 def shift_attn_mask(grid_hw, ws: int, shift, device=None) -> torch.Tensor:
@@ -154,9 +178,66 @@ def window_attention_image_reference(x, wqkv, bqkv, wproj, bproj, bias,
     return y[:, :H, :W] if pad_h or pad_w else y
 
 
+def pack_wqkv(wqkv, n_heads: int) -> torch.Tensor:
+    """(C, 3C) -> (h, ceil(C / 64), 64 * 96): for each head j and chunk of
+    64 rows, the q_j, k_j and v_j columns as one contiguous tile in the
+    bf16 kernel's shared-memory layout of the B operand (8 x 8 core
+    matrices, core (k / 8, n / 8) at (k / 8) 12 + n / 8; rows past C
+    zero)."""
+    C = wqkv.shape[0]
+    nK = -(-C // KC)
+    w = F.pad(wqkv, (0, 0, 0, nK * KC - C))
+    # k = (chunk, core row, row in core); n = (part, head, core, column)
+    w = w.reshape(nK, KC // 8, 8, 3, n_heads, HEAD_DIM // 8, 8)
+    return w.permute(4, 0, 1, 3, 5, 2, 6).reshape(n_heads, nK, -1)
+
+
+def pack_wproj(wproj) -> torch.Tensor:
+    """(C, C) -> (ceil(C / 128), ceil(C / 64), 64 * 128): for each tile of
+    128 output columns and chunk of 64 rows, one contiguous tile in the
+    projection kernel's shared-memory layout (as `pack_wqkv`, 16 cores a
+    core row; padding zero)."""
+    C = wproj.shape[0]
+    nK, nN = -(-C // KC), -(-C // PROJ_BN)
+    w = F.pad(wproj, (0, nN * PROJ_BN - C, 0, nK * KC - C))
+    w = w.reshape(nK, KC // 8, 8, nN, PROJ_BN // 8, 8)
+    return w.permute(3, 0, 1, 4, 2, 5).reshape(nN, nK, -1)
+
+
+_PACKED = WeakIdKeyDictionary()
+
+
+def _packed(w, dt, n_heads=None):
+    """`pack_wqkv(w, n_heads)` (or with n_heads None `pack_wproj(w)`) in
+    dtype dt, cached per weight tensor, dtype and version: the Swin
+    blocks pass the same weights every call. An inference tensor has no
+    version counter and is taken as unchanged while it lives (the
+    model's cached weights are new tensors whenever a parameter
+    changes)."""
+    key = (dt, n_heads)
+    version = None if w.is_inference() else w._version
+    entry = _PACKED.setdefault(w, {})
+    hit = entry.get(key)
+    if hit is None or hit[0] != version:
+        wt = w.to(dt)
+        packed = pack_wproj(wt) if n_heads is None else pack_wqkv(wt, n_heads)
+        hit = entry[key] = (version, packed.contiguous())
+    return hit[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    fn = getattr(load_library('window_attention_block'), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
 def _launch(x, wqkv, bqkv, wproj, bproj, bias, n_heads, ws, grid_hw, shift,
-            v2_scale, image: bool):
-    """x: windows (Bw, N, C), or with `image` the (B, H, W, C) image."""
+            v2_scale, image_shift=None):
+    """x: windows (Bw, N, C), or with `image_shift` (the block's shift)
+    the (B, H, W, C) image."""
     C, N = x.shape[-1], ws * ws
     if x.dtype not in _FUNCS or N > 64 or C != n_heads * HEAD_DIM:
         raise ValueError(f'window_attention_block takes (Bw, N <= 64 square, '
@@ -166,6 +247,7 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, n_heads, ws, grid_hw, shift,
         raise ValueError(f'window_attention_block: bias must be '
                          f'({n_heads}, {N}, {N}), got {tuple(bias.shape)}')
     dt, dev = x.dtype, x.device
+    image = image_shift is not None
     sh, sw = shift if shift is not None else (0, 0)
     nWh, nWw = grid_hw
     Bw = x.shape[0] * nWh * nWw if image else x.shape[0]
@@ -173,17 +255,21 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, n_heads, ws, grid_hw, shift,
     if (sh or sw) and Bw % (nWh * nWw):
         raise ValueError(f'window_attention_block: {Bw} windows are not '
                          f'whole images of a {nWh} x {nWw} window grid')
-    lib = load_library('window_attention_block')
-    fn = getattr(lib, _FUNCS[dt])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float, ctypes.c_void_p]
+    fn = _entry(_FUNCS[dt])
     x = x.contiguous()
-    wqkv = wqkv.to(device=dev, dtype=dt).contiguous()
-    wproj = wproj.to(device=dev, dtype=dt).contiguous()
-    # biases as f32 values already rounded to the compute dtype
-    bqkv = bqkv.to(device=dev, dtype=dt).float().contiguous()
-    bproj = bproj.to(device=dev, dtype=dt).float().contiguous()
+    if x.data_ptr() % 16:               # the kernels load 16-byte vectors
+        x = x.clone()
+    rows = (image_token_rows(x.shape[0], img_h, img_w, ws, image_shift, dev)
+            if image and dt == torch.bfloat16 else None)
+    if dt == torch.bfloat16:     # the kernels' tiled weight layouts
+        wqkv = _packed(wqkv.to(dev), dt, n_heads)
+        wproj = _packed(wproj.to(dev), dt)
+    else:
+        wqkv = wqkv.to(device=dev, dtype=dt).contiguous()
+        wproj = wproj.to(device=dev, dtype=dt).contiguous()
+    # biases in f32: the kernels round them to the compute dtype
+    bqkv = bqkv.to(device=dev, dtype=torch.float32).contiguous()
+    bproj = bproj.to(device=dev, dtype=torch.float32).contiguous()
     bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     scale = (None if v2_scale is None else
              v2_scale.to(device=dev, dtype=torch.float32).contiguous())
@@ -191,7 +277,8 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, n_heads, ws, grid_hw, shift,
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+        err = fn(x.data_ptr(), None if rows is None else rows.data_ptr(),
+                 wqkv.data_ptr(), bqkv.data_ptr(),
                  wproj.data_ptr(), bproj.data_ptr(), bias.data_ptr(),
                  None if scale is None else scale.data_ptr(),
                  attn.data_ptr(), out.data_ptr(), Bw, N, C, n_heads, ws,
@@ -226,7 +313,7 @@ def window_attention_block(x, wqkv, bqkv, wproj, bproj, bias, n_heads: int,
         raise ValueError(f'window_attention_block: {x.shape[1]} tokens are '
                          f'not a square window')
     return _launch(x, wqkv, bqkv, wproj, bproj, bias, n_heads, ws,
-                   tuple(grid_hw), shift, v2_scale, image=False)
+                   tuple(grid_hw), shift, v2_scale)
 
 
 window_attention_block.launches = 0
@@ -248,4 +335,4 @@ def window_attention_image(x, wqkv, bqkv, wproj, bproj, bias, n_heads: int,
                 v2_scale)
     _, _, grid_hw, (sh, sw) = image_windows(x.shape[1], x.shape[2], ws, shift)
     return _launch(x, wqkv, bqkv, wproj, bproj, bias, n_heads, ws, grid_hw,
-                   (sh, sw) if sh or sw else None, v2_scale, image=True)
+                   (sh, sw) if sh or sw else None, v2_scale, shift)

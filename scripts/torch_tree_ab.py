@@ -8,25 +8,33 @@ Each turn runs in its own process from the root of the named tree (a
 checkout, or a `git archive` unpacked into a directory that .gitignore
 lists), builds that tree's kernels and times, on the same inputs made
 from a seed:
-- row 7's bf16 forward (`window_attention_core_forward`) and its dbias
-  reduction (`dbias_reduce`, on partials of the backward's shape) at
-  the four Swin stages of B=8 480 x 640 training, shifted v2;
+- row 7's bf16 forward (`window_attention_core_forward`), its backward
+  (`window_attention_core_backward`, with the dbias reduction it
+  launches) and its dbias reduction alone (`dbias_reduce`, on partials
+  of the backward's shape) at the four Swin stages of B=8 480 x 640
+  training, shifted v2;
+- row 8 (`window_attention_image`, bf16, shifted v2) on the B=8 images
+  of the four stages of 480 x 640 serving, and beside it the `'qkv'`
+  composite that `--attn-qkv` serving runs for the same function (the
+  qkv product and the projection by torch matmuls, the pad, roll and
+  partition copies, row 9): a yardstick, not `library_ms`;
 - row 9 (`window_attention_qkv`, bf16, v2) at the four stages of B=8
   480 x 640 serving;
 - the PyTorch calls for the same work at each stage (chip_smoke.py's
   `library_ms`): F.scaled_dot_product_attention on bf16 (windows,
-  heads, 64, 32) q, k, v with a float mask, and torch.sum over the
-  dbias partials;
+  heads, 64, 32) q, k, v with a float mask, forward alone and forward +
+  backward (q, k, v gradients), and torch.sum over the dbias partials;
 each in two ways: `event_ms`, CUDA events around one call (as
 chip_smoke.py's `cuda_ms` times a kernel: the wrapper's host time shows
 whenever it exceeds the kernel's), and `stream_ms`, a batch of
 back-to-back calls queued behind a spin kernel, per call (the card's
 time alone). Unless --kernels-only, the turn then runs the tree's own
-chip_smoke.py phases 17 (`--attn-qkv` serving, B=8) and 11 (Swin
-training, B=8). The stages are those of this script's own tree
-(chip_smoke.py's CORE_CASES and PADDED_STAGES), passed to every turn.
-A tree under test needs chip_smoke.py's `_core_inputs`,
-`_padded_stage_qkv`, `card_line`, `serve_exact`, `train_swin` and
+chip_smoke.py phases 8 (Swin serving, B=8), 17 (`--attn-qkv` serving,
+B=8) and 11 (Swin training, B=8). The stages are those of this
+script's own tree (chip_smoke.py's CORE_CASES, PADDED_STAGES and
+BLOCK_STAGES), passed to every turn. A tree under test needs
+chip_smoke.py's `_core_inputs`, `_padded_stage_qkv`, `_wab_weights`,
+`card_line`, `serve_exact`, `train_swin`, `SWIN_KERNELS` and
 `QKV_KERNELS` with the signatures this tree's chip_smoke.py has. Each
 turn prints one JSON line; all of them, with the card's name and power
 limit, go to chiprun_out/tree_ab.json. Needs no network and no JAX."""
@@ -71,13 +79,37 @@ def _times(fn):
 
 
 def stages():
-    """{'core': {stage: (windows, C, window grid)}, 'qkv': {stage:
-    (image H, W, C)}} of B=8 480 x 640, from this tree's chip_smoke.py
-    (row 9's stage 1 is the unpadded 120 x 160 image)."""
+    """{'core': {stage: (windows, C, window grid)}, 'qkv' and 'block':
+    {stage: (image H, W, C)}} of B=8 480 x 640, from this tree's
+    chip_smoke.py (row 9's stage 1 is the unpadded 120 x 160 image)."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     return {'core': cs.CORE_CASES,
-            'qkv': {'stage1': (120, 160, 128), **cs.PADDED_STAGES}}
+            'qkv': {'stage1': (120, 160, 128), **cs.PADDED_STAGES},
+            'block': cs.BLOCK_STAGES}
+
+
+def qkv_composite(wa, waq, x, w, ws: int, shift: int):
+    """Row 8's function as `--attn-qkv` serving computes it on a
+    (B, H, W, C) image (models/backbones/swin.py `forward_qkv` inside
+    `_windowed`): pad, roll, partition, qkv = windows @ Wqkv + b in the
+    compute dtype, row 9, out @ Wproj + b, and back. `w`: the weights
+    in x's dtype, as `_wab_weights` names them."""
+    import torch
+    import torch.nn.functional as F
+    B, H, W, C = x.shape
+    pad_h, pad_w, grid, (sh, sw) = wa.image_windows(H, W, ws, shift)
+    y = F.pad(x, (0, 0, 0, pad_w, 0, pad_h)) if pad_h or pad_w else x
+    if sh or sw:
+        y = torch.roll(y, (-sh, -sw), dims=(1, 2))
+    o = waq.window_attention_qkv(
+        wa.window_partition(y, ws) @ w['wqkv'] + w['bqkv'], w['bias'],
+        w['n_heads'], grid, (sh, sw) if sh or sw else None, w['v2_scale'])
+    y = wa.window_unpartition(o @ w['wproj'] + w['bproj'], ws, H + pad_h,
+                              W + pad_w)
+    if sh or sw:
+        y = torch.roll(y, (sh, sw), dims=(1, 2))
+    return y[:, :H, :W] if pad_h or pad_w else y
 
 
 def child(args) -> None:
@@ -87,20 +119,27 @@ def child(args) -> None:
     import torch.nn.functional as F
     import chip_smoke as cs
     from nicr_mtsa_tpu_torch.ops import cuda as kernels
-    from nicr_mtsa_tpu_torch.ops.cuda import (window_attention_core as wac,
+    from nicr_mtsa_tpu_torch.ops.cuda import (window_attention as wa,
+                                              window_attention_core as wac,
                                               window_attention_qkv as waq)
     build_s = kernels.build_all()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {'tree': args.child, 'build_s': build_s, 'row7_fwd': {},
-           'row7_dbias': {}, 'row9': {}, 'sdpa': {}, 'torch_sum': {}}
+           'row7_bwd': {}, 'row7_dbias': {}, 'row8': {},
+           'qkv_composite': {}, 'row9': {}, 'sdpa': {}, 'sdpa_fwd_bwd': {},
+           'torch_sum': {}}
     table = json.loads(args.stages)
     g = torch.Generator(device='cuda').manual_seed(9)
     for stage, (Bw, C, grid) in table['core'].items():
-        q, k, v, _, bias = cs._core_inputs(g, Bw, C, torch.bfloat16)
+        q, k, v, do, bias = cs._core_inputs(g, Bw, C, torch.bfloat16)
         fargs = (q, k, v, bias, grid, (4, 4))
         out['row7_fwd'][stage] = _times(
             lambda: wac.window_attention_core_forward(*fargs))
+        bargs = (q, k, v, bias, do,
+                 wac.window_attention_core_forward(*fargs)[1], grid, (4, 4))
+        out['row7_bwd'][stage] = _times(
+            lambda: wac.window_attention_core_backward(*bargs))
         h = C // 32
         wpb = max(1, Bw * h // wac.BWD_BLOCKS)
         parts = torch.randn(-(-Bw // wpb), h, 64, 64, device='cuda',
@@ -108,9 +147,29 @@ def child(args) -> None:
         out['row7_dbias'][stage] = _times(lambda: wac.dbias_reduce(parts))
         out['torch_sum'][stage] = _times(lambda: parts.sum(0))
         heads = [torch.randn(Bw, h, 64, n, device='cuda', generator=g,
-                             dtype=torch.bfloat16) for n in (32, 32, 32, 64)]
+                             dtype=torch.bfloat16)
+                 for n in (32, 32, 32, 64, 32)]
         out['sdpa'][stage] = _times(lambda: F.scaled_dot_product_attention(
             *heads[:3], attn_mask=heads[3], scale=1.0))
+        leaves = [t.clone().requires_grad_() for t in heads[:3]]
+
+        def sdpa_fwd_bwd():
+            for t in leaves:
+                t.grad = None
+            F.scaled_dot_product_attention(
+                *leaves, attn_mask=heads[3], scale=1.0).backward(heads[4])
+
+        out['sdpa_fwd_bwd'][stage] = _times(sdpa_fwd_bwd)
+    for stage, (Hs, Ws, C) in table['block'].items():
+        w = {k: (v.to(torch.bfloat16) if k in ('wqkv', 'bqkv', 'wproj',
+                                                'bproj') else v)
+             for k, v in cs._wab_weights(g, C, True, 8).items()}
+        x = torch.randn(8, Hs, Ws, C, device='cuda', generator=g,
+                        dtype=torch.bfloat16)
+        out['row8'][stage] = _times(lambda: wa.window_attention_image(
+            x=x, ws=8, shift=4, **w))
+        out['qkv_composite'][stage] = _times(
+            lambda: qkv_composite(wa, waq, x, w, 8, 4))
     for stage, (Hs, Ws, C) in table['qkv'].items():
         h = C // 32
         qkv, grid = cs._padded_stage_qkv(g, 8, Hs, Ws, C, 8, 4,
@@ -123,13 +182,16 @@ def child(args) -> None:
     if not args.kernels_only:
         from nicr_mtsa_tpu_torch.pipeline import emsaformer_bench_config
         card, result = cs.card_line(), {}
+        cs.serve_exact(emsaformer_bench_config(), args.swin_requests,
+                       cs.SWIN_KERNELS, kernels, card, result,
+                       'serving_swin')
         cs.serve_exact(emsaformer_bench_config(attn_backend='qkv'),
                        args.swin_requests, cs.QKV_KERNELS, kernels, card,
                        result, 'serving_qkv')
         cs.train_swin(argparse.Namespace(train_steps=args.train_steps,
                                          profile=False), kernels, card,
                       result)
-        for key in ('serving_qkv', 'train_swin'):
+        for key in ('serving_swin', 'serving_qkv', 'train_swin'):
             out[key] = {k: result[key][k] for k in
                         ('frames_per_s', 'rounds_frames_per_s')}
     print('TREE_AB ' + json.dumps(out), flush=True)

@@ -15,7 +15,11 @@ come from numpy seeds; everything is f32 unless a bf16 case says so.
   shifted and unshifted; the shift-region rule equals
   `_shift_attn_mask`; the image entry (`window_attention_image`, the
   Swin block's call) within 1e-5 of the JAX block's pad, roll,
-  partition, attention and back.
+  partition, attention and back; the table of each window token's
+  pixel that the bf16 image entry reads (`image_token_rows`) gathers
+  exactly the JAX block's padded, rolled and partitioned windows, and
+  the bf16 kernels' packed weight tiles (`pack_wqkv`, `pack_wproj`)
+  hold each weight where the kernels read it.
 - Bilinear 4x finisher (`upsample4x_bilinear_argmax_score`): idx
   bit-identical, first index on ties, score within rtol 1e-5.
 
@@ -239,6 +243,64 @@ def test_window_attention_image_matches_jax_block(v2, ws, H, W, shift):
     assert got.shape == want.shape
     err = np.abs(got - want).max()
     assert err <= 1e-5 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize('B,H,W,ws,shift', [
+    (2, 16, 24, 8, 4),         # no pad, shifted
+    (2, 15, 20, 8, 4),         # padded and shifted (stage 4 of 480 x 640)
+    (1, 15, 20, 7, 3),         # v1 49-token windows, padded, shifted
+    (1, 8, 20, 8, 4),          # one window row: shift only along W
+    (2, 12, 20, 8, 0),         # padded, unshifted
+    (1, 30, 40, 8, 4)])        # stage 3 of 480 x 640, shifted
+def test_image_token_rows_match_pad_roll_partition(B, H, W, ws, shift):
+    """The bf16 image entry's row table: the image's pixels gathered by
+    it (-1: a token of the zero pad) are the JAX block's windows,
+    window_partition(roll(pad(x)))."""
+    C = 8
+    x = np.random.default_rng(6).normal(size=(B, H, W, C)).astype(
+        np.float32)
+    Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
+    sh, sw = (shift if ws < Hp else 0), (shift if ws < Wp else 0)
+    y = jnp.pad(jnp.asarray(x), ((0, 0), (0, Hp - H), (0, Wp - W), (0, 0)))
+    y = jnp.roll(y, (-sh, -sw), axis=(1, 2))
+    want = np.asarray(window_partition(y, ws)).reshape(-1, C)
+    rows = t_wa.image_token_rows(B, H, W, ws, shift).numpy()
+    assert rows.dtype == np.int32 and rows.shape == (want.shape[0],)
+    assert (rows == -1).sum() == B * (Hp * Wp - H * W)
+    pixels = np.concatenate([x.reshape(-1, C), np.zeros((1, C), np.float32)])
+    np.testing.assert_array_equal(pixels[rows], want)   # -1: the zero row
+
+
+@pytest.mark.parametrize('C,h', [(128, 4), (96, 3), (256, 8)])
+def test_packed_weights_hold_the_kernel_layout(C, h):
+    """The bf16 kernels' weight tiles: element (k, n) of a 64-row chunk
+    at ((k % 64) / 8 cores-per-row + n / 8) 64 + (k % 8) 8 + n % 8, with
+    12 cores a row for head j's q_j | k_j | v_j columns and 16 for a
+    128-column tile of Wproj; rows and columns past C zero."""
+    rng = np.random.default_rng(7)
+    wqkv = torch.from_numpy(rng.normal(size=(C, 3 * C)).astype(np.float32))
+    wproj = torch.from_numpy(rng.normal(size=(C, C)).astype(np.float32))
+    nK, nN = -(-C // 64), -(-C // 128)
+    k = np.arange(nK * 64)[:, None]
+    core = lambda n, per_row: (((k % 64) // 8) * per_row + n // 8) * 64 \
+        + (k % 8) * 8 + n % 8
+    got = t_wa.pack_wqkv(wqkv, h).numpy()
+    assert got.shape == (h, nK, 64 * 96)
+    n = np.arange(96)[None, :]
+    w = np.concatenate([wqkv.numpy(), np.zeros((nK * 64 - C, 3 * C),
+                                               np.float32)])
+    for j in range(h):
+        want = np.zeros((nK, 64 * 96), np.float32)
+        want[k // 64, core(n, 12)] = w[k, (n // 32) * C + j * 32 + n % 32]
+        np.testing.assert_array_equal(got[j], want)
+    got = t_wa.pack_wproj(wproj).numpy()
+    assert got.shape == (nN, nK, 64 * 128)
+    n = np.arange(nN * 128)[None, :]
+    w = np.zeros((nK * 64, nN * 128), np.float32)
+    w[:C, :C] = wproj.numpy()
+    want = np.zeros((nN, nK, 64 * 128), np.float32)
+    want[n // 128, k // 64, core(n % 128, 16)] = w[k, n]
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize('grid_hw,ws,shift', [
