@@ -10,8 +10,8 @@ phases; any failure exits non-zero and prints no result:
    kernel from nicr_mtsa_tpu_torch/ops/cuda/csrc (one nvcc per source,
    in parallel), print the registers, spills and resident blocks an SM
    of the window-attention tile kernels (rows 7 and 9's forward tile,
-   row 8's two bf16 kernels), pin f32 convs and matmuls to full
-   precision;
+   row 7's bf16 backward, row 8's two bf16 kernels), pin f32 convs and
+   matmuls to full precision;
 2. hold each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (idx, ids, min_d2 and counts exact,
    scores within rtol 1e-5; the intersection also against
@@ -59,7 +59,8 @@ phases; any failure exits non-zero and prints no result:
 10. hold the Swin training path's window-attention core (forward,
    flash-style backward and the deterministic dbias reduction) against
    its plain versions at stages 1 to 4 (2400 windows, C=128, 4 heads;
-   640, 256, 8; 160, 512, 16; 48, 1024, 32), all shifted: f32 within
+   640, 256, 8; 160, 512, 16; 48, 1024, 32) and a v1 stage of 49-token
+   windows (24 windows of a 3 x 4 grid, C=128), all shifted: f32 within
    1e-4 and bf16 within 1e-2 of max |.|, the reduction exactly, the
    backward's outputs bit-equal over two runs; timed at every stage
    against the bound, F.scaled_dot_product_attention and torch.sum, the
@@ -243,7 +244,8 @@ TILE_KERNELS = {
         ('qkv_attend_kernelILb0E', None),
         ('proj_kernel', 'window_attention_block_proj_blocks_per_sm')),
     'window_attention_core': (
-        ('wac_fwd_bf16_kernel', 'wac_forward_bf16_blocks_per_sm'),),
+        ('wac_fwd_bf16_kernel', 'wac_forward_bf16_blocks_per_sm'),
+        ('wac_bwd_bf16_kernel', 'wac_backward_bf16_blocks_per_sm')),
     'window_attention_qkv': (
         ('waq_bf16_kernelILb1E', 'window_attention_qkv_bf16_blocks_per_sm'),
         ('waq_bf16_kernelILb0E', None)),
@@ -669,22 +671,25 @@ def check_window_attention(wa, report, result):
 # shifted v2 block on its padded window grid
 CORE_CASES = {'stage1': (2400, 128, (15, 20)), 'stage2': (640, 256, (8, 10)),
               'stage3': (160, 512, (4, 5)), 'stage4': (48, 1024, (2, 3))}
+# v1's 49-token windows (7 x 7), shifted (3, 3): 2 images of a 3 x 4
+# window grid, C=128 (the kernels' rows >= N)
+CORE_V1 = (24, 128, (3, 4), 49, (3, 3))
 # bf16: a few ulps (2^-8 relative) of max |.|: another f32 summation
 # order moves a logit by ~1e-6 and can flip the rounding of P, dS or an
 # output value by one ulp
 CORE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
-def _core_inputs(g, Bw, C, dt):
+def _core_inputs(g, Bw, C, dt, N=64):
     """Scaled q (v2: unit rows x ~10), unit k, v, the v2 bias range and
-    an upstream gradient, in `dt` (bias f32)."""
+    an upstream gradient of N-token windows, in `dt` (bias f32)."""
     h = C // 32
     rnd = lambda *s: torch.randn(*s, device='cuda', generator=g)
     unit = lambda t: t / t.norm(dim=-1, keepdim=True)
-    q = (unit(rnd(Bw, 64, h, 32)) * 10).reshape(Bw, 64, C)
-    k = unit(rnd(Bw, 64, h, 32)).reshape(Bw, 64, C)
-    bias = 16 * torch.sigmoid(rnd(h, 64, 64))
-    return [t.to(dt) for t in (q, k, rnd(Bw, 64, C), rnd(Bw, 64, C))] \
+    q = (unit(rnd(Bw, N, h, 32)) * 10).reshape(Bw, N, C)
+    k = unit(rnd(Bw, N, h, 32)).reshape(Bw, N, C)
+    bias = 16 * torch.sigmoid(rnd(h, N, N))
+    return [t.to(dt) for t in (q, k, rnd(Bw, N, C), rnd(Bw, N, C))] \
         + [bias]
 
 
@@ -702,17 +707,49 @@ def _core_bound(Bw, C, elt, backward: bool, peak):
                  peak)
 
 
+def _check_core_case(wac, g, case, Bw, C, grid, shift, N, errs, max_abs):
+    """Row 7 at one shape against its plain versions in f32 and bf16:
+    the forward (out, lse), the backward (dq, dk, dv, dbias from the
+    plain lse) and the backward's outputs bit-equal over two runs."""
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do, bias = _core_inputs(g, Bw, C, dt, N)
+        args = (q, k, v, bias, grid, shift)
+        got = wac.window_attention_core_forward(*args)
+        torch.cuda.synchronize()
+        want = wac.window_attention_core_reference(*args)
+        lse = want[1]
+        bargs = (q, k, v, bias, do, lse, grid, shift)
+        got += wac.window_attention_core_backward(*bargs)
+        torch.cuda.synchronize()
+        again = wac.window_attention_core_backward(*bargs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got[2:], again)):
+            fail(f'window_attention_core {case} {dt}: two backward runs '
+                 f'differ (dbias must be deterministic)')
+        want += wac.window_attention_core_backward_reference(*bargs)
+        for name, a, b in zip(('out', 'lse', 'dq', 'dk', 'dv',
+                               'dbias_bwd'), got, want):
+            tol = 1e-4 if name == 'lse' else CORE_TOL[dt]
+            err = _rel_err(a, b)
+            errs[f'{case}_{str(dt)[6:]}_{name}'] = err
+            max_abs[name] = max(max_abs.get(name, 0.0), float(
+                (a.float() - b.float()).abs().max()))
+            if not err <= tol:
+                fail(f'window_attention_core {case} {dt} {name}: max '
+                     f'error {err} x max |.| > {tol}')
+
+
 def check_window_attention_core(wac, report):
     """Row 7 against its plain versions at stages 1 to 4 (2400 windows,
-    C 128, 4 heads; 640, 256, 8; 160, 512, 16; 48, 1024, 32), shifted:
-    the forward
-    (out and lse), the backward (dq, dk, dv, dbias, from the plain
-    lse; its dbias sums the windows in another order than the plain
-    version's `ds.sum(0)`) in f32 within 1e-4 and bf16 within 1e-2 of
-    max |.|, the dbias reduction alone bit for bit against its plain
+    C 128, 4 heads; 640, 256, 8; 160, 512, 16; 48, 1024, 32), shifted,
+    and at a shifted v1 stage of 49-token windows (CORE_V1): the
+    forward (out and lse), the backward (dq, dk, dv, dbias, from the
+    plain lse; its dbias sums the windows in another order than the
+    plain version's `ds.sum(0)`) in f32 within 1e-4 and bf16 within 1e-2
+    of max |.|, the dbias reduction alone bit for bit against its plain
     version on partials of the stage's shape (the same f32 adds in the
     same order), and the backward's outputs bit-equal over two runs.
-    Times bf16 at every stage against the bound and
+    Times bf16 at every stage 1-4 against the bound and
     F.scaled_dot_product_attention (scale 1, the bias and shift mask as
     its float mask; forward alone and forward + backward, q, k, v
     gradients only), the plain versions at stage 1."""
@@ -720,39 +757,14 @@ def check_window_attention_core(wac, report):
     g = torch.Generator(device='cuda').manual_seed(9)
     errs, max_abs, times = {}, {}, {}
     for case, (Bw, C, grid) in CORE_CASES.items():
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v, do, bias = _core_inputs(g, Bw, C, dt)
-            args = (q, k, v, bias, grid, (4, 4))
-            got = wac.window_attention_core_forward(*args)
-            torch.cuda.synchronize()
-            want = wac.window_attention_core_reference(*args)
-            lse = want[1]
-            bargs = (q, k, v, bias, do, lse, grid, (4, 4))
-            got += wac.window_attention_core_backward(*bargs)
-            torch.cuda.synchronize()
-            again = wac.window_attention_core_backward(*bargs)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got[2:], again)):
-                fail(f'window_attention_core {case} {dt}: two backward runs '
-                     f'differ (dbias must be deterministic)')
-            want += wac.window_attention_core_backward_reference(*bargs)
-            for name, a, b in zip(('out', 'lse', 'dq', 'dk', 'dv',
-                                   'dbias_bwd'), got, want):
-                tol = 1e-4 if name == 'lse' else CORE_TOL[dt]
-                err = _rel_err(a, b)
-                errs[f'{case}_{str(dt)[6:]}_{name}'] = err
-                max_abs[name] = max(max_abs.get(name, 0.0), float(
-                    (a.float() - b.float()).abs().max()))
-                if not err <= tol:
-                    fail(f'window_attention_core {case} {dt} {name}: max '
-                         f'error {err} x max |.| > {tol}')
+        _check_core_case(wac, g, case, Bw, C, grid, (4, 4), 64, errs,
+                         max_abs)
         # the reduction alone, on partials of the backward's shape at
         # this stage: the same f32 adds in the same order as its plain
         # version, so bit for bit
         h = C // 32
-        wpb = max(1, Bw * h // wac.BWD_BLOCKS)
-        parts = torch.randn(-(-Bw // wpb), h, 64, 64, device='cuda',
-                            generator=g)
+        parts = torch.randn(wac.bwd_partition(Bw, h)[1], h, 64, 64,
+                            device='cuda', generator=g)
         got = wac.dbias_reduce(parts)
         torch.cuda.synchronize()
         want = wac.dbias_reduce_reference(parts)
@@ -806,6 +818,8 @@ def check_window_attention_core(wac, report):
                                       *bargs)),
                 dbias_plain=cuda_ms(
                     lambda: wac.dbias_reduce_reference(parts)))
+    Bw, C, grid, N, shift = CORE_V1
+    _check_core_case(wac, g, 'v1_49', Bw, C, grid, shift, N, errs, max_abs)
     t1 = times['stage1']
     src = 'nicr_mtsa_tpu_torch/ops/cuda/csrc/window_attention_core.cu'
     rows = (('window_attention_core_fwd', 'fwd', ('out', 'lse'), 533,
@@ -823,8 +837,9 @@ def check_window_attention_core(wac, report):
             bound_ms=t1[f'{key}_bound'][0], bound_by=t1[f'{key}_bound'][1],
             library_ms=t1[lib])
     print(json.dumps({'phase': 'kernel_window_attention_core',
-                      'shapes': {c: [Bw, 64, C] for c, (Bw, C, _) in
-                                 CORE_CASES.items()},
+                      'shapes': {**{c: [Bw, 64, C] for c, (Bw, C, _) in
+                                    CORE_CASES.items()},
+                                 'v1_49': list(CORE_V1[:2]) + [CORE_V1[3]]},
                       'rel_err': errs, 'times': times,
                       'library': 'F.scaled_dot_product_attention(scale=1, '
                                  'float mask): forward, and forward + '

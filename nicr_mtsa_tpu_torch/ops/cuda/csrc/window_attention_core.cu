@@ -23,33 +23,56 @@
 // left out inside the kernel (their tile rows are zero); no padded copy.
 //
 // dbias is deterministic: a backward block owns one head and a fixed
-// range of `wpb` windows, keeps the sum of its windows' dS in registers
-// (each thread owns 16 fixed (query, key) cells) and writes it to its own
-// slot of a (G, h, N, N) partial buffer; `wac_dbias_reduce` then sums the
-// G partials of each cell in order 0 .. G-1. No float atomics: two runs
+// range of `wpb` windows (`bwd_partition` in window_attention_core.py, a
+// function of the shape alone), keeps the sum of its windows' dS in
+// registers (in bf16 each thread owns the 32 (query, key) cells of its S
+// fragments; in f32, 16 fixed cells) and writes it to its own slot of a
+// (G, h, N, N) partial buffer; `wac_dbias_reduce` then sums the G
+// partials of each cell in order 0 .. G-1. No float atomics: two runs
 // give the same bits.
 //
 // What bounds it on an H100: bytes. Per window and head the forward moves
 // 4 N 32 elements (q, k, v in, out) plus N lse floats for 4 N^2 32 flops,
-// the backward 7 N 32 elements for 10 N^2 32 flops: ~16 operations a byte
-// in bf16, far under the ~295 at which the tensor cores would bind. At
-// stage 1 of B=8 480 x 640 training ((2400, 64, 128) bf16) the forward's
-// bound is ~0.048 ms at 3.35 TB/s, the backward's ~0.083 ms. The dbias
-// reduction reads G h N^2 floats once (8.8 MB at stage 1, ~2.6 us).
+// the backward 7 N 32 elements (q, k, v, dO in; dq, dk, dv out) plus N
+// lse floats for 10 N^2 32 flops: ~16 operations a byte in bf16, far
+// under the ~295 at which the tensor cores would bind. The backward's
+// bounds at 3.35 TB/s over the four stages of B=8 480 x 640 training
+// ((2400, 64, 128) to (48, 64, 1024) bf16): 0.0829, 0.0442, 0.0221 and
+// 0.0133 ms; the forward's at stage 1 ~0.048 ms. The dbias reduction
+// reads G h N^2 floats once (~2.6 us at stage 1).
 //
 // Design.
 // - The bf16 forward is the forward tile of window_tiles.cuh (namespace
 //   `fwd`): a warpgroup walks the windows of one head with the head's
 //   bias in registers, a 2-stage cp.async ring ahead of mma.sync
 //   products, S and P in registers, 16-byte output stores.
-// - The backward: one block of 256 threads (8 warps) per (window range,
-//   head); the head's q, k, v and dO tiles are loaded once into shared
-//   memory (16-byte loads, rows >= N zero), the logits, probabilities and
-//   dS live in shared memory; bf16 products on the tensor cores (wmma
-//   16x16x16, f32 accumulators), each warp owning whole 16 x 16 output
-//   tiles; 99 KB of dynamic shared memory.
-// - f32 (the card-vs-CPU check), forward and backward: that structure
-//   with fmaf loops on the CUDA cores (74 KB in the forward).
+// - The bf16 backward (`wac_bwd_bf16_kernel`, replacing the TPU's
+//   `_bwd_call`, nicr_mtsa_tpu/ops/pallas/window_attention.py:563) keeps
+//   the backward's loads in flight and its intermediates out of shared
+//   memory where it can. One warpgroup (128 threads) a block walks its
+//   window range of one head while a 2-stage cp.async ring brings the
+//   next window's q, k, v and dO tiles (its lse rows go straight to
+//   registers); the head's bias is read once into shared memory, in
+//   the order of the fragments each thread owns (16 KB, not registers:
+//   32 dbias sums, P32 and dP already take 96), and the shift mask is
+//   two 32-bit masks a thread, as in the forward. Each warp owns 16
+//   query rows: S = q k^T and dP = dO v^T by mma.sync m16n8k16 fed by
+//   ldmatrix land in the same accumulator layout, so P32 = exp(L - lse),
+//   delta (quad shuffles over the row), dS and the dbias sums stay in
+//   registers, and dQ = dS k takes dS as packed bf16 A fragments. P and
+//   dS (bf16) go to shared memory once; after one barrier each warp
+//   computes 16 key rows of dV = P^T dO and dK = dS^T q from them
+//   (ldmatrix.trans), with no reduction across warps. dq, dk and dv
+//   leave in 16-byte stores through the warp's own rows of the k and v
+//   tiles, free by then. Two barriers a window; 74 KB of dynamic shared
+//   memory and at most 168 registers, so 3 blocks (12 warps) an SM.
+//   Rows >= N: their lse is taken as +inf and keys >= N are set to 0,
+//   so their P32 and dS are exactly 0, and so are the rows >= N the
+//   outputs stage through the tiles.
+// - f32 (the card-vs-CPU check), forward and backward: one block a
+//   (window, head) in the forward, a (window range, head) in the
+//   backward, 256 threads, tiles, logits and products staged in shared
+//   memory, fmaf loops on the CUDA cores (74 KB in the forward).
 // - The dbias reduction: one thread a cell, adding its G partials in
 //   order (~4-5 us of card time at every stage of B=8 480 x 640
 //   training on an H100 80GB HBM3 at 700 W, below torch.sum's; a
@@ -61,16 +84,13 @@ namespace {
 
 using namespace window_tiles;
 
-constexpr int OWN = NMAX * NMAX / THREADS;   // (query, key) cells a thread owns
+constexpr int OWN = NMAX * NMAX / THREADS;   // f32: cells a thread owns
 
 constexpr size_t FWD_F32_SMEM = 3 * NMAX * HLD * 4 + NMAX * S_LD * 4 +
                                 NMAX * P_LD * 4 + NMAX * O_LD * 4;
 
-template <typename E>
-constexpr size_t bwd_smem_bytes() {
-  return 4 * NMAX * HLD * sizeof(E) + 2 * NMAX * S_LD * 4 +
-         2 * NMAX * P_LD * sizeof(E) + 3 * NMAX * O_LD * 4;
-}
+constexpr size_t BWD_F32_SMEM =
+    4 * NMAX * HLD * 4 + 2 * NMAX * S_LD * 4 + 3 * NMAX * O_LD * 4;
 
 // f32: grid (Bw, h), block (g, j) computes head j of window g
 __global__ void __launch_bounds__(THREADS)
@@ -124,29 +144,29 @@ wac_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       nWh, nWw, shift_h, shift_w);
 }
 
-// grid (G, h): block (grp, j) runs head j of windows [grp wpb, (grp+1) wpb)
-// and writes the sum of their dS to dbias_part[grp][j]
-template <typename E>
+// f32: grid (G, h), block (grp, j) runs head j of windows [grp wpb,
+// (grp+1) wpb) and writes the sum of their dS to dbias_part[grp][j]
 __global__ void __launch_bounds__(THREADS)
-wac_bwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
-               const E* __restrict__ v, const E* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ bias,
-               E* __restrict__ dq, E* __restrict__ dk, E* __restrict__ dv,
-               float* __restrict__ dbias_part, int Bw, int N, int C, int ws,
-               int nWh, int nWw, int shift_h, int shift_w, int wpb) {
+wac_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ bias, float* __restrict__ dq,
+                   float* __restrict__ dk, float* __restrict__ dv,
+                   float* __restrict__ dbias_part, int Bw, int N, int C,
+                   int ws, int nWh, int nWw, int shift_h, int shift_w,
+                   int wpb) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int region[NMAX];
   __shared__ float lse_s[NMAX];
   __shared__ float delta[NMAX];
-  E* Qs = reinterpret_cast<E*>(smem);
-  E* Ks = Qs + NMAX * HLD;
-  E* Vs = Ks + NMAX * HLD;
-  E* dOs = Vs + NMAX * HLD;
-  float* S = reinterpret_cast<float*>(dOs + NMAX * HLD);   // L, then P32
-  float* dP = S + NMAX * S_LD;
-  E* P = reinterpret_cast<E*>(dP + NMAX * S_LD);
-  E* dS = P + NMAX * P_LD;
-  float* Odv = reinterpret_cast<float*>(dS + NMAX * P_LD);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + NMAX * HLD;
+  float* Vs = Ks + NMAX * HLD;
+  float* dOs = Vs + NMAX * HLD;
+  float* S = dOs + NMAX * HLD;                  // L, then P32 (= P)
+  float* dP = S + NMAX * S_LD;                  // dP, then dS
+  float* Odv = dP + NMAX * S_LD;
   float* Odq = Odv + NMAX * O_LD;
   float* Odk = Odq + NMAX * O_LD;
 
@@ -183,7 +203,6 @@ wac_bwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
         p = expf(__fsub_rn(x, lse_s[n]));
       }
       S[n * S_LD + m] = p;
-      P[n * P_LD + m] = from_f32<E>(p);
     }
     __syncthreads();
 
@@ -196,7 +215,7 @@ wac_bwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
       const float sum = warp_sum(t);
       if (lane == 0) delta[n] = sum;
     }
-    mm<true, false, D, NMAX>(P, P_LD, dOs, HLD, Odv, O_LD);
+    mm<true, false, D, NMAX>(S, S_LD, dOs, HLD, Odv, O_LD);
     __syncthreads();
 
     // dS = P32 (dP - delta), summed into the owned dbias cells
@@ -206,12 +225,12 @@ wac_bwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
       const float ds = __fmul_rn(S[n * S_LD + m],
                                  __fsub_rn(dP[n * S_LD + m], delta[n]));
       acc[r] = __fadd_rn(acc[r], ds);
-      dS[n * P_LD + m] = from_f32<E>(ds);
+      dP[n * S_LD + m] = ds;
     }
     __syncthreads();
 
-    mm<false, false, D, NMAX>(dS, P_LD, Ks, HLD, Odq, O_LD);  // dS . k
-    mm<true, false, D, NMAX>(dS, P_LD, Qs, HLD, Odk, O_LD);   // dS^T . q
+    mm<false, false, D, NMAX>(dP, S_LD, Ks, HLD, Odq, O_LD);  // dS . k
+    mm<true, false, D, NMAX>(dP, S_LD, Qs, HLD, Odk, O_LD);   // dS^T . q
     __syncthreads();
     store_tile(dv, Odv, g, j, N, C);
     store_tile(dq, Odq, g, j, N, C);
@@ -225,6 +244,230 @@ wac_bwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
     const int e = tid + r * THREADS, n = e / NMAX, m = e % NMAX;
     if (n < N && m < N) part[n * N + m] = acc[r];
   }
+}
+
+// bf16: the backward tile, grid (G, h); block (grp, j) runs head j of
+// windows [grp wpb, (grp+1) wpb) in order and writes the sum of their dS
+// to dbias_part[grp][j]
+__global__ void __launch_bounds__(bwd::THREADS, bwd::MIN_BLOCKS)
+wac_bwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ bias, bf16* __restrict__ dq,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    float* __restrict__ dbias_part, int Bw, int N, int C,
+                    int ws, int nWh, int nWw, int shift_h, int shift_w,
+                    int wpb) {
+  constexpr int THREADS = bwd::THREADS, STAGES = bwd::STAGES;
+  constexpr int LD = bwd::LD, TILE = bwd::TILE, PLD = bwd::PLD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);     // STAGES x (q, k, v, dO)
+  bf16* Ps = ring + STAGES * 4 * TILE;            // P  [64][PLD], query-major
+  bf16* dSs = Ps + NMAX * PLD;                    // dS [64][PLD]
+  float2* cells = reinterpret_cast<float2*>(dSs + NMAX * PLD);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tq = lane & 3, row0 = warp * 16 + (lane >> 2);  // rows row0, +8
+  const int grp = blockIdx.x, j = blockIdx.y, h = gridDim.y, col = j * D;
+  const int g_begin = grp * wpb, g_end = min(Bw, g_begin + wpb);
+  const bf16* const src[4] = {q + col, k + col, v + col, dout + col};
+
+  // rows >= N of every tile stay zero (and so do the outputs staged
+  // there: see the header)
+  for (int e = tid; e < STAGES * 4 * (NMAX - N) * 4; e += THREADS) {
+    const int t = e / ((NMAX - N) * 4), r = e % ((NMAX - N) * 4);
+    *reinterpret_cast<uint4*>(ring + t * TILE + (N + (r >> 2)) * LD +
+                              (r & 3) * 8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  bwd::issue_window(ring, src, C, g_begin, N);
+  // the head's bias cells to shared memory, in fragment order (pairs of
+  // keys); the shift-mask bits stay in registers
+  fwd::HeadCells hc;
+  fwd::load_head_cells(hc, bias + (size_t)j * N * N, row0, N, ws, shift_h,
+                       shift_w);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      cells[(i * 8 + nt) * THREADS + tid] =
+          make_float2(hc.pb[i][2 * nt], hc.pb[i][2 * nt + 1]);
+  const float2* my_cells = cells + tid;
+  // lse of rows row0 and row0 + 8 of window g; +inf for rows >= N, so
+  // that their P32 is exp(-inf) = 0
+  auto row_lse = [&](int g, float (&ls)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = row0 + 8 * i;
+      ls[i] = n < N ? __ldg(lse + ((size_t)g * h + j) * N + n) : INFINITY;
+    }
+  };
+  float ls[2];
+  row_lse(g_begin, ls);
+  float acc[8][4];                          // dbias sums, as S fragments
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+
+  int s = 0;
+  for (int g = g_begin; g < g_end; ++g, s ^= 1) {
+    bf16* Qs = ring + s * 4 * TILE;
+    bf16* Ks = Qs + TILE;
+    bf16* Vs = Ks + TILE;
+    const bf16* Ds = Vs + TILE;             // dO
+    fwd::cp_async_wait_all();
+    __syncthreads();              // this stage landed; the other is free
+    float ls_next[2] = {0.0f, 0.0f};
+    if (g + 1 < g_end) {
+      bwd::issue_window(ring + (s ^ 1) * 4 * TILE, src, C, g + 1, N);
+      row_lse(g + 1, ls_next);
+    }
+    const int loc = g % (nWh * nWw);
+    const bool edge_y = shift_h > 0 && loc / nWw == nWh - 1;
+    const bool edge_x = shift_w > 0 && loc % nWw == nWw - 1;
+    const unsigned maskbits =
+        (edge_y ? hc.ydiff : 0u) | (edge_x ? hc.xdiff : 0u);
+
+    // S = q k^T (16 rows x 64 keys a warp), then L and P32 in place
+    unsigned fa[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      fwd::ldsm_x4(fa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                               (lane >> 4) * 8);
+    float p[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      unsigned kb[4];
+      fwd::ldsm_x4(kb, Ks + (nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8);
+      p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.0f;
+      fwd::mma(p[nt], fa[0], kb[0], kb[1]);
+      fwd::mma(p[nt], fa[1], kb[2], kb[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 b = my_cells[(i * 8 + nt) * THREADS];
+        p[nt][2 * i] = __fadd_rn(p[nt][2 * i], b.x);
+        p[nt][2 * i + 1] = __fadd_rn(p[nt][2 * i + 1], b.y);
+      }
+    if (maskbits != 0u) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if ((maskbits >> (i * 16 + nt * 2 + c)) & 1u)
+              p[nt][2 * i + c] = __fadd_rn(p[nt][2 * i + c], -100.0f);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          p[nt][2 * i + c] = expf(__fsub_rn(p[nt][2 * i + c], ls[i]));
+    if (N < NMAX) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (nt * 8 + 2 * tq + c >= N) p[nt][c] = p[nt][2 + c] = 0.0f;
+    }
+    // P = P32 rounded to bf16, for dV after the barrier
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<unsigned*>(Ps + (row0 + 8 * i) * PLD + nt * 8 +
+                                     2 * tq) =
+            fwd::pack_bf16(p[nt][2 * i], p[nt][2 * i + 1]);
+
+    // dP = dO v^T, in the layout of S
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      fwd::ldsm_x4(fa[kk], Ds + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                               (lane >> 4) * 8);
+    float dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      unsigned vb[4];
+      fwd::ldsm_x4(vb, Vs + (nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8);
+      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.0f;
+      fwd::mma(dp[nt], fa[0], vb[0], vb[1]);
+      fwd::mma(dp[nt], fa[1], vb[2], vb[3]);
+    }
+
+    // delta = sum over keys of P32 dP (a quad a row); dS = P32 (dP -
+    // delta) in f32, summed into dbias and rounded to bf16: the A
+    // fragments of dS k, and dS to shared memory for dK
+    float dl[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          dl[i] = __fadd_rn(dl[i], __fmul_rn(p[nt][2 * i + c],
+                                             dp[nt][2 * i + c]));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dl[i] = __fadd_rn(dl[i], __shfl_xor_sync(0xffffffffu, dl[i], 1));
+      dl[i] = __fadd_rn(dl[i], __shfl_xor_sync(0xffffffffu, dl[i], 2));
+    }
+    unsigned sa[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float ds[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          ds[c] = __fmul_rn(p[nt][2 * i + c],
+                            __fsub_rn(dp[nt][2 * i + c], dl[i]));
+          acc[nt][2 * i + c] = __fadd_rn(acc[nt][2 * i + c], ds[c]);
+        }
+        const unsigned packed = fwd::pack_bf16(ds[0], ds[1]);
+        sa[nt >> 1][(nt & 1) * 2 + i] = packed;
+        *reinterpret_cast<unsigned*>(dSs + (row0 + 8 * i) * PLD + nt * 8 +
+                                     2 * tq) = packed;
+      }
+
+    // dQ = dS k (k by ldmatrix.trans, as the forward reads v)
+    float o[4][4];
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd)
+      o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int pp = 0; pp < 2; ++pp) {
+        unsigned kb[4];
+        fwd::ldsm_x4_t(kb, Ks + (kk * 16 + (lane & 15)) * LD +
+                               (2 * pp + (lane >> 4)) * 8);
+        fwd::mma(o[2 * pp], sa[kk], kb[0], kb[1]);
+        fwd::mma(o[2 * pp + 1], sa[kk], kb[2], kb[3]);
+      }
+    __syncthreads();      // P and dS whole; no warp reads k or v any more
+    fwd::store_rows(o, Ks, warp, dq + col, C, g, N);
+    bwd::product_tn(Ps, Ds, warp, o);            // dV = P^T dO, key rows
+    fwd::store_rows(o, Vs, warp, dv + col, C, g, N);
+    bwd::product_tn(dSs, Qs, warp, o);           // dK = dS^T q, key rows
+    __syncwarp();                           // the dq stores read Ks
+    fwd::store_rows(o, Ks, warp, dk + col, C, g, N);
+    ls[0] = ls_next[0];
+    ls[1] = ls_next[1];
+  }
+
+  float* part = dbias_part + ((size_t)grp * h + j) * N * N;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = row0 + 8 * i, m = nt * 8 + 2 * tq + c;
+        if (n < N && m < N) part[n * N + m] = acc[nt][2 * i + c];
+      }
 }
 
 // out[i] = sum over g = 0 .. G-1 (in that order) of part[g][i]
@@ -289,13 +532,20 @@ int backward(const void* q, const void* k, const void* v, const void* dout,
              cudaStream_t stream) {
   if (Bw <= 0) return (int)cudaSuccess;
   if (bad_shape(N, C, h, ws) || wpb <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes<E>();
+  constexpr bool BF16 = std::is_same<E, bf16>::value;
+  void (*kernel)(const E*, const E*, const E*, const E*, const float*,
+                 const float*, E*, E*, E*, float*, int, int, int, int, int,
+                 int, int, int, int);
+  if constexpr (BF16)
+    kernel = wac_bwd_bf16_kernel;
+  else
+    kernel = wac_bwd_f32_kernel;
+  const size_t smem = BF16 ? bwd::SMEM : BWD_F32_SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      wac_bwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int G = (Bw + wpb - 1) / wpb;
-  wac_bwd_kernel<E><<<dim3(G, h), THREADS, smem, stream>>>(
+  kernel<<<dim3(G, h), BF16 ? bwd::THREADS : THREADS, smem, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
       static_cast<const E*>(v), static_cast<const E*>(dout), lse, bias,
       static_cast<E*>(dq), static_cast<E*>(dk), static_cast<E*>(dv),
@@ -336,7 +586,20 @@ extern "C" int wac_dbias_reduce(const float* part, float* out, int G,
   return (int)cudaGetLastError();
 }
 
-// resident blocks an SM of the bf16 forward, reported by chip_smoke.py
+// resident blocks an SM of the bf16 forward and backward, reported by
+// chip_smoke.py; -1 on an error
 extern "C" int wac_forward_bf16_blocks_per_sm() {
   return fwd::blocks_per_sm(wac_fwd_bf16_kernel);
+}
+
+extern "C" int wac_backward_bf16_blocks_per_sm() {
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(wac_bwd_bf16_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bwd::SMEM) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, wac_bwd_bf16_kernel, bwd::THREADS, bwd::SMEM) !=
+          cudaSuccess)
+    return -1;
+  return per_sm;
 }

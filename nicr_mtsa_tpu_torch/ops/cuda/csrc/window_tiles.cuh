@@ -28,12 +28,18 @@
 //   the A fragments of P v (v by ldmatrix.trans); O rounded to bf16 and
 //   written with 16-byte stores through the warp's own q rows.
 //
-// The f32 path (the card-vs-CPU checks) and row 7's backward keep the
-// first design: a block of THREADS threads owns one head (32 columns) of
-// one window of N <= 64 tokens; its tiles live in shared memory as
-// [64][ld] arrays, rows >= N zero; products accumulate in f32 (the
-// tensor cores through wmma for bf16, fmaf chains on the CUDA cores for
-// f32).
+// The bf16 backward (namespace `bwd`: row 7's backward) starts from the
+// forward tile: one warpgroup a block, one head a block, a 2-stage
+// cp.async ring of q, k, v and dO tiles, each warp owning 16 query rows
+// for the products that contract over the keys (S, dP and dQ, with P32,
+// delta and dS in registers); the two that contract over the query rows
+// (dV = P^T dO, dK = dS^T q) read P and dS from shared memory, each warp
+// computing 16 key rows (`product_tn`). See window_attention_core.cu.
+//
+// The f32 paths (the card-vs-CPU checks) keep the first design: a block
+// of THREADS threads owns one head (32 columns) of one window of N <= 64
+// tokens; its tiles live in shared memory as [64][ld] arrays, rows >= N
+// zero; products are fmaf chains on the CUDA cores.
 //
 // The shift mask is never read: each token's shift region comes from the
 // window's position on the padded image's window grid (windows in
@@ -46,7 +52,6 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 #include <type_traits>
 
@@ -60,16 +65,8 @@ constexpr int NMAX = 64;                  // tokens per window, at most
 constexpr int D = 32;                     // head width
 constexpr int HLD = D + 8;                // q, k, v, dO tiles   [64][40]
 constexpr int S_LD = NMAX + 4;            // f32 logits, dP      [64][68]
-constexpr int P_LD = NMAX + 8;            // P, dS in T          [64][72]
+constexpr int P_LD = NMAX + 8;            // P, dS               [64][72]
 constexpr int O_LD = D + 4;               // f32 product staging [64][36]
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -105,13 +102,13 @@ __device__ __forceinline__ void window_regions(int* region, int g, int N,
   }
 }
 
-// columns col .. col + 31 of window g's N rows of a (Bw, N, ld) tensor
-// into a [64][HLD] shared tile, rows >= N zero; 16-byte loads (col and
-// ld multiples of 8 elements, the tensor 16-byte aligned)
-template <typename E>
-__device__ __forceinline__ void load_tile(E* dst, const E* __restrict__ src,
+// f32 columns col .. col + 31 of window g's N rows of a (Bw, N, ld)
+// tensor into a [64][HLD] shared tile, rows >= N zero; 16-byte loads
+// (col and ld multiples of 4, the tensor 16-byte aligned)
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           int g, int N, int ld, int col) {
-  constexpr int PER = 16 / sizeof(E);     // elements per 16-byte vector
+  constexpr int PER = 4;                  // floats per 16-byte vector
   constexpr int VPR = D / PER;            // vectors per row
   for (int e = threadIdx.x; e < NMAX * VPR; e += THREADS) {
     const int n = e / VPR, c = e % VPR;
@@ -123,22 +120,21 @@ __device__ __forceinline__ void load_tile(E* dst, const E* __restrict__ src,
   }
 }
 
-// rows < N of a [64][O_LD] f32 staging tile, rounded to E, into head j's
-// columns of window g of a (Bw, N, C) tensor
-template <typename E>
-__device__ __forceinline__ void store_tile(E* __restrict__ dst,
+// rows < N of a [64][O_LD] f32 staging tile into head j's columns of
+// window g of a (Bw, N, C) f32 tensor
+__device__ __forceinline__ void store_tile(float* __restrict__ dst,
                                            const float* src, int g, int j,
                                            int N, int C) {
   for (int e = threadIdx.x; e < N * D; e += THREADS) {
     const int n = e / D, d = e % D;
-    dst[((size_t)g * N + n) * C + j * D + d] = from_f32<E>(src[n * O_LD + d]);
+    dst[((size_t)g * N + n) * C + j * D + d] = src[n * O_LD + d];
   }
 }
 
 // C (64 x NC, f32, row-major ldc) = A . B, A (64 x K), B (K x NC):
 // A[i][k] at a[i lda + k] (A_COL: a[k lda + i]), B[k][j] at b[k ldb + j]
-// (B_COL: b[j ldb + k]).
-// f32: one output cell per thread and step, fmaf over k in order.
+// (B_COL: b[j ldb + k]); one output cell per thread and step, fmaf over
+// k in order.
 template <bool A_COL, bool B_COL, int NC, int K>
 __device__ __forceinline__ void mm(const float* a, int lda, const float* b,
                                    int ldb, float* c, int ldc) {
@@ -152,36 +148,6 @@ __device__ __forceinline__ void mm(const float* a, int lda, const float* b,
       acc = fmaf(av, bv, acc);
     }
     c[i * ldc + jj] = acc;
-  }
-}
-
-// bf16: tensor cores, one 16 x 16 output tile per warp and step
-template <bool A_COL, bool B_COL, int NC, int K>
-__device__ __forceinline__ void mm(const bf16* a, int lda, const bf16* b,
-                                   int ldb, float* c, int ldc) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<A_COL, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<B_COL, wmma::col_major,
-                                       wmma::row_major>::type;
-  constexpr int TN = NC / 16;
-  const int warp = threadIdx.x >> 5;
-  for (int t = warp; t < (NMAX / 16) * TN; t += WARPS) {
-    const int ti = t / TN, tj = t % TN;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-      wmma::load_matrix_sync(
-          fa, A_COL ? a + k0 * lda + ti * 16 : a + ti * 16 * lda + k0, lda);
-      wmma::load_matrix_sync(
-          fb, B_COL ? b + tj * 16 * ldb + k0 : b + k0 * ldb + tj * 16, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + ti * 16 * ldc + tj * 16, acc, ldc,
-                            wmma::mem_row_major);
   }
 }
 
@@ -626,5 +592,64 @@ inline int blocks_per_sm(Kernel kernel) {
 }
 
 }  // namespace fwd
+
+// ---------------------------------------------------------------------
+// The bf16 backward tile (see the header): row 7's backward.
+namespace bwd {
+
+constexpr int THREADS = 128;      // one warpgroup, 16 query rows a warp
+constexpr int MIN_BLOCKS = 3;     // resident blocks an SM: <= 168 registers
+constexpr int LD = HLD;           // q, k, v, dO tiles [64][40]
+constexpr int TILE = NMAX * LD;
+constexpr int STAGES = 2;
+constexpr int PLD = P_LD;         // P and dS [64][72], 144-byte rows
+constexpr int CELLS = 32 * THREADS;   // the head's bias cells, by thread
+// the ring (q, k, v, dO of each stage), P, dS and the bias cells: 74 KB
+constexpr size_t SMEM =
+    (size_t)(STAGES * 4 * TILE + 2 * NMAX * PLD) * 2 + CELLS * 4;
+
+// copies of window g's rows < N of the head's q, k, v and dO columns
+// (src, each of row stride ld) into one stage (4 tiles); rows >= N are
+// never written
+__device__ __forceinline__ void issue_window(bf16* stage,
+                                             const bf16* const (&src)[4],
+                                             int ld, int g, int N) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    for (int e = threadIdx.x; e < N * 4; e += THREADS) {
+      const int n = e >> 2, part = e & 3;
+      fwd::cp_async16(stage + t * TILE + n * LD + part * 8,
+                      src[t] + ((size_t)g * N + n) * ld + part * 8);
+    }
+  fwd::cp_async_commit();
+}
+
+// o (16 rows x 32, f32) = rows 16 w .. 16 w + 15 of A^T B for A a
+// [64][PLD] tile and B a [64][LD] tile, contracting over all 64 rows of
+// both (the query rows): A^T's fragments by ldmatrix.trans of A's
+// columns, B's as the forward reads v
+__device__ __forceinline__ void product_tn(const bf16* A, const bf16* B,
+                                           int w, float (&o)[4][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nd = 0; nd < 4; ++nd)
+    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    unsigned a[4];
+    fwd::ldsm_x4_t(a, A + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * PLD +
+                          w * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      unsigned b[4];
+      fwd::ldsm_x4_t(b, B + (kk * 16 + (lane & 15)) * LD +
+                            (2 * p + (lane >> 4)) * 8);
+      fwd::mma(o[2 * p], a, b[0], b[1]);
+      fwd::mma(o[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+}  // namespace bwd
 
 }  // namespace window_tiles

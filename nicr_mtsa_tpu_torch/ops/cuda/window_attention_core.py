@@ -36,10 +36,21 @@ from ._build import check, is_cuda_tensor, load_library, refuse_grad
 from .window_attention import HEAD_DIM, shift_attn_mask
 
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
-# (window range, head) blocks the backward aims at: 4 on each of an
-# H100's 132 SMs. A constant, so a shape always gets the same ranges
-# and the same dbias summation order.
-BWD_BLOCKS = 4 * 132
+# (window range, head) blocks of the backward that run at once: 3 on
+# each of an H100's 132 SMs (the bf16 kernel's launch bounds). A
+# constant, not an occupancy query, so a shape always gets the same
+# ranges and the same dbias summation order.
+BWD_SLOTS = 3 * 132
+
+
+def bwd_partition(Bw: int, h: int) -> Tuple[int, int]:
+    """(windows a block `wpb`, blocks a head `G`) of the backward: head
+    j's windows in G contiguous ranges [g wpb, (g + 1) wpb), as short as
+    keep all G h blocks within BWD_SLOTS (one wave). A function of the
+    shape alone: it fixes the dbias partials (G, h, N, N) and their
+    summation order."""
+    wpb = -(-Bw // max(1, BWD_SLOTS // h))
+    return wpb, -(-Bw // wpb)
 
 
 def _heads(t, h: int):
@@ -199,8 +210,7 @@ def _backward_launch(q, k, v, bias, dout, lse, grid_hw, shift):
     dout = _aligned(dout.to(q.dtype))
     lse = lse.float().contiguous()
     bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
-    wpb = max(1, Bw * h // BWD_BLOCKS)          # windows per block
-    n_groups = -(-Bw // wpb)
+    wpb, n_groups = bwd_partition(Bw, h)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     partials = torch.empty((n_groups, h, N, N), dtype=torch.float32,
                            device=q.device)

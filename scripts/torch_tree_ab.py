@@ -24,6 +24,12 @@ from a seed:
   `library_ms`): F.scaled_dot_product_attention on bf16 (windows,
   heads, 64, 32) q, k, v with a float mask, forward alone and forward +
   backward (q, k, v gradients), and torch.sum over the dbias partials;
+- rows 1-6, 10 and 11 at their paths' shapes, on the inputs
+  chip_smoke.py's checks make for them (B=8: the finishers' bf16
+  logits, the grouping's 307200 pixels and 64 centres, the eval
+  reductions' (8, 40, 480, 640) channels-last logits, the LayerNorm's
+  (153600, 128) rows, the intersection's (8, 262144) slots), with
+  F.layer_norm beside row 10 and torch.bincount beside row 11;
 each in two ways: `event_ms`, CUDA events around one call (as
 chip_smoke.py's `cuda_ms` times a kernel: the wrapper's host time shows
 whenever it exceeds the kernel's), and `stream_ms`, a batch of
@@ -112,6 +118,84 @@ def qkv_composite(wa, waq, x, w, ws: int, shift: int):
     return y[:, :H, :W] if pad_h or pad_w else y
 
 
+def n_partials(wac, Bw: int, h: int) -> int:
+    """The backward's dbias partials a head in the tree under test: its
+    `bwd_partition`, or in a tree without one the earlier rule of
+    max(1, Bw h // BWD_BLOCKS) windows a block."""
+    if hasattr(wac, 'bwd_partition'):
+        return wac.bwd_partition(Bw, h)[1]
+    wpb = max(1, Bw * h // wac.BWD_BLOCKS)
+    return -(-Bw // wpb)
+
+
+def other_rows(kernels, g):
+    """{row: times} of rows 1-6, 10 and 11 at their paths' shapes (the
+    inputs chip_smoke.py's checks make for them), and of the PyTorch
+    calls PERF.md names for rows 10 (F.layer_norm) and 11
+    (torch.bincount of the cells)."""
+    import torch
+    import torch.nn.functional as F
+    rnd = lambda *s: torch.randn(*s, device='cuda', generator=g)
+    bf = torch.bfloat16
+    out = {}
+    x = (rnd(8, 40, 120, 160) * 3).to(bf)
+    k1, k2 = rnd(40, 1, 3, 3) * 0.3, rnd(40, 1, 3, 3) * 0.3
+    b1, b2 = rnd(40) * 0.1, rnd(40) * 0.1
+    out['row1_finisher4x'] = _times(
+        lambda: kernels.upsample4x_argmax_score(x, k1, b1, k2, b2))
+    B, P, K = 8, 480 * 640, 64
+    rand = lambda *s: torch.rand(*s, device='cuda', generator=g)
+    loc_y, loc_x = rand(B, P) * 480, rand(B, P) * 640
+    ctr = torch.stack([
+        torch.randint(0, 480, (B, K), device='cuda', generator=g),
+        torch.randint(0, 640, (B, K), device='cuda', generator=g)],
+        -1).float()
+    valid, fg = rand(B, K) < 0.7, rand(B, P) < 0.6
+    out['row2_grouping'] = _times(lambda: kernels.group_pixels_kernel(
+        loc_y, loc_x, ctr, valid, fg))
+    out['row3_finisher4x_bilinear'] = _times(
+        lambda: kernels.upsample4x_bilinear_argmax_score(x))
+    x2 = (rnd(8, 40, 240, 320) * 3).to(bf).contiguous(
+        memory_format=torch.channels_last)
+    k, b = rnd(40, 1, 3, 3) * 0.3, rnd(40) * 0.1
+    out['row4_finisher2x'] = _times(
+        lambda: kernels.upsample2x_argmax_score(x2, k, b))
+    xe = (rnd(8, 40, 480, 640) * 3).to(bf).contiguous(
+        memory_format=torch.channels_last)
+    full = (slice(0, 480), slice(0, 640))
+    out['row5_resize_reduce'] = _times(
+        lambda: kernels.crop_resize_argmax_score(xe, full, 512, 512))
+    out['row6_semantic_reduce'] = _times(
+        lambda: kernels.semantic_argmax_score(xe))
+    del xe
+    xl = rnd(153600, 128).to(bf)
+    w, bl = torch.rand(128, device='cuda', generator=g) + 0.5, \
+        rnd(128) * 0.1
+    wb, bb = w.to(bf), bl.to(bf)
+    out['row10_layernorm'] = _times(
+        lambda: kernels.fused_layer_norm(xl, w, bl))
+    out['row10_library_f_layer_norm'] = _times(
+        lambda: F.layer_norm(xl, (128,), wb, bb, 1e-5))
+    Bi, Pi, n = 8, 512 * 512, 128
+    gt, pred = (torch.randint(0, n + 1, (Bi, Pi), device='cuda',
+                              generator=g, dtype=torch.int32)
+                for _ in range(2))
+
+    def bincount():                 # chip_smoke.py's library call
+        G = n + 1
+        ok = (gt >= 0) & (gt <= n) & (pred >= 0) & (pred <= n)
+        img = torch.arange(Bi, device='cuda')[:, None] * (G * G)
+        cell = torch.where(ok, img + gt.long() * G + pred.long(),
+                           Bi * G * G)
+        return torch.bincount(cell.reshape(-1), minlength=Bi * G * G + 1
+                              )[:-1].view(Bi, G, G)
+
+    out['row11_intersection'] = _times(
+        lambda: kernels.intersection_matrix_kernel(gt, pred, n, n))
+    out['row11_library_bincount'] = _times(bincount)
+    return out
+
+
 def child(args) -> None:
     """One turn, from the tree's root (the working directory)."""
     sys.path.insert(0, os.getcwd())
@@ -141,9 +225,8 @@ def child(args) -> None:
         out['row7_bwd'][stage] = _times(
             lambda: wac.window_attention_core_backward(*bargs))
         h = C // 32
-        wpb = max(1, Bw * h // wac.BWD_BLOCKS)
-        parts = torch.randn(-(-Bw // wpb), h, 64, 64, device='cuda',
-                            generator=g)
+        parts = torch.randn(n_partials(wac, Bw, h), h, 64, 64,
+                            device='cuda', generator=g)
         out['row7_dbias'][stage] = _times(lambda: wac.dbias_reduce(parts))
         out['torch_sum'][stage] = _times(lambda: parts.sum(0))
         heads = [torch.randn(Bw, h, 64, n, device='cuda', generator=g,
@@ -179,6 +262,8 @@ def child(args) -> None:
         scale = torch.full((h,), 10.0, device='cuda')
         out['row9'][stage] = _times(lambda: waq.window_attention_qkv(
             qkv, bias, h, grid, (4, 4), scale))
+    out['rows'] = other_rows(kernels,
+                             torch.Generator(device='cuda').manual_seed(11))
     if not args.kernels_only:
         from nicr_mtsa_tpu_torch.pipeline import emsaformer_bench_config
         card, result = cs.card_line(), {}

@@ -6,8 +6,10 @@ the kernel's (`_fwd_call`), the plain backward against `jax.vjp` of the
 kernel's custom VJP (dq, dk, dv and dbias, within 1e-5 of max |.|), and
 the plain backward against torch autograd of the plain forward; for
 v2's unshifted and shifted 64-token windows and a shifted v1 window of
-49 tokens. The CUDA kernels themselves are checked on the card by
-chip_smoke.py."""
+49 tokens. In bf16 the plain backward is held against `jax.vjp` of the
+kernel too (the same rounding points), and the backward kernel's
+window partition is checked on the shapes of training. The CUDA
+kernels themselves are checked on the card by chip_smoke.py."""
 import math
 
 import numpy as np
@@ -25,6 +27,9 @@ from nicr_mtsa_tpu_torch.ops.cuda import window_attention_core as wac
 
 torch.set_num_threads(4)
 TOL = 1e-5
+# bf16: one bf16 ulp (2^-8) of max |.|; another f32 summation order can
+# flip the rounding of P, dS or an output value by one ulp
+BF16_TOL = 2.0 ** -8
 GRID = (2, 3)                     # window grid of each of 2 images
 # name: (tokens per window, shift or None)
 CASES = {'v2_unshifted': (64, None), 'v2_shifted': (64, (4, 4)),
@@ -65,11 +70,12 @@ def _jax_forward(q, k, v, bias, N, shift):
     return np.asarray(out)[:, :N], lse.reshape(Bw, h, Np)[..., :N]
 
 
-def _close(got, want, name):
-    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
-    want = np.asarray(want)
+def _close(got, want, name, tol=TOL):
+    got = (got.detach().float().numpy() if isinstance(got, torch.Tensor)
+           else got)
+    want = np.asarray(want, dtype=np.float32)
     err = np.abs(got - want).max()
-    assert err <= TOL * np.abs(want).max(), (name, err, np.abs(want).max())
+    assert err <= tol * np.abs(want).max(), (name, err, np.abs(want).max())
 
 
 @pytest.mark.parametrize('case', sorted(CASES))
@@ -112,6 +118,34 @@ def test_plain_backward_matches_pallas_vjp(case):
         *t, torch.from_numpy(do), lse, grid, shift)
     for name, g, w in zip(('dq', 'dk', 'dv', 'dbias'), got, want):
         _close(g, w, name)
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_backward_bf16_matches_pallas_vjp(case):
+    """bf16 q, k, v and dO (bias f32) through `jax.vjp` of the kernel's
+    custom VJP and through the plain backward, which rounds P, dS and
+    the outputs to bf16 where the TPU kernel does: dq, dk, dv and dbias
+    within 2^-8 of max |.|."""
+    N, shift = CASES[case]
+    q, k, v, do, bias = _inputs(N, 5)
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do)]
+    j = [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in t]
+    grid, masks = _jax_masks(N, shift)
+    h = bias.shape[0]
+    with jax.default_matmul_precision('highest'):
+        _, vjp = jax.vjp(
+            lambda q_, k_, v_, b_: fused_window_attention(
+                q_, k_, v_, b_, h, grid, masks, interpret=True),
+            *j[:3], jnp.asarray(bias))
+        want = vjp(j[3])
+    tb = torch.from_numpy(bias)
+    _, lse = wac.window_attention_core_reference(*t[:3], tb, grid, shift)
+    got = wac.window_attention_core_backward_reference(
+        *t[:3], tb, t[3], lse, grid, shift)
+    for name, g, w in zip(('dq', 'dk', 'dv', 'dbias'), got, want):
+        assert g.dtype == (torch.float32 if name == 'dbias'
+                           else torch.bfloat16), name
+        _close(g, w, name, BF16_TOL)
 
 
 @pytest.mark.parametrize('case', sorted(CASES))
@@ -163,3 +197,19 @@ def test_dbias_reduce_plain_near_float64_sum(G, h):
     got = wac.dbias_reduce(torch.from_numpy(parts)).numpy()
     tol = G * float(np.spacing(np.float32(np.abs(want).max())))
     assert float(np.abs(got - want).max()) <= tol
+
+
+@pytest.mark.parametrize('Bw, h', [(2400, 4), (640, 8), (160, 16), (48, 32),
+                                   (24, 4), (12, 2), (7, 1)])
+def test_bwd_partition_covers_each_window_once(Bw, h):
+    """The backward's blocks of a head own contiguous, non-empty window
+    ranges that cover every window exactly once, in one wave of
+    BWD_SLOTS blocks at the stages of B=8 480 x 640 training, and the
+    partition is a function of (Bw, h) alone."""
+    wpb, G = wac.bwd_partition(Bw, h)
+    covered = [g for grp in range(G)
+               for g in range(grp * wpb, min(Bw, (grp + 1) * wpb))]
+    assert covered == list(range(Bw))
+    assert (G - 1) * wpb < Bw                  # no empty block
+    assert G * h <= wac.BWD_SLOTS
+    assert wac.bwd_partition(int(Bw), int(h)) == (wpb, G)
