@@ -16,8 +16,12 @@ phases; any failure exits non-zero and prints no result:
    the shapes its path gives it (idx, ids, min_d2 and counts exact,
    scores within rtol 1e-5; the intersection also against
    torch.bincount), tied and edge inputs included, and time both
-   (median of CUDA event timings); check that centre selection and the
-   merge resolve tied inputs on the card exactly as on the CPU;
+   (median of CUDA event timings); the crop+resize+reduce also on crops
+   with y0, x0 > 0, an output wider than its crop, a 333 x 500 output,
+   NCHW and channels-last, bf16 and f32, tied classes at 8 and 40
+   classes, with the card's time alone (`stream_ms`) and its plan,
+   registers, spills and blocks an SM; check that centre selection and
+   the merge resolve tied inputs on the card exactly as on the CPU;
 3. serve the full-width `emsanet-bench` EMSANet (2x ResNet-34 NBt1D,
    480 x 640, bf16, random weights from a seed) on B=8 uint8/uint16
    requests, with the launch counters set to 0 just before and read
@@ -44,11 +48,15 @@ phases; any failure exits non-zero and prints no result:
    stages 1 and 4 (2400 windows of 64 tokens, C=128; 48, C=1024),
    shifted v2, plus a shifted v1 image of 49-token windows, in bf16 and
    f32 (within 1e-4 of max |out| in f32, 2e-2 in bf16; outputs finite),
-   timed at every stage against the bound; the LayerNorm
-   at (153600, 128) and (2400, 1024) bf16 (within 1 ulp, or 1e-6 of
-   max |out| where the affine cancels to near 0) and in f32 (within
-   1e-5); the bilinear 4x finisher at (8, 40, 120, 160) (idx
-   exact, scores within rtol 1e-5, ties to the first index);
+   timed at every stage against the bound; the LayerNorm at every width
+   of its path (C 32, 96, 128, 256, 512, 1024) with the path's rows and
+   with 4801, in bf16/f32 -> bf16/f32, eps 1e-5 and 1e-6 and on
+   misaligned views (bf16 outputs within 1 ulp, or 1e-6 of max |out|
+   where the affine cancels to near 0; f32 within 1e-5), each path
+   shape timed against its bound and F.layer_norm with its plan,
+   registers, spills and blocks an SM; the bilinear 4x finisher at
+   (8, 40, 120, 160) (idx exact, scores within rtol 1e-5, ties to the
+   first index);
 8. serve `emsaformer_dve_v2` (multimodal SwinV2-T-128 RGB-D, MLP
    decoders, 480 x 640, bf16, random weights from a seed) on B=8
    requests, counters set to 0 just before: exactly 12 window-attention
@@ -178,6 +186,8 @@ TRAIN_GRAD_TOL, TRAIN_SPREAD_FACTOR = 1e-3, 4.0
 TRAIN_FAULTS = {'core_dbias': '.attn.cpb_fc',
                 'instance_losses': 'instance_decoder.'}
 TRAIN_FAULT_SIZE = 1e-2
+# kernels whose device time and calls each profile sums by name
+PROFILED_KERNELS = ('layer_norm_kernel', 'resize_reduce_kernel')
 
 
 def fail(msg: str) -> None:
@@ -206,6 +216,26 @@ def cuda_ms(fn, n: int = 10) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def stream_ms(fn, n: int = 10, batch: int = 10) -> float:
+    """The card's time alone for one fn(): the median over n batches of
+    `batch` back-to-back calls queued behind a spin kernel (~6 ms, longer
+    than the host time of the batch's launches), per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        torch.cuda._sleep(10_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(batch):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
 
 
@@ -438,43 +468,90 @@ def check_semantic_reduce(sr, report):
           flush=True)
 
 
-def check_resize_reduce(rr, report):
-    """Row 5: the eval logits cropped (whole, and rows 16:464) and
-    resized to 512 x 512; times the channels-last whole crop (the eval
-    path's call)."""
+def _ptxas_of(build, lib, *pieces):
+    """(registers, spill store bytes, spill load bytes) of the first
+    kernel of `lib` whose mangled name holds every one of `pieces`
+    (this run's build), or Nones."""
+    found = [v for k, v in ptxas_entries(build.BUILD_LOGS.get(lib, '')
+                                          ).items()
+             if all(p in k for p in pieces)]
+    return tuple(found[0]) if found else (None, None, None)
+
+
+# row 5's checks beyond the eval call: (layout, crop rows, crop cols,
+# out_h, out_w); 'cl' channels-last bf16, 'nchw' contiguous bf16, and
+# their f32 copies 'cl_f32', 'nchw_f32'
+RESIZE_CASES = (('nchw', (0, 480), (0, 640), 512, 512),
+                ('cl', (16, 464), (0, 640), 512, 512),
+                ('nchw_f32', (0, 480), (0, 640), 512, 512),
+                ('cl', (3, 477), (5, 637), 512, 512),     # y0, x0 > 0
+                ('cl', (0, 480), (160, 480), 512, 700),   # wider than crop
+                ('cl', (0, 480), (0, 640), 333, 500),     # not whole tiles
+                ('nchw', (3, 477), (5, 637), 333, 500),
+                ('cl_f32', (3, 477), (5, 637), 512, 512))
+
+
+def check_resize_reduce(rr, report, build):
+    """Row 5: the eval call (channels-last bf16 (8, 40, 480, 640) ->
+    512 x 512) and RESIZE_CASES against the plain version (idx bit for
+    bit, scores within rtol 1e-5); tied classes at 8 classes (NCHW) and
+    at 40 (channels-last) must resolve to the first index. Prints the
+    plan, registers, spills and blocks an SM of the kernel; times the
+    eval call."""
     x, x_cl = _eval_logits(4)
+    layouts = {'nchw': x, 'cl': x_cl, 'nchw_f32': x.float(),
+               'cl_f32': x_cl.float()}
     full = (slice(0, 480), slice(0, 640))
     err = 0.0
-    for xx, crop in ((x, full), (x_cl, full),
-                     (x_cl, (slice(16, 464), slice(0, 640))),
-                     (x.float(), full)):
-        got = rr.crop_resize_argmax_score(xx, crop, 512, 512)
+    cases = [('cl', (0, 480), (0, 640), 512, 512), *RESIZE_CASES]
+    for layout, (r0, r1), (c0, c1), oh, ow in cases:
+        xx, crop = layouts[layout], (slice(r0, r1), slice(c0, c1))
+        got = rr.crop_resize_argmax_score(xx, crop, oh, ow)
         torch.cuda.synchronize()
-        err = max(err, _same('resize_reduce', got,
+        err = max(err, _same(f'resize_reduce {layout} {crop} -> {oh} x '
+                             f'{ow}', got,
                              rr.crop_resize_argmax_score_reference(
-                                 xx, crop, 512, 512)))
-    i_k, _ = rr.crop_resize_argmax_score(
-        _tied_logits(), (slice(0, 48), slice(0, 64)), 64, 80)
-    torch.cuda.synchronize()
-    if not bool((i_k == 2).all()):
-        fail('resize_reduce: tied classes did not resolve to the first '
-             'index')
+                                 xx, crop, oh, ow)))
+    del layouts
+    tied = _tied_logits()
+    tied40 = torch.zeros(2, 40, 48, 64, device='cuda', dtype=torch.bfloat16)
+    tied40[:, 7] = 1.5
+    tied40[:, 31] = 1.5
+    for xt, first in ((tied, 2), (tied40.contiguous(
+            memory_format=torch.channels_last), 7)):
+        i_k, _ = rr.crop_resize_argmax_score(
+            xt, (slice(0, 48), slice(0, 64)), 64, 80)
+        torch.cuda.synchronize()
+        if not bool((i_k == first).all()):
+            fail(f'resize_reduce: tied classes ({xt.shape[1]} classes) did '
+                 f'not resolve to the first index')
     ms = cuda_ms(lambda: rr.crop_resize_argmax_score(x_cl, full, 512, 512))
+    card = stream_ms(lambda: rr.crop_resize_argmax_score(x_cl, full, 512,
+                                                         512))
     plain_ms = cuda_ms(lambda: rr.crop_resize_argmax_score_reference(
         x_cl, full, 512, 512))
     P = 8 * 512 * 512
-    # per output value: 4 taps and 3 lerps (3 operations each) in each
-    # of the two class passes
+    # per output value: 4 taps and 3 lerps (3 operations each), then
+    # compare, subtract, exp and add
     b_ms, b_by = bound(x.numel() * 2 + P * 8,
-                       _reduce_ops(P * 40, P, 2 * 9))
+                       _reduce_ops(P * 40, P, 9))
+    plan = rr._plan(8, 40, 480, 512, 640, 512, torch.bfloat16,
+                    torch.cuda.current_device())
+    regs, st, ld = _ptxas_of(build, 'resize_reduce',
+                             'resize_reduce_kernelI13__nv_bfloat16Li40E')
+    _, occ = rr._fn(torch.bfloat16)
+    resources = dict(plan=plan._asdict(), registers=regs,
+                     spill_store_bytes=st, spill_load_bytes=ld,
+                     blocks_per_sm=occ(40, plan.smem))
     report['resize_reduce'] = dict(
         name='resize_reduce', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/resize_reduce.cu',
         replaces='nicr_mtsa_tpu/ops/pallas/resize_reduce.py:252',
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
-    print(json.dumps({'phase': 'kernel', **report['resize_reduce']}),
-          flush=True)
+    print(json.dumps({'phase': 'kernel', **report['resize_reduce'],
+                      'stream_ms': card, 'cases': len(cases) + 2,
+                      'resources': resources}), flush=True)
 
 
 def check_intersection(it, report):
@@ -864,50 +941,114 @@ def _ulp_check(got, want):
         ulp, min=floor)).sum())
 
 
-def check_layernorm(ln, report):
-    """Row 10 at (153600, 128) and (2400, 1024) bf16 (the Swin stage-1
-    and stage-4 rows) and in f32, plus the patch embeds' widths 96 and
-    32 and eps 1e-6; times the first."""
+# row 10's path shapes in Swin serving at B=8 480 x 640 (rows, C,
+# launches a request): the two patch embeds; stage 1 (4 block LNs, 2
+# skip LNs at /4); stage 2 (4 blocks, merge 1, 2 skips); stage 3 (12
+# blocks, merge 2, 2 skips); stage 4 (4 blocks, merge 3, final norm)
+LN_SHAPES = ((153600, 96, 1), (153600, 32, 1), (153600, 128, 6),
+             (38400, 256, 7), (9600, 512, 15), (2400, 1024, 6))
+LN_DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+             (torch.float32, torch.bfloat16), (torch.float32, torch.float32))
+
+
+def _ln_bound(rows, C):
+    # bf16 read once and written once, f32 scale and bias; ~8 f32
+    # operations a value
+    return bound(rows * C * 4 + 2 * C * 4, 8 * rows * C)
+
+
+def _ln_agree(ln, x, w, b, eps, out_dtype, what, beyond_ulp):
+    got = ln.fused_layer_norm(x, w, b, eps, out_dtype)
+    torch.cuda.synchronize()
+    want = ln.layer_norm_reference(x, w, b, eps, out_dtype)
+    if out_dtype == torch.bfloat16:
+        n_ulp, n_bad = _ulp_check(got, want)
+        beyond_ulp[what] = n_ulp
+        if n_bad:
+            fail(f'layernorm {what}: {n_bad} values more than 1 ulp and '
+                 f'1e-6 x max |out| from the plain version')
+        return 0.0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    return float((got - want).abs().max())
+
+
+def check_layernorm(ln, report, build):
+    """Row 10 at every width of its path (C 32, 96, 128, 256, 512, 1024)
+    with the path's rows and with 4801 rows (not a multiple of the rows
+    a warp takes), in the four dtype pairs bf16/f32 -> bf16/f32, eps
+    1e-5 and 1e-6, and on misaligned views (x[1:] of a flat buffer):
+    bf16 outputs within 1 ulp (or 1e-6 x max |out|, where the affine
+    cancels to near 0), f32 outputs within 1e-5. Times every path shape
+    (`cuda_ms` and the card's time alone) against its bound and
+    F.layer_norm; prints the plan, registers, spills and blocks an SM of
+    each; the kernels line times (153600, 128)."""
     import torch.nn.functional as F
     g = torch.Generator(device='cuda').manual_seed(7)
     err, beyond_ulp = 0.0, {}
-    for rows, C, eps in ((153600, 128, 1e-5), (2400, 1024, 1e-5),
-                         (4800, 96, 1e-5), (4801, 32, 1e-6)):
-        x = torch.randn(rows, C, device='cuda', generator=g) * 2 + 0.5
+    for k, (rows, C, _) in enumerate(LN_SHAPES):
         w = torch.rand(C, device='cuda', generator=g) + 0.5
         b = torch.randn(C, device='cuda', generator=g) * 0.1
-        for dt in (torch.bfloat16, torch.float32):
-            got = ln.fused_layer_norm(x.to(dt), w, b, eps)
-            torch.cuda.synchronize()
-            want = ln.layer_norm_reference(x.to(dt), w, b, eps)
-            if dt == torch.bfloat16:
-                n_ulp, n_bad = _ulp_check(got, want)
-                beyond_ulp[f'{rows}x{C}'] = n_ulp
-                if n_bad:
-                    fail(f'layernorm ({rows}, {C}) bf16: {n_bad} values '
-                         f'more than 1 ulp and 1e-6 x max |out| from the '
-                         f'plain version')
-            else:
-                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-                err = max(err, float((got - want).abs().max()))
-    x = (torch.randn(153600, 128, device='cuda', generator=g)
-         ).to(torch.bfloat16)
-    w = torch.rand(128, device='cuda', generator=g) + 0.5
-    b = torch.randn(128, device='cuda', generator=g) * 0.1
+        for n in (rows, 4801):
+            x = torch.randn(n, C, device='cuda', generator=g) * 2 + 0.5
+            for j, (tin, tout) in enumerate(LN_DTYPES):
+                eps = 1e-6 if (j + k) % 2 else 1e-5
+                what = f'({n}, {C}) {tin} -> {tout} eps {eps}'
+                err = max(err, _ln_agree(ln, x.to(tin), w, b, eps, tout,
+                                         what, beyond_ulp))
+        for tin in (torch.bfloat16, torch.float32):
+            flat = torch.randn(4801 * C + 1, device='cuda', generator=g)
+            xm = flat.to(tin)[1:].view(4801, C)
+            if xm.data_ptr() % 16 == 0:
+                fail('layernorm: the misaligned view is aligned')
+            err = max(err, _ln_agree(ln, xm, w, b, 1e-5, tin,
+                                     f'misaligned (4801, {C}) {tin}',
+                                     beyond_ulp))
+    shapes, main = [], None
+    for rows, C, launches in LN_SHAPES:
+        x = (torch.randn(rows, C, device='cuda', generator=g)
+             ).to(torch.bfloat16)
+        w = torch.rand(C, device='cuda', generator=g) + 0.5
+        b = torch.randn(C, device='cuda', generator=g) * 0.1
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        plan = ln._plan(rows, C, torch.bfloat16, torch.bfloat16, True,
+                        torch.cuda.current_device())
+        regs, st, ld = _ptxas_of(
+            build, 'layernorm', 'layer_norm_kernelI13__nv_bfloat16S',
+            f'Li{plan.nv}E')
+        _, occ = ln._fn(torch.bfloat16, torch.bfloat16)
+        b_ms, b_by = _ln_bound(rows, C)
+        shape = dict(
+            rows=rows, C=C, launches_a_request=launches,
+            ms=cuda_ms(lambda: ln.fused_layer_norm(x, w, b)),
+            stream_ms=stream_ms(lambda: ln.fused_layer_norm(x, w, b)),
+            library_stream_ms=stream_ms(
+                lambda: F.layer_norm(x, (C,), wb, bb, 1e-5)),
+            bound_ms=b_ms, bound_by=b_by, plan=plan._asdict(),
+            registers=regs, spill_store_bytes=st, spill_load_bytes=ld,
+            blocks_per_sm=occ(plan.nv))
+        shapes.append(shape)
+        print(json.dumps({'phase': 'layernorm_shape', **shape}), flush=True)
+        if (rows, C) == (153600, 128):
+            main = (x, w, b, wb, bb, b_ms, b_by)
+    x, w, b, wb, bb, b_ms, b_by = main
     ms = cuda_ms(lambda: ln.fused_layer_norm(x, w, b))
     plain_ms = cuda_ms(lambda: ln.layer_norm_reference(x, w, b))
-    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
     library_ms = cuda_ms(lambda: F.layer_norm(x, (128,), wb, bb, 1e-5))
-    # read once, written once; ~8 f32 operations a value
-    b_ms, b_by = bound(2 * x.numel() * 2 + 2 * 128 * 4, 8 * x.numel())
     report['layernorm'] = dict(
         name='layernorm', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/layernorm.cu',
         replaces='nicr_mtsa_tpu/ops/pallas/layernorm.py:40',
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=library_ms)
+    request = dict(
+        stream_ms=sum(s['stream_ms'] * s['launches_a_request']
+                      for s in shapes),
+        bound_ms=sum(s['bound_ms'] * s['launches_a_request']
+                     for s in shapes),
+        library_stream_ms=sum(s['library_stream_ms'] *
+                              s['launches_a_request'] for s in shapes))
     print(json.dumps({'phase': 'kernel', **report['layernorm'],
-                      'shape': [153600, 128],
+                      'shape': [153600, 128], 'a_request': request,
                       'bf16_values_beyond_1ulp': beyond_ulp}), flush=True)
 
 
@@ -1222,15 +1363,21 @@ def profile(fn, result, key):
             n_cpu_ops += e.count
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    # device time and calls of PROFILED_KERNELS (summed over each one's
+    # template instances)
+    ported = {piece: {'ms': sum(r[0] for r in rows if piece in r[1]),
+                      'calls': sum(r[2] for r in rows if piece in r[1])}
+              for piece in PROFILED_KERNELS}
     result[f'profile_{key}'] = {
         'device_busy_ms': busy, 'wall_ms_under_profiler': wall_ms,
-        'idle_share': 1.0 - busy / wall_ms,
+        'idle_share': 1.0 - busy / wall_ms, 'kernels': ported,
         'kernel_launches': sum(r[2] for r in rows),
         'aten_op_events_nested': n_cpu_ops / n,
         'top': [{'ms': r[0], 'name': r[1][:160], 'calls': r[2]}
                 for r in rows[:40]]}
     print(json.dumps({'phase': f'profile_{key}', 'device_busy_ms': busy,
                       'wall_ms': wall_ms, 'idle_share': 1 - busy / wall_ms,
+                      'kernels': ported,
                       'top5': [[round(r[0], 3), r[1][:60]]
                                for r in rows[:5]]}), flush=True)
 
@@ -1691,7 +1838,7 @@ def main():
     check_finisher(finisher4x, report)
     check_grouping(grouping, report)
     check_semantic_reduce(semantic_reduce, report)
-    check_resize_reduce(resize_reduce, report)
+    check_resize_reduce(resize_reduce, report, _build)
     check_intersection(intersection, report)
     check_ties()
     launches = serve(args, kernels, card, result)
@@ -1701,7 +1848,7 @@ def main():
     eval_card_vs_cpu(pipe, result)
     del pipe
     check_window_attention(window_attention, report, result)
-    check_layernorm(layernorm, report)
+    check_layernorm(layernorm, report, _build)
     check_finisher_bilinear(finisher4x, report)
     swin_launches = serve_exact(
         emsaformer_bench_config(), args.swin_requests, SWIN_KERNELS, kernels,

@@ -2,7 +2,8 @@
 
     python3 scripts/torch_tree_ab.py --tree parent=_scratch/parent \\
         --tree change=. --order parent,change,change,parent \\
-        [--train-steps 10] [--swin-requests 5] [--kernels-only]
+        [--train-steps 10] [--swin-requests 5] [--requests 10] \\
+        [--steps 5] [--kernels-only]
 
 Each turn runs in its own process from the root of the named tree (a
 checkout, or a `git archive` unpacked into a directory that .gitignore
@@ -27,23 +28,29 @@ from a seed:
 - rows 1-6, 10 and 11 at their paths' shapes, on the inputs
   chip_smoke.py's checks make for them (B=8: the finishers' bf16
   logits, the grouping's 307200 pixels and 64 centres, the eval
-  reductions' (8, 40, 480, 640) channels-last logits, the LayerNorm's
-  (153600, 128) rows, the intersection's (8, 262144) slots), with
-  F.layer_norm beside row 10 and torch.bincount beside row 11;
+  reductions' (8, 40, 480, 640) channels-last logits (row 5 to 512 x
+  512), the LayerNorm's rows at each of its Swin serving widths
+  (chip_smoke.py's LN_SHAPES: 153600 x 96, 32 and 128, 38400 x 256,
+  9600 x 512, 2400 x 1024), the intersection's (8, 262144) slots), with
+  F.layer_norm beside row 10 at each shape and torch.bincount beside
+  row 11;
 each in two ways: `event_ms`, CUDA events around one call (as
 chip_smoke.py's `cuda_ms` times a kernel: the wrapper's host time shows
 whenever it exceeds the kernel's), and `stream_ms`, a batch of
 back-to-back calls queued behind a spin kernel, per call (the card's
 time alone). Unless --kernels-only, the turn then runs the tree's own
-chip_smoke.py phases 8 (Swin serving, B=8), 17 (`--attn-qkv` serving,
-B=8) and 11 (Swin training, B=8). The stages are those of this
-script's own tree (chip_smoke.py's CORE_CASES, PADDED_STAGES and
-BLOCK_STAGES), passed to every turn. A tree under test needs
-chip_smoke.py's `_core_inputs`, `_padded_stage_qkv`, `_wab_weights`,
-`card_line`, `serve_exact`, `train_swin`, `SWIN_KERNELS` and
-`QKV_KERNELS` with the signatures this tree's chip_smoke.py has. Each
-turn prints one JSON line; all of them, with the card's name and power
-limit, go to chiprun_out/tree_ab.json. Needs no network and no JAX."""
+chip_smoke.py phases 3 (EMSANet serving, B=8), 14 (`--no-defer4x`
+serving, B=8), 5 (the fused eval step, B=8), 8 (Swin serving, B=8), 17
+(`--attn-qkv` serving, B=8) and 11 (Swin training, B=8). The stages
+and shapes are those of this script's own tree (chip_smoke.py's
+CORE_CASES, PADDED_STAGES, BLOCK_STAGES and LN_SHAPES), passed to
+every turn. A tree under test needs chip_smoke.py's `_core_inputs`,
+`_padded_stage_qkv`, `_wab_weights`, `card_line`, `serve`,
+`serve_exact`, `evaluate`, `train_swin`, `SWIN_KERNELS`, `QKV_KERNELS`
+and `DEFER2X_KERNELS` with the signatures this tree's chip_smoke.py
+has. Each turn prints one JSON line; all of them, with the card's name
+and power limit, go to chiprun_out/tree_ab.json. Needs no network and
+no JAX."""
 import argparse
 import json
 import os
@@ -86,13 +93,14 @@ def _times(fn):
 
 def stages():
     """{'core': {stage: (windows, C, window grid)}, 'qkv' and 'block':
-    {stage: (image H, W, C)}} of B=8 480 x 640, from this tree's
-    chip_smoke.py (row 9's stage 1 is the unpadded 120 x 160 image)."""
+    {stage: (image H, W, C)}, 'ln': row 10's (rows, C, launches)} of B=8
+    480 x 640, from this tree's chip_smoke.py (row 9's stage 1 is the
+    unpadded 120 x 160 image)."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     return {'core': cs.CORE_CASES,
             'qkv': {'stage1': (120, 160, 128), **cs.PADDED_STAGES},
-            'block': cs.BLOCK_STAGES}
+            'block': cs.BLOCK_STAGES, 'ln': cs.LN_SHAPES}
 
 
 def qkv_composite(wa, waq, x, w, ws: int, shift: int):
@@ -128,11 +136,12 @@ def n_partials(wac, Bw: int, h: int) -> int:
     return -(-Bw // wpb)
 
 
-def other_rows(kernels, g):
+def other_rows(kernels, g, ln_shapes):
     """{row: times} of rows 1-6, 10 and 11 at their paths' shapes (the
-    inputs chip_smoke.py's checks make for them), and of the PyTorch
-    calls PERF.md names for rows 10 (F.layer_norm) and 11
-    (torch.bincount of the cells)."""
+    inputs chip_smoke.py's checks make for them; row 10 at each of
+    `ln_shapes`, (rows, C, launches) of Swin serving, keyed 'rowsxC'),
+    and of the PyTorch calls PERF.md names for rows 10 (F.layer_norm)
+    and 11 (torch.bincount of the cells)."""
     import torch
     import torch.nn.functional as F
     rnd = lambda *s: torch.randn(*s, device='cuda', generator=g)
@@ -168,14 +177,17 @@ def other_rows(kernels, g):
     out['row6_semantic_reduce'] = _times(
         lambda: kernels.semantic_argmax_score(xe))
     del xe
-    xl = rnd(153600, 128).to(bf)
-    w, bl = torch.rand(128, device='cuda', generator=g) + 0.5, \
-        rnd(128) * 0.1
-    wb, bb = w.to(bf), bl.to(bf)
-    out['row10_layernorm'] = _times(
-        lambda: kernels.fused_layer_norm(xl, w, bl))
-    out['row10_library_f_layer_norm'] = _times(
-        lambda: F.layer_norm(xl, (128,), wb, bb, 1e-5))
+    out['row10_layernorm'], out['row10_library_f_layer_norm'] = {}, {}
+    for rows, C, _ in ln_shapes:
+        xl = rnd(rows, C).to(bf)
+        w, bl = torch.rand(C, device='cuda', generator=g) + 0.5, \
+            rnd(C) * 0.1
+        wb, bb = w.to(bf), bl.to(bf)
+        key = f'{rows}x{C}'
+        out['row10_layernorm'][key] = _times(
+            lambda: kernels.fused_layer_norm(xl, w, bl))
+        out['row10_library_f_layer_norm'][key] = _times(
+            lambda: F.layer_norm(xl, (C,), wb, bb, 1e-5))
     Bi, Pi, n = 8, 512 * 512, 128
     gt, pred = (torch.randint(0, n + 1, (Bi, Pi), device='cuda',
                               generator=g, dtype=torch.int32)
@@ -263,10 +275,19 @@ def child(args) -> None:
         out['row9'][stage] = _times(lambda: waq.window_attention_qkv(
             qkv, bias, h, grid, (4, 4), scale))
     out['rows'] = other_rows(kernels,
-                             torch.Generator(device='cuda').manual_seed(11))
+                             torch.Generator(device='cuda').manual_seed(11),
+                             table['ln'])
     if not args.kernels_only:
-        from nicr_mtsa_tpu_torch.pipeline import emsaformer_bench_config
+        from nicr_mtsa_tpu_torch.pipeline import (emsaformer_bench_config,
+                                                  emsanet_bench_config)
         card, result = cs.card_line(), {}
+        paths = argparse.Namespace(requests=args.requests, steps=args.steps,
+                                   profile=False)
+        cs.serve(paths, kernels, card, result)
+        cs.serve_exact(emsanet_bench_config(defer=True), args.requests,
+                       cs.DEFER2X_KERNELS, kernels, card, result,
+                       'serving_defer2x')
+        cs.evaluate(paths, kernels, card, result)
         cs.serve_exact(emsaformer_bench_config(), args.swin_requests,
                        cs.SWIN_KERNELS, kernels, card, result,
                        'serving_swin')
@@ -276,7 +297,8 @@ def child(args) -> None:
         cs.train_swin(argparse.Namespace(train_steps=args.train_steps,
                                          profile=False), kernels, card,
                       result)
-        for key in ('serving_swin', 'serving_qkv', 'train_swin'):
+        for key in ('serving', 'serving_defer2x', 'eval', 'serving_swin',
+                    'serving_qkv', 'train_swin'):
             out[key] = {k: result[key][k] for k in
                         ('frames_per_s', 'rounds_frames_per_s')}
     print('TREE_AB ' + json.dumps(out), flush=True)
@@ -290,6 +312,8 @@ def main() -> None:
                     help='the turns, by tree name')
     ap.add_argument('--train-steps', type=int, default=10)
     ap.add_argument('--swin-requests', type=int, default=5)
+    ap.add_argument('--requests', type=int, default=10)
+    ap.add_argument('--steps', type=int, default=5)
     ap.add_argument('--kernels-only', action='store_true')
     ap.add_argument('--child', help=argparse.SUPPRESS)
     ap.add_argument('--stages', help=argparse.SUPPRESS)
@@ -313,6 +337,7 @@ def main() -> None:
         cmd = [sys.executable, os.path.abspath(__file__), '--child', name,
                '--train-steps', str(args.train_steps),
                '--swin-requests', str(args.swin_requests),
+               '--requests', str(args.requests), '--steps', str(args.steps),
                '--stages', table]
         if args.kernels_only:
             cmd.append('--kernels-only')

@@ -136,6 +136,85 @@ def test_resize_reduce_rejects_strided_crop():
                                       16, 16)
 
 
+# row 5's kernel geometry: (B, C, crop H, W, out H, W, bytes a value):
+# the eval call (480 x 640 -> 512 x 512) and chip_smoke.py's crops
+RR_PLAN_CASES = [(8, 40, 480, 640, 512, 512, 2),
+                 (8, 40, 448, 640, 512, 512, 2),
+                 (8, 40, 474, 632, 512, 512, 2),
+                 (8, 40, 480, 320, 512, 700, 2),
+                 (8, 40, 480, 640, 333, 500, 2),
+                 (8, 40, 474, 632, 333, 500, 2),
+                 (8, 40, 474, 632, 512, 512, 4),
+                 (2, 8, 48, 64, 64, 80, 2), (2, 40, 48, 64, 64, 80, 2),
+                 (1, 19, 200, 900, 23, 17, 4),
+                 (1, 150, 480, 640, 48, 64, 4)]     # 10x down: narrow strips
+
+
+def _ring_trace(plan, lo_h, hi_h, lo_w, hi_w, C, out_h, out_w):
+    """Walk every block as csrc/resize_reduce.cu does: count each output
+    pixel computed and check that the ring slots hold both tap rows of
+    every output row (and the slot both tap columns) when its group
+    computes, after the next group's rows were issued."""
+    seen = np.zeros((out_h, out_w), np.int64)
+    G, R = plan.group_rows, plan.ring_rows
+    for strip in range(plan.strips):
+        ox0 = strip * plan.strip_w
+        ox_end = min(ox0 + plan.strip_w, out_w)
+        col0 = lo_w[ox0]
+        assert (hi_w[ox_end - 1] + 1 - col0) * C <= plan.slot_elems
+        for band in range(plan.bands):
+            oy_begin = band * plan.band_groups * G
+            assert oy_begin < out_h
+            oy_stop = min(oy_begin + plan.band_groups * G, out_h)
+            slots = [None] * R
+            nxt = [lo_h[oy_begin]]
+
+            def issue(last):
+                for r in range(nxt[0], last + 1):
+                    slots[r % R] = r
+                nxt[0] = max(nxt[0], last + 1)
+
+            issue(hi_h[min(oy_begin + G, oy_stop) - 1])
+            n_groups = -(-(oy_stop - oy_begin) // G)
+            for g in range(n_groups):
+                oy_g = oy_begin + g * G
+                if g + 1 < n_groups:
+                    issue(hi_h[min(oy_g + 2 * G, oy_stop) - 1])
+                for oy in range(oy_g, min(oy_g + G, oy_stop)):
+                    assert slots[lo_h[oy] % R] == lo_h[oy]
+                    assert slots[hi_h[oy] % R] == hi_h[oy]
+                    seen[oy, ox0:ox_end] += 1
+    return seen
+
+
+@pytest.mark.parametrize('case', RR_PLAN_CASES)
+def test_rr_plan_covers_pixels_and_ring_holds_taps(case):
+    """`rr_plan`: every output pixel computed once, each output row's lo
+    and hi tap rows resident in the ring when its group computes, each
+    strip's tap columns within a slot, the shared memory within a
+    block's and one wave of blocks."""
+    B, C, in_h, in_w, out_h, out_w, elt = case
+    plan = t_rr.rr_plan(B, C, in_h, out_h, in_w, out_w, elt, n_sm=132,
+                        blocks_per_sm=lambda smem: 3)
+    lo_h, hi_h, _, _ = t_up.two_tap_params(in_h, out_h)
+    lo_w, hi_w, _, _ = t_up.two_tap_params(in_w, out_w)
+    seen = _ring_trace(plan, lo_h, hi_h, lo_w, hi_w, C, out_h, out_w)
+    assert (seen == 1).all()
+    assert plan.smem == plan.ring_rows * plan.slot_elems * elt
+    assert plan.smem <= t_rr.MAX_SMEM and plan.slot_elems * elt % 16 == 0
+    assert B * plan.strips * plan.bands <= max(132 * 3, B * plan.strips)
+    if (C, in_h, in_w, out_h, out_w) == (40, 480, 640, 512, 512):
+        # the eval call: 256-column strips, 1-row groups, one wave
+        assert (plan.strip_w, plan.group_rows) == (256, 1)
+        assert B * plan.strips * plan.bands <= 132 * 3
+
+
+def test_rr_plan_rejects_what_shared_memory_cannot_hold():
+    with pytest.raises(ValueError, match='shared memory'):
+        t_rr.rr_plan(1, 40000, 480, 48, 640, 64, 4, n_sm=132,
+                     blocks_per_sm=lambda smem: 1)
+
+
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_semantic_reduce_matches_pallas(dtype):
     rng = np.random.default_rng(0)

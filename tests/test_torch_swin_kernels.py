@@ -120,6 +120,46 @@ def test_fusion_layer_norm_matches_flax_layer_norm():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
+# Row 10's Swin serving shapes at B=8 480 x 640 (chip_smoke.py LN_SHAPES)
+# and ragged row counts: (rows, C, bytes a value, aligned, SMs); one SM
+# makes the warps loop over several row steps
+LN_PLAN_CASES = [(153600, 96, 2, True, 132), (153600, 32, 2, True, 132),
+                 (153600, 128, 2, True, 132), (38400, 256, 2, True, 132),
+                 (9600, 512, 2, True, 132), (2400, 1024, 2, True, 132),
+                 (4801, 32, 2, True, 132), (4801, 96, 2, True, 132),
+                 (4801, 128, 2, True, 132), (4801, 1024, 2, True, 132),
+                 (4801, 128, 4, True, 132), (2400, 1024, 4, True, 132),
+                 (4801, 24, 2, True, 132), (4801, 128, 2, False, 132),
+                 (7, 512, 2, True, 132), (4801, 128, 2, True, 1),
+                 (4801, 96, 2, True, 1), (4801, 128, 2, False, 1)]
+
+
+@pytest.mark.parametrize('rows, C, size, aligned, n_sm', LN_PLAN_CASES)
+def test_ln_plan_covers_every_row_once(rows, C, size, aligned, n_sm):
+    """The kernel's row map under `ln_plan` takes every row exactly once
+    and keeps every warp at the same number of row steps; the path's
+    shapes all take the row path (16-byte vectors, <= 4 a lane)."""
+    per_sm = 6 if n_sm > 1 else 1
+    plan = t_ln.ln_plan(rows, C, size, aligned, n_sm, per_sm)
+    seen = np.zeros(rows, np.int64)
+    for block in range(plan.blocks):
+        for warp in range(t_ln.WARPS):
+            took = np.fromiter(t_ln.plan_rows(plan, block, warp), np.int64)
+            assert len(took) == plan.steps * plan.step
+            np.add.at(seen, took[took < rows], 1)
+    assert (seen == 1).all()
+    assert plan.blocks <= t_ln.MAX_WAVES * n_sm * per_sm
+    assert (plan.steps > 1) == (n_sm == 1)
+    if plan.nv:
+        assert plan.vec and plan.lanes * plan.nv * (16 // size) == C
+        assert plan.unroll == t_ln.unroll_for(plan.nv)
+        assert plan.nv <= t_ln.MAX_NV and 32 % plan.lanes == 0
+    if size == 2 and aligned and C in (32, 96, 128, 256, 512, 1024):
+        assert plan.nv > 0
+    if not aligned:
+        assert plan.nv == 0 and not plan.vec
+
+
 # --- window-attention sub-block (row 8) --------------------------------------
 
 GRID, SHIFT_CASES = (2, 3), [None, (4, 4), (0, 4)]
