@@ -16,7 +16,12 @@ phases; any failure exits non-zero and prints no result:
    the shapes its path gives it (idx, ids, min_d2 and counts exact,
    scores within rtol 1e-5; the intersection also against
    torch.bincount), tied and edge inputs included, and time both
-   (median of CUDA event timings); the crop+resize+reduce also on crops
+   (median of CUDA event timings); the 4x finisher at the serving call
+   ((8, 40, 120, 160) bf16 channels-last, the head's layout on the
+   card) and at FINISHER4X_CASES (NCHW and f32, a ragged (2, 40, 37,
+   53), 19 classes), tied classes at 8 and 40 classes, with the card's
+   time alone (`stream_ms`) and its plan, registers, spills and blocks
+   an SM; the crop+resize+reduce also on crops
    with y0, x0 > 0, an output wider than its crop, a 333 x 500 output,
    NCHW and channels-last, bf16 and f32, tied classes at 8 and 40
    classes, with the card's time alone (`stream_ms`) and its plan,
@@ -27,7 +32,13 @@ phases; any failure exits non-zero and prints no result:
    requests, with the launch counters set to 0 just before and read
    just after: the finisher and the grouping must have run;
 4. run the same pipeline in f32 on one frame on the card and on the
-   CPU with identical weights: semantic_idx must agree on >= 99.9 %;
+   CPU with identical weights: semantic_idx must agree on >= 99.9 %,
+   and the panoptic segments must match: the share of segment pixels
+   in segments matched by class and IoU > 0.5 (PQ's rule, blind to
+   renumbering) at least PANOPTIC_MATCH_MIN, while planted faults of
+   the card's map (the largest segment given another class; two
+   instances of a class merged, where the frame has two) must fall
+   below it;
 5. run the fused eval step of `bench.py --eval` (the same model with
    the semantic upsampling in the head, 40 classes of which 8 things,
    top-k 64, segment table 128) on a synthetic B=8 batch (480 x 640,
@@ -54,16 +65,16 @@ phases; any failure exits non-zero and prints no result:
    misaligned views (bf16 outputs within 1 ulp, or 1e-6 of max |out|
    where the affine cancels to near 0; f32 within 1e-5), each path
    shape timed against its bound and F.layer_norm with its plan,
-   registers, spills and blocks an SM; the bilinear 4x finisher at
-   (8, 40, 120, 160) (idx exact, scores within rtol 1e-5, ties to the
-   first index);
+   registers, spills and blocks an SM; the bilinear 4x finisher as
+   the 4x finisher of phase 2 (idx exact, scores within rtol 1e-5, ties
+   to the first index; timed with its plan and ptxas figures);
 8. serve `emsaformer_dve_v2` (multimodal SwinV2-T-128 RGB-D, MLP
    decoders, 480 x 640, bf16, random weights from a seed) on B=8
    requests, counters set to 0 just before: exactly 12 window-attention
    launches, 36 LayerNorm launches (every LN of the path), 1 bilinear
    finisher and 1 grouping launch a request;
 9. run that pipeline in f32 on one frame on the card and on the CPU:
-   semantic_idx must agree on >= 99.9 %;
+   the gates of phase 4;
 10. hold the Swin training path's window-attention core (forward,
    flash-style backward and the deterministic dbias reduction) against
    its plain versions at stages 1 to 4 (2400 windows, C=128, 4 heads;
@@ -99,7 +110,7 @@ phases; any failure exits non-zero and prints no result:
    set to 0 just before: exactly 1 finisher2x, 0 finisher4x and 1
    grouping launch a request;
 15. run that pipeline in f32 on one frame on the card and on the CPU:
-   semantic_idx must agree on >= 99.9 %;
+   the gates of phase 4;
 16. hold the attention over the packed qkv of EMSAFormer's `--attn-qkv`
    variant against its plain version at stage 1 (2400 windows, C=128,
    4 heads) and stages 2-4 (640, 256, 8; 160, 512, 16; 48, 1024, 32;
@@ -113,7 +124,7 @@ phases; any failure exits non-zero and prints no result:
    window_attention_block, 36 LayerNorm, 1 bilinear finisher and 1
    grouping launch a request;
 18. run that pipeline in f32 on one frame on the card and on the CPU:
-   semantic_idx must agree on >= 99.9 %.
+   the gates of phase 4.
 
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
@@ -186,8 +197,14 @@ TRAIN_GRAD_TOL, TRAIN_SPREAD_FACTOR = 1e-3, 4.0
 TRAIN_FAULTS = {'core_dbias': '.attn.cpb_fc',
                 'instance_losses': 'instance_decoder.'}
 TRAIN_FAULT_SIZE = 1e-2
+# panoptic ids are class * PANOPTIC_ID_CLASS + k (ops/merge.py); the
+# card-vs-CPU panoptic gate: the least share of segment pixels in
+# segments matched by class and IoU > 0.5 (see PERF.md section 2)
+PANOPTIC_ID_CLASS = 1 << 16
+PANOPTIC_MATCH_MIN = 0.999
 # kernels whose device time and calls each profile sums by name
-PROFILED_KERNELS = ('layer_norm_kernel', 'resize_reduce_kernel')
+PROFILED_KERNELS = ('layer_norm_kernel', 'resize_reduce_kernel',
+                    'finisher4x_kernel')
 
 
 def fail(msg: str) -> None:
@@ -316,50 +333,108 @@ def _finisher_bound(x):
     return bound(n_bytes, n_ops)
 
 
-def check_finisher(fin, report):
-    """Kernel vs plain version at (8, 40, 120, 160), bf16 and f32, plus
-    the tie case; times the bf16 case (the serving dtype)."""
-    g = torch.Generator(device='cuda').manual_seed(0)
-    B, C, H, W = 8, 40, 120, 160
-    x = torch.randn(B, C, H, W, device='cuda', generator=g) * 3
-    k1 = torch.randn(C, 1, 3, 3, device='cuda', generator=g) * 0.3
-    k2 = torch.randn(C, 1, 3, 3, device='cuda', generator=g) * 0.3
-    b1 = torch.randn(C, device='cuda', generator=g) * 0.1
-    b2 = torch.randn(C, device='cuda', generator=g) * 0.1
-    err = 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        xd = x.to(dt)
-        i_k, s_k = fin.upsample4x_argmax_score(xd, k1, b1, k2, b2)
-        torch.cuda.synchronize()
-        i_r, s_r = fin.upsample4x_argmax_score_reference(xd, k1, b1, k2, b2)
-        n_bad = int((i_k != i_r).sum())
-        if n_bad:
-            fail(f'finisher {dt}: {n_bad} idx differ from the plain version')
-        torch.testing.assert_close(s_k, s_r, rtol=1e-5, atol=0)
-        err = max(err, float((s_k - s_r).abs().max()))
-    # tie case: classes 2 and 5 equal everywhere -> 2 wins
-    xt = torch.zeros(B, 8, H, W, device='cuda', dtype=torch.bfloat16)
-    xt[:, 2] = 1.5
-    xt[:, 5] = 1.5
-    kt = torch.zeros(8, 1, 3, 3, device='cuda')
-    kt[:, :, 1, 1] = 1.0
-    i_k, _ = fin.upsample4x_argmax_score(xt, kt, None, kt, None)
-    torch.cuda.synchronize()
-    if not bool((i_k == 2).all()):
-        fail('finisher: tied classes did not resolve to the first index')
+# the 4x finisher's checks beyond the serving call: (B, C, H, W, dtype,
+# layout): the serving shape in both layouts and dtypes, a ragged shape
+# (no tile divides 148 x 212: the zero ring and the edge replication
+# inside tiles), and 19 classes (the generic instance)
+FINISHER4X_CASES = ((8, 40, 120, 160, 'bf16', 'nchw'),
+                    (8, 40, 120, 160, 'f32', 'cl'),
+                    (8, 40, 120, 160, 'f32', 'nchw'),
+                    (2, 40, 37, 53, 'bf16', 'cl'),
+                    (2, 40, 37, 53, 'f32', 'nchw'),
+                    (2, 19, 37, 53, 'bf16', 'cl'),
+                    (2, 19, 37, 53, 'f32', 'nchw'))
 
-    xd = x.to(torch.bfloat16)
-    ms = cuda_ms(lambda: fin.upsample4x_argmax_score(xd, k1, b1, k2, b2))
-    plain_ms = cuda_ms(lambda: fin.upsample4x_argmax_score_reference(
-        xd, k1, b1, k2, b2))
-    b_ms, b_by = _finisher_bound(xd)
+
+def _finisher4x_input(g, B, C, H, W, dt, layout):
+    x = (torch.randn(B, C, H, W, device='cuda', generator=g) * 3).to(
+        torch.bfloat16 if dt == 'bf16' else torch.float32)
+    return (x.contiguous(memory_format=torch.channels_last)
+            if layout == 'cl' else x)
+
+
+def _check_finisher4x(name, g, call, plain):
+    """Row 1 or 3 through `call(x, C)` against `plain(x, C)`: the
+    serving call ((8, 40, 120, 160) bf16 channels-last) and
+    FINISHER4X_CASES, idx bit for bit and scores within rtol 1e-5; tied
+    classes at 8 and 40 classes must resolve to the first index.
+    Returns (the serving input, the largest score error, cases)."""
+    serving = (8, 40, 120, 160, 'bf16', 'cl')
+    x = _finisher4x_input(g, *serving)
+    err = 0.0
+    for case in (serving, *FINISHER4X_CASES):
+        xx = x if case == serving else _finisher4x_input(g, *case)
+        got = call(xx, case[1])
+        torch.cuda.synchronize()
+        err = max(err, _same(f'{name} {case}', got, plain(xx, case[1])))
+    for C, first, other in ((8, 2, 5), (40, 7, 31)):
+        xt = torch.zeros(2, C, 48, 64, device='cuda', dtype=torch.bfloat16)
+        xt[:, first] = 1.5
+        xt[:, other] = 1.5
+        i_k, _ = call(xt.contiguous(memory_format=torch.channels_last), C,
+                      centre_taps=True)
+        torch.cuda.synchronize()
+        if not bool((i_k == first).all()):
+            fail(f'{name}: tied classes ({C} classes) did not resolve to '
+                 f'the first index')
+    return x, err, len(FINISHER4X_CASES) + 3
+
+
+def _finisher4x_resources(fin, build, x, bilinear):
+    """The plan of the serving call and the ptxas figures and resident
+    blocks an SM of the instance it takes (C = 40, bf16)."""
+    plan = fin.f4_plan(tuple(x.shape), x.stride(), x.element_size(),
+                       x.data_ptr() % 16 == 0)
+    regs, st, ld = _ptxas_of(build, 'finisher4x', 'finisher4x_kernelI13'
+                             f'__nv_bfloat16Lb{int(bilinear)}ELi40E')
+    return dict(plan=plan._asdict(), grid=[plan.tiles_x, plan.tiles_y,
+                                           x.shape[0]],
+                registers=regs, spill_store_bytes=st, spill_load_bytes=ld,
+                blocks_per_sm=fin.blocks_per_sm(x.dtype, 40, plan))
+
+
+def check_finisher(fin, report, build):
+    """Row 1: the EMSANet serving call ((8, 40, 120, 160) bf16 channels-
+    last, the head's layout on the card), FINISHER4X_CASES and ties,
+    against the plain version; times the serving call (`cuda_ms` and
+    `stream_ms`) and prints its plan, registers, spills and blocks an
+    SM."""
+    g = torch.Generator(device='cuda').manual_seed(0)
+    weights = {}
+
+    def params(C, centre_taps=False):
+        if centre_taps:               # the centre tap: ties survive
+            kt = torch.zeros(C, 1, 3, 3, device='cuda')
+            kt[:, :, 1, 1] = 1.0
+            return kt, None, kt, None
+        if C not in weights:
+            weights[C] = (
+                torch.randn(C, 1, 3, 3, device='cuda', generator=g) * 0.3,
+                torch.randn(C, device='cuda', generator=g) * 0.1,
+                torch.randn(C, 1, 3, 3, device='cuda', generator=g) * 0.3,
+                torch.randn(C, device='cuda', generator=g) * 0.1)
+        return weights[C]
+
+    x, err, n_cases = _check_finisher4x(
+        'finisher4x', g,
+        lambda x, C, centre_taps=False: fin.upsample4x_argmax_score(
+            x, *params(C, centre_taps)),
+        lambda x, C: fin.upsample4x_argmax_score_reference(x, *params(C)))
+    k = params(40)
+    ms = cuda_ms(lambda: fin.upsample4x_argmax_score(x, *k))
+    card = stream_ms(lambda: fin.upsample4x_argmax_score(x, *k))
+    plain_ms = cuda_ms(lambda: fin.upsample4x_argmax_score_reference(x, *k))
+    b_ms, b_by = _finisher_bound(x)
     report['finisher4x'] = dict(
         name='finisher4x', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/finisher4x.cu',
         replaces='nicr_mtsa_tpu/ops/pallas/semantic_finisher4x.py:197',
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
-    print(json.dumps({'phase': 'kernel', **report['finisher4x']}),
+    print(json.dumps({'phase': 'kernel', **report['finisher4x'],
+                      'stream_ms': card, 'cases': n_cases,
+                      'resources': _finisher4x_resources(fin, build, x,
+                                                         False)}),
           flush=True)
 
 
@@ -1052,29 +1127,22 @@ def check_layernorm(ln, report, build):
                       'bf16_values_beyond_1ulp': beyond_ulp}), flush=True)
 
 
-def check_finisher_bilinear(fin, report):
-    """Row 3 at (8, 40, 120, 160), bf16 and f32, plus the tie case;
-    times bf16."""
+def check_finisher_bilinear(fin, report, build):
+    """Row 3: the Swin serving call ((8, 40, 120, 160) bf16 channels-
+    last), FINISHER4X_CASES and ties, against the plain version; times
+    the serving call (`cuda_ms` and `stream_ms`) and prints its plan,
+    registers, spills and blocks an SM."""
     g = torch.Generator(device='cuda').manual_seed(8)
-    B, C, H, W = 8, 40, 120, 160
-    x = torch.randn(B, C, H, W, device='cuda', generator=g) * 3
-    err = 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        got = fin.upsample4x_bilinear_argmax_score(x.to(dt))
-        torch.cuda.synchronize()
-        err = max(err, _same('finisher4x_bilinear', got,
-                             fin.upsample4x_bilinear_argmax_score_reference(
-                                 x.to(dt))))
-    i_k, _ = fin.upsample4x_bilinear_argmax_score(_tied_logits())
-    torch.cuda.synchronize()
-    if not bool((i_k == 2).all()):
-        fail('finisher4x_bilinear: tied classes did not resolve to the '
-             'first index')
-    xd = x.to(torch.bfloat16)
-    ms = cuda_ms(lambda: fin.upsample4x_bilinear_argmax_score(xd))
+    x, err, n_cases = _check_finisher4x(
+        'finisher4x_bilinear', g,
+        lambda x, C, centre_taps=False:
+            fin.upsample4x_bilinear_argmax_score(x),
+        lambda x, C: fin.upsample4x_bilinear_argmax_score_reference(x))
+    ms = cuda_ms(lambda: fin.upsample4x_bilinear_argmax_score(x))
+    card = stream_ms(lambda: fin.upsample4x_bilinear_argmax_score(x))
     plain_ms = cuda_ms(
-        lambda: fin.upsample4x_bilinear_argmax_score_reference(xd))
-    b_ms, b_by = _finisher_bound(xd)
+        lambda: fin.upsample4x_bilinear_argmax_score_reference(x))
+    b_ms, b_by = _finisher_bound(x)
     report['finisher4x_bilinear'] = dict(
         name='finisher4x_bilinear', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/finisher4x.cu',
@@ -1082,6 +1150,9 @@ def check_finisher_bilinear(fin, report):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
     print(json.dumps({'phase': 'kernel', **report['finisher4x_bilinear'],
+                      'stream_ms': card, 'cases': n_cases,
+                      'resources': _finisher4x_resources(fin, build, x,
+                                                         True),
                       'library': 'none: no single PyTorch call gives the '
                                  'argmax and max-softmax score of a 4x '
                                  'upsampling'}), flush=True)
@@ -1382,10 +1453,67 @@ def profile(fn, result, key):
                                for r in rows[:5]]}), flush=True)
 
 
+def panoptic_matched_share(a, b, M: int = PANOPTIC_ID_CLASS):
+    """The share of the segment pixels of two (B, H, W) panoptic maps
+    (ids class * M + k, 0 void; both maps' pixels counted) that lie in
+    segments matched between the maps: same class and IoU > 0.5, the
+    rule by which PQ matches segments (a match is then unique). Any
+    renumbering of a class's segments leaves it unchanged."""
+    matched = total = 0
+    for pa, pb in zip(a.reshape(len(a), -1).long(),
+                      b.reshape(len(b), -1).long()):
+        ua, ia = torch.unique(pa, return_inverse=True)
+        ub, ib = torch.unique(pb, return_inverse=True)
+        area_a = torch.bincount(ia, minlength=len(ua))
+        area_b = torch.bincount(ib, minlength=len(ub))
+        inter = torch.bincount(ia * len(ub) + ib,
+                               minlength=len(ua) * len(ub)
+                               ).view(len(ua), len(ub))
+        union = area_a[:, None] + area_b[None, :] - inter
+        seg_a, seg_b = ua != 0, ub != 0
+        match = ((ua[:, None] // M == ub[None, :] // M) & seg_a[:, None]
+                 & seg_b[None, :] & (2 * inter > union))
+        matched += int(area_a[match.any(1)].sum() + area_b[match.any(0)].sum())
+        total += int(area_a[seg_a].sum() + area_b[seg_b].sum())
+    return matched / max(total, 1)
+
+
+def planted_panoptic_faults(pan, M: int = PANOPTIC_ID_CLASS):
+    """{name: a faulty copy of the (B, H, W) panoptic map, or None where
+    the frame gives the fault nothing to act on}:
+    - 'class_swapped': in each image the largest segment takes the next
+      class id (a wrong majority class in the merge);
+    - 'instances_merged': in each image, of the classes with two or more
+      instances, the two largest instances of the one whose second is
+      largest are merged (two instances taken for one)."""
+    swapped, merged, any_pair = pan.clone(), pan.clone(), False
+    for img_s, img_m in zip(swapped, merged):
+        ids, area = torch.unique(img_s, return_counts=True)
+        segs = sorted(((int(n), int(i)) for i, n in zip(ids, area) if i),
+                      reverse=True)
+        if segs:
+            big = segs[0][1]
+            img_s[img_s == big] = (big // M % 40 + 1) * M + big % M
+        pairs = {}
+        for n, i in segs:
+            if i % M:                           # a thing instance
+                pairs.setdefault(i // M, []).append((n, i))
+        pairs = [v[:2] for v in pairs.values() if len(v) > 1]
+        if pairs:
+            (_, keep), (_, gone) = max(pairs, key=lambda v: v[1][0])
+            img_m[img_m == gone] = keep
+            any_pair = True
+    return {'class_swapped': swapped,
+            'instances_merged': merged if any_pair else None}
+
+
 def card_vs_cpu(result, cfg, key, frame_seed):
     """The f32 serving pipeline of `cfg` on one frame, on the card and
     on the CPU, with the same weights (the same seed builds the same
-    model on both)."""
+    model on both): semantic_idx must agree on >= 99.9 % of pixels, and
+    the panoptic segments match (`panoptic_matched_share` >=
+    PANOPTIC_MATCH_MIN), while each planted panoptic fault must fall
+    below that limit."""
     from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
     rgb, depth = frames(1, seed=frame_seed)
     outs = {}
@@ -1405,13 +1533,33 @@ def card_vs_cpu(result, cfg, key, frame_seed):
                    for dev, o in outs.items()}
     scene_err = float((outs['cuda']['scene_logits']
                        - outs['cpu']['scene_logits']).abs().max())
+    pan_card, pan_cpu = outs['cuda']['panoptic'], outs['cpu']['panoptic']
+    matched = panoptic_matched_share(pan_card, pan_cpu)
+    faults = {name: None if bad is None else
+              panoptic_matched_share(bad, pan_cpu) for name, bad in
+              planted_panoptic_faults(pan_card).items()}
+    n_segments = {dev: [len(torch.unique(p)) for p in o['panoptic']]
+                  for dev, o in outs.items()}
     result[key] = dict(agreement=agree, scene_max_abs=scene_err,
-                       n_instance_ids=n_instances)
+                       n_instance_ids=n_instances,
+                       panoptic_matched_share=matched,
+                       panoptic_faults_matched_share=faults,
+                       n_panoptic_ids=n_segments)
     print(json.dumps({'phase': key, 'agreement': agree,
                       'n_instance_ids': n_instances,
+                      'panoptic_matched_share': matched,
+                      'panoptic_faults_matched_share': faults,
+                      'n_panoptic_ids': n_segments,
                       'scene_max_abs': scene_err}), flush=True)
     if agree['semantic_idx'] < 0.999:
         fail(f"{key}: semantic_idx agreement {agree['semantic_idx']}")
+    if matched < PANOPTIC_MATCH_MIN:
+        fail(f'{key}: panoptic matched share {matched} < '
+             f'{PANOPTIC_MATCH_MIN}')
+    for name, share in faults.items():
+        if share is not None and share >= PANOPTIC_MATCH_MIN:
+            fail(f'{key}: the planted panoptic fault {name} passed the '
+                 f'gate (matched share {share})')
 
 
 def serve_exact(cfg, n_requests, want, kernels, card, result, key,
@@ -1835,7 +1983,7 @@ def main():
               'cuda': torch.version.cuda, 'build_s': build_s,
               'ptxas': dict(_build.BUILD_LOGS)}
     kernel_resources(_build, result)
-    check_finisher(finisher4x, report)
+    check_finisher(finisher4x, report, _build)
     check_grouping(grouping, report)
     check_semantic_reduce(semantic_reduce, report)
     check_resize_reduce(resize_reduce, report, _build)
@@ -1849,7 +1997,7 @@ def main():
     del pipe
     check_window_attention(window_attention, report, result)
     check_layernorm(layernorm, report, _build)
-    check_finisher_bilinear(finisher4x, report)
+    check_finisher_bilinear(finisher4x, report, _build)
     swin_launches = serve_exact(
         emsaformer_bench_config(), args.swin_requests, SWIN_KERNELS, kernels,
         card, result, 'serving_swin', args.profile)

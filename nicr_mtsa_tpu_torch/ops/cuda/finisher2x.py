@@ -16,7 +16,7 @@ import torch
 from ...models.upsampling import DeferredUpsampling, zeropad2x_logits_exact
 from ..reduce import semantic_score_idx
 from ._build import check, is_cuda_tensor, load_library, refuse_grad
-from .finisher4x import stage_weights
+from .finisher4x import cached_stage_weights
 
 _FUNCS = {torch.float32: 'finisher2x_f32', torch.bfloat16: 'finisher2x_bf16'}
 
@@ -36,12 +36,10 @@ def _launch(x, kernel, bias):
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
         + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
     B, C, H, W = x.shape
-    kt, b = stage_weights(kernel, bias, C, x.dtype, x.device)
+    kt, b = cached_stage_weights(kernel, bias, x.dtype, x.device)
     idx = torch.empty((B, 2 * H, 2 * W), dtype=torch.int32, device=x.device)
     score = torch.empty((B, 2 * H, 2 * W), dtype=torch.float32,
                         device=x.device)
-    # kt and b may be freed when this returns: the caching allocator
-    # reuses memory in stream order, after the kernel
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), kt.data_ptr(), b.data_ptr(), idx.data_ptr(),

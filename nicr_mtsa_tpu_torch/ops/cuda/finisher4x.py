@@ -9,14 +9,18 @@ Counterpart of nicr_mtsa_tpu/ops/pallas/semantic_finisher4x.py:
   half-pixel bilinear stages (the MLP decoders' semantic head), which
   are the same kernel with the fixed bilinear stage weights, zero
   biases, the input edge-replicated and no zero ring (`edge`).
-On the card the work is done by csrc/finisher4x.cu; on CPU tensors the
-wrappers run the plain versions, which follow the same exact-phase
-numerics. The two entries count their launches apart. Inputs are
-NCHW."""
+On the card the work is done by csrc/finisher4x.cu, which reads the
+logits through their strides (channels-last included, no copy) in
+output tiles whose geometry is `f4_plan`; on CPU tensors the wrappers
+run the plain versions, which follow the same exact-phase numerics.
+The two entries count their launches apart. Inputs are
+(B, C, H, W)."""
 import ctypes
-from functools import lru_cache
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ...models.upsampling import (DeferredBilinear2, DeferredUpsampling2,
                                   bilinear_kernel, finisher4x_logits_exact,
@@ -25,6 +29,78 @@ from ..reduce import semantic_score_idx
 from ._build import check, is_cuda_tensor, load_library, refuse_grad
 
 _FUNCS = {torch.float32: 'finisher4x_f32', torch.bfloat16: 'finisher4x_bf16'}
+MAX_SMEM = 227 * 1024            # dynamic shared memory a block can take
+SM_SMEM = 228 * 1024             # an SM's, 1 KB of it reserved a block
+# output tiles (rows, cols) in the order tried, each side a multiple of
+# 4 and the columns a divisor of half the block's 256 threads: the first
+# whose shared memory lets two blocks share an SM (the kernel's launch
+# bounds), else the first that fits a block
+TILES = ((32, 64), (16, 64), (16, 32), (8, 32), (8, 16), (4, 16), (4, 8),
+         (4, 4))
+
+
+class F4Plan(NamedTuple):
+    """The kernel's geometry: block (tile column, tile row, image)
+    computes output rows [tile row tile_y, + tile_y) and columns
+    [tile column tile_x, + tile_x); it stages the padded input's
+    `window(...)[0]` and the stage-1 plane's `window(...)[1]`, `classes`
+    values a position (C rounded up to 16 bytes), `smem` bytes with the
+    weights; `vec`: the window is copied by 16-byte cp.async (channels-
+    last, aligned)."""
+    tile_y: int
+    tile_x: int
+    tiles_y: int
+    tiles_x: int
+    classes: int
+    smem: int
+    vec: bool
+
+
+def padded_classes(C: int, elt: int) -> int:
+    v = 16 // elt
+    return -(-C // v) * v
+
+
+def smem_bytes(C: int, elt: int, tile_y: int, tile_x: int) -> int:
+    """A block's dynamic shared memory (csrc/finisher4x.cu `smem_bytes`):
+    both windows in the input's dtype, the two permuted (C, 16) kernels
+    and the two biases (C rounded up to a multiple of 8) in f32."""
+    n_pos = ((tile_y // 4 + 2) * (tile_x // 4 + 2)
+             + (tile_y // 2 + 2) * (tile_x // 2 + 2))
+    return n_pos * padded_classes(C, elt) * elt + 2 * C * 64 \
+        + 2 * (-(-C // 8) * 8) * 4
+
+
+def window(plan: F4Plan, tile_row: int, tile_col: int):
+    """((row0, rows, col0, cols) of the padded input (H + 2, W + 2),
+    the same of the stage-1 plane (2H + 2, 2W + 2)) that the tile
+    stages."""
+    q0, s0 = tile_row * plan.tile_y // 2, tile_col * plan.tile_x // 2
+    return ((q0 // 2, plan.tile_y // 4 + 2, s0 // 2, plan.tile_x // 4 + 2),
+            (q0, plan.tile_y // 2 + 2, s0, plan.tile_x // 2 + 2))
+
+
+@functools.lru_cache(maxsize=256)
+def f4_plan(shape, strides, elt: int, aligned: bool = True) -> F4Plan:
+    """The geometry for logits of `shape` (B, C, H, W) and `strides`,
+    `elt` bytes a value, the data address 16-byte `aligned` or not: the
+    first tile of TILES whose shared memory lets two blocks share an SM,
+    else the first within MAX_SMEM; the window copied by 16-byte
+    cp.async where each pixel's classes are contiguous whole 16-byte
+    words (channels-last, aligned), else by plain loads."""
+    B, C, H, W = shape
+    sb, sc, sh, sw = strides
+    vec = (aligned and sc == 1 and C * elt % 16 == 0 and sw * elt % 16 == 0
+           and sh * elt % 16 == 0 and sb * elt % 16 == 0)
+    sizes = [(ty, tx, smem_bytes(C, elt, ty, tx)) for ty, tx in TILES]
+    fits = [s for s in sizes if 2 * (s[2] + 1024) <= SM_SMEM] \
+        or [s for s in sizes if s[2] <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f'upsample4x_argmax_score: {C} classes do not fit '
+                         f'the kernel\'s shared memory')
+    ty, tx, smem = fits[0]
+    return F4Plan(ty, tx, -(-4 * H // ty), -(-4 * W // tx),
+                  padded_classes(C, elt), smem, vec)
 
 
 def upsample4x_argmax_score_reference(x, kernel1, bias1, kernel2, bias2):
@@ -43,10 +119,41 @@ def stage_weights(kernel, bias, C, dt, device):
             b.to(device).contiguous())
 
 
-@lru_cache(maxsize=16)
+_STAGES = WeakIdKeyDictionary()
+
+
+def _stamp(t: Optional[torch.Tensor]):
+    """What identifies a weight's values: its storage and version (an
+    inference tensor has no version counter and counts as unchanged
+    while it lives)."""
+    if t is None:
+        return None
+    return t.data_ptr(), None if t.is_inference() else t._version
+
+
+def cached_stage_weights(kernel, bias, dt, device) -> Tuple[torch.Tensor,
+                                                            torch.Tensor]:
+    """`stage_weights` of (kernel, bias), cached per kernel tensor,
+    dtype and device until the kernel or the bias changes (in place, or
+    another bias): a serving request passes the same parameters every
+    call. Built outside inference mode, so a later training step can
+    use the tensors."""
+    stamp = (_stamp(kernel), _stamp(bias))
+    entry = _STAGES.setdefault(kernel, {})
+    hit = entry.get((dt, device))
+    if hit is None or hit[0] != stamp:
+        with torch.inference_mode(False), torch.no_grad():
+            packed = stage_weights(kernel, bias, kernel.shape[0], dt, device)
+        hit = entry[(dt, device)] = (stamp, packed)
+    return hit[1]
+
+
+@functools.lru_cache(maxsize=16)
 def _bilinear_stages(C: int, dt, device):
-    """The bilinear entry's fixed stage weights on `device`, built once."""
-    k, b = stage_weights(bilinear_kernel(C), None, C, dt, device)
+    """The bilinear entry's fixed stage weights on `device`, built once,
+    outside inference mode."""
+    with torch.inference_mode(False), torch.no_grad():
+        k, b = stage_weights(bilinear_kernel(C), None, C, dt, device)
     return k, b, k, b
 
 
@@ -59,29 +166,47 @@ def upsample4x_bilinear_argmax_score_reference(x):
     return semantic_score_idx(logits, dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _fn(dtype):
+    lib = load_library('finisher4x')
+    fn = getattr(lib, _FUNCS[dtype])
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    occ = getattr(lib, _FUNCS[dtype] + '_blocks_per_sm')
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.c_int] * 3
+    return fn, occ
+
+
+def blocks_per_sm(dtype, C: int, plan: F4Plan) -> int:
+    """Resident blocks an SM of the instance that takes C classes, at
+    the plan's tile (the library's occupancy query)."""
+    n = _fn(dtype)[1](C, plan.tile_y, plan.tile_x)
+    if n <= 0:
+        raise RuntimeError(f'finisher4x: no occupancy at {plan} ({n})')
+    return n
+
+
 def _launch(x, stages, edge: bool, counter):
     """stages: (k1, b1, k2, b2) from `stage_weights` on x's device."""
     if x.dim() != 4 or x.dtype not in _FUNCS:
         raise ValueError(f'finisher4x takes (B, C, H, W) float32/bfloat16 '
                          f'logits, got {tuple(x.shape)} {x.dtype}')
-    lib = load_library('finisher4x')
-    fn = getattr(lib, _FUNCS[x.dtype])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn, _ = _fn(x.dtype)
     B, C, H, W = x.shape
-    x = x.contiguous()
+    plan = f4_plan(tuple(x.shape), x.stride(), x.element_size(),
+                   x.data_ptr() % 16 == 0)
     k1, b1, k2, b2 = stages
     idx = torch.empty((B, 4 * H, 4 * W), dtype=torch.int32, device=x.device)
     score = torch.empty((B, 4 * H, 4 * W), dtype=torch.float32,
                         device=x.device)
-    # the temporaries above may be freed when this returns: the caching
-    # allocator reuses memory in stream order, after the kernel
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), k1.data_ptr(), b1.data_ptr(), k2.data_ptr(),
                  b2.data_ptr(), idx.data_ptr(), score.data_ptr(),
-                 B, C, H, W, int(edge), stream)
+                 B, C, H, W, *x.stride(), int(edge), plan.tile_y,
+                 plan.tile_x, int(plan.vec), stream)
     check(err, 'finisher4x')
     counter.launches += 1
     return idx, score
@@ -89,16 +214,16 @@ def _launch(x, stages, edge: bool, counter):
 
 def upsample4x_argmax_score(x, kernel1, bias1, kernel2, bias2):
     """(first-argmax idx int32, max-softmax score f32), both (B, 4H, 4W),
-    of NCHW logits x upsampled by two learned-3x3-zeropad x2 stages
-    (kernels (C, 1, 3, 3) f32, biases (C,) or None). CUDA tensors go
-    to the kernel; CPU tensors to the plain version."""
+    of (B, C, H, W) logits x with any strides upsampled by two
+    learned-3x3-zeropad x2 stages (kernels (C, 1, 3, 3) f32, biases (C,)
+    or None). CUDA tensors go to the kernel; CPU tensors to the plain
+    version."""
     if not is_cuda_tensor(x):
         return upsample4x_argmax_score_reference(x, kernel1, bias1,
                                                  kernel2, bias2)
     refuse_grad('upsample4x_argmax_score', x, kernel1, bias1, kernel2, bias2)
-    C, dt = x.shape[1], x.dtype
-    stages = (stage_weights(kernel1, bias1, C, dt, x.device)
-              + stage_weights(kernel2, bias2, C, dt, x.device))
+    stages = (cached_stage_weights(kernel1, bias1, x.dtype, x.device)
+              + cached_stage_weights(kernel2, bias2, x.dtype, x.device))
     return _launch(x, stages, False, upsample4x_argmax_score)
 
 
@@ -107,8 +232,9 @@ upsample4x_argmax_score.launches = 0
 
 def upsample4x_bilinear_argmax_score(x):
     """(first-argmax idx int32, max-softmax score f32), both (B, 4H, 4W),
-    of NCHW logits x upsampled by two half-pixel bilinear x2 stages.
-    CUDA tensors go to the kernel; CPU tensors to the plain version."""
+    of (B, C, H, W) logits x with any strides upsampled by two
+    half-pixel bilinear x2 stages. CUDA tensors go to the kernel; CPU
+    tensors to the plain version."""
     if not is_cuda_tensor(x):
         return upsample4x_bilinear_argmax_score_reference(x)
     refuse_grad('upsample4x_bilinear_argmax_score', x)

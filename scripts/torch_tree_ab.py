@@ -27,9 +27,11 @@ from a seed:
   backward (q, k, v gradients), and torch.sum over the dbias partials;
 - rows 1-6, 10 and 11 at their paths' shapes, on the inputs
   chip_smoke.py's checks make for them (B=8: the finishers' bf16
-  logits, the grouping's 307200 pixels and 64 centres, the eval
-  reductions' (8, 40, 480, 640) channels-last logits (row 5 to 512 x
-  512), the LayerNorm's rows at each of its Swin serving widths
+  logits, channels-last as the heads give them on the card, rows 1
+  and 3 also NCHW (`*_nchw`); the grouping's 307200 pixels and 64
+  centres, the eval reductions' (8, 40, 480, 640) channels-last logits
+  (row 5 to 512 x 512), the LayerNorm's rows at each of its Swin
+  serving widths
   (chip_smoke.py's LN_SHAPES: 153600 x 96, 32 and 128, 38400 x 256,
   9600 x 512, 2400 x 1024), the intersection's (8, 262144) slots), with
   F.layer_norm beside row 10 at each shape and torch.bincount beside
@@ -148,9 +150,12 @@ def other_rows(kernels, g, ln_shapes):
     bf = torch.bfloat16
     out = {}
     x = (rnd(8, 40, 120, 160) * 3).to(bf)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
     k1, k2 = rnd(40, 1, 3, 3) * 0.3, rnd(40, 1, 3, 3) * 0.3
     b1, b2 = rnd(40) * 0.1, rnd(40) * 0.1
     out['row1_finisher4x'] = _times(
+        lambda: kernels.upsample4x_argmax_score(x_cl, k1, b1, k2, b2))
+    out['row1_finisher4x_nchw'] = _times(
         lambda: kernels.upsample4x_argmax_score(x, k1, b1, k2, b2))
     B, P, K = 8, 480 * 640, 64
     rand = lambda *s: torch.rand(*s, device='cuda', generator=g)
@@ -163,6 +168,8 @@ def other_rows(kernels, g, ln_shapes):
     out['row2_grouping'] = _times(lambda: kernels.group_pixels_kernel(
         loc_y, loc_x, ctr, valid, fg))
     out['row3_finisher4x_bilinear'] = _times(
+        lambda: kernels.upsample4x_bilinear_argmax_score(x_cl))
+    out['row3_finisher4x_bilinear_nchw'] = _times(
         lambda: kernels.upsample4x_bilinear_argmax_score(x))
     x2 = (rnd(8, 40, 240, 320) * 3).to(bf).contiguous(
         memory_format=torch.channels_last)
