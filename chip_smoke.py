@@ -25,7 +25,14 @@ phases; any failure exits non-zero and prints no result:
    with y0, x0 > 0, an output wider than its crop, a 333 x 500 output,
    NCHW and channels-last, bf16 and f32, tied classes at 8 and 40
    classes, with the card's time alone (`stream_ms`) and its plan,
-   registers, spills and blocks an SM; check that centre selection and
+   registers, spills and blocks an SM; the grouping through both entries
+   (the pipeline's, on the offset map, at the serving call and
+   GROUPING_CASES: bf16 and f32 offsets, channels-last and NCHW, with
+   and without a distance threshold, no valid centre, valid and invalid
+   centres interleaved, K = 1 and 254, tied centres; the loc-level one
+   at 307200 pixels, no valid centre, a ragged P), ids and min_d2 bit
+   for bit, timed (`cuda_ms`, `stream_ms`) with their grids, registers,
+   spills and blocks an SM; check that centre selection and
    the merge resolve tied inputs on the card exactly as on the CPU;
 3. serve the full-width `emsanet-bench` EMSANet (2x ResNet-34 NBt1D,
    480 x 640, bf16, random weights from a seed) on B=8 uint8/uint16
@@ -35,10 +42,13 @@ phases; any failure exits non-zero and prints no result:
    CPU with identical weights: semantic_idx must agree on >= 99.9 %,
    and the panoptic segments must match: the share of segment pixels
    in segments matched by class and IoU > 0.5 (PQ's rule, blind to
-   renumbering) at least PANOPTIC_MATCH_MIN, while planted faults of
-   the card's map (the largest segment given another class; two
-   instances of a class merged, where the frame has two) must fall
-   below it;
+   renumbering) at least PANOPTIC_MATCH_MIN, and their borders in
+   place: the pixel agreement of the matched segments at least
+   PANOPTIC_BORDER_MIN, while planted faults of the card's map (the
+   largest segment given another class; two instances of a class
+   merged, where the frame has two) must fall below the first gate and
+   the map rolled by BORDER_ROLL columns below the second; an earlier
+   line says whether the centre tables agree in order or only as sets;
 5. run the fused eval step of `bench.py --eval` (the same model with
    the semantic upsampling in the head, 40 classes of which 8 things,
    top-k 64, segment table 128) on a synthetic B=8 batch (480 x 640,
@@ -101,10 +111,14 @@ phases; any failure exits non-zero and prints no result:
    move it in the same run where that is more; the card's step with a
    planted 1 % fault (row 7's dbias; the instance losses) must fail
    that check;
-13. hold the 2x finisher of EMSANet's `--no-defer4x` variant against its
+13. hold the 2x finisher of EMSANet's `--no-defer4x` variant (the one-
+   stage instance of the 4x finisher's tile template) against its
    plain version at the path's (8, 40, 240, 320), channels-last as the
-   head gives it and contiguous, in bf16 and f32, plus tied classes and
-   an odd shape (idx exact, scores within rtol 1e-5), and time it;
+   head gives it and contiguous, in bf16 and f32, and at
+   FINISHER2X_CASES (a ragged shape, 19 classes, an odd shape without a
+   bias), plus tied classes at 8 and 40 classes (idx exact, scores
+   within rtol 1e-5); time it (`cuda_ms`, `stream_ms`) with its plan,
+   registers, spills and blocks an SM;
 14. serve `emsanet_bench_config(defer=True)` (the head applies the first
    prediction upsampling and defers the last) on B=8 requests, counters
    set to 0 just before: exactly 1 finisher2x, 0 finisher4x and 1
@@ -202,9 +216,16 @@ TRAIN_FAULT_SIZE = 1e-2
 # segments matched by class and IoU > 0.5 (see PERF.md section 2)
 PANOPTIC_ID_CLASS = 1 << 16
 PANOPTIC_MATCH_MIN = 0.999
+# the border-level gate: the pixel agreement of the matched segments
+# (`panoptic_border_agreement`), by card_vs_cpu key, the matched-share
+# limit where none is named; a roll of the card's map by BORDER_ROLL
+# columns is the planted control that must fail it
+PANOPTIC_BORDER_MIN = {}
+BORDER_ROLL = 16
 # kernels whose device time and calls each profile sums by name
 PROFILED_KERNELS = ('layer_norm_kernel', 'resize_reduce_kernel',
-                    'finisher4x_kernel')
+                    'finisher4x_kernel', 'finisher2x_kernel',
+                    'group_pixels_kernel')
 
 
 def fail(msg: str) -> None:
@@ -438,47 +459,140 @@ def check_finisher(fin, report, build):
           flush=True)
 
 
-def check_grouping(grp, report):
-    """Kernel vs plain version at B=8, P=307200, K=64 with invalid
-    centres, plus no valid centres and a ragged P; times the first."""
-    g = torch.Generator(device='cuda').manual_seed(1)
-    B, P, K = 8, 480 * 640, 64
-    loc_y = torch.rand(B, P, device='cuda', generator=g) * 480
-    loc_x = torch.rand(B, P, device='cuda', generator=g) * 640
+# the grouping's checks beyond the serving calls (tests/test_torch_
+# grouping.py's cases): (name, B, H, W, K, valid centres ('p0.7': each
+# with that probability, 'alternate': every other one, 'none'), offset
+# dtype, layout ('cl' channels-last, 'nchw'), distance threshold)
+GROUPING_CASES = (
+    ('bf16_cl', 2, 48, 64, 64, 'p0.7', 'bf16', 'cl', None),
+    ('bf16_nchw_threshold', 2, 48, 64, 64, 'p0.7', 'bf16', 'nchw', 6.0),
+    ('f32_cl_threshold', 2, 48, 64, 64, 'p0.7', 'f32', 'cl', 4.5),
+    ('f32_nchw', 2, 48, 64, 64, 'p0.7', 'f32', 'nchw', None),
+    ('no_valid_centre', 2, 48, 64, 64, 'none', 'bf16', 'cl', None),
+    ('alternate_valid', 2, 48, 64, 64, 'alternate', 'f32', 'cl', 5.0),
+    ('k1', 2, 37, 53, 1, 'p1.0', 'bf16', 'cl', None),
+    ('k254', 2, 37, 53, 254, 'p0.7', 'f32', 'nchw', 3.0),
+    ('k254_bf16', 2, 37, 53, 254, 'p0.7', 'bf16', 'cl', None))
+
+
+def _grouping_offsets_case(g, B, H, W, K, valid, dt, layout, spread=8.0):
+    """Offsets (B, 2, H, W) of N(0, spread) pixels in `dt` and `layout`,
+    int32 centres (B, K, 2) inside the image, their validity and a
+    foreground mask of ~60 % of the pixels, on the card."""
+    off = (torch.randn(B, 2, H, W, device='cuda', generator=g) * spread).to(
+        torch.bfloat16 if dt == 'bf16' else torch.float32)
+    if layout == 'cl':
+        off = off.contiguous(memory_format=torch.channels_last)
     ctr = torch.stack([
-        torch.randint(0, 480, (B, K), device='cuda', generator=g),
-        torch.randint(0, 640, (B, K), device='cuda', generator=g)],
-        -1).float()
-    valid = torch.rand(B, K, device='cuda', generator=g) < 0.7
-    fg = torch.rand(B, P, device='cuda', generator=g) < 0.6
-    cases = [(loc_y, loc_x, ctr, valid, fg),
-             (loc_y, loc_x, ctr, torch.zeros_like(valid), fg),
-             (loc_y[:, :100003], loc_x[:, :100003], ctr, valid,
-              fg[:, :100003])]
-    for i, args in enumerate(cases):
-        ids_k, d2_k = grp.group_pixels_kernel(*args)
+        torch.randint(0, H, (B, K), device='cuda', generator=g),
+        torch.randint(0, W, (B, K), device='cuda', generator=g)],
+        -1).to(torch.int32)
+    if valid == 'none':
+        ok = torch.zeros(B, K, dtype=torch.bool, device='cuda')
+    elif valid == 'alternate':
+        ok = (torch.arange(K, device='cuda') % 2 == 1).expand(B, K)
+        ok = ok.contiguous()
+    else:
+        ok = torch.rand(B, K, device='cuda', generator=g) < float(valid[1:])
+    fg = torch.rand(B, H, W, device='cuda', generator=g) < 0.6
+    return off, ctr, ok, fg
+
+
+def _same_grouping(name, got, want):
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f'grouping {name}: ids/min_d2 differ from the plain version')
+
+
+def check_grouping(grp, report, build):
+    """Row 2, both entries against their plain versions, ids and min_d2
+    bit for bit: the pipeline entry (`group_pixels_offsets`) at the
+    serving call (offsets (8, 2, 480, 640) bf16 channels-last, 64 int32
+    centres ~70 % valid) and GROUPING_CASES, plus two tied centres (the
+    first must win); the loc-level entry (`group_pixels_kernel`) at B=8,
+    P=307200, K=64 with invalid centres, no valid centre, a ragged P, f32
+    and int32 centres, and K=254 at P=1500. Times both at B=8
+    (`cuda_ms`, `stream_ms`) and prints their grids, registers, spills
+    and blocks an SM."""
+    g = torch.Generator(device='cuda').manual_seed(1)
+    B, H, W, K = 8, 480, 640, 64
+    P = H * W
+    serving = _grouping_offsets_case(g, B, H, W, K, 'p0.7', 'bf16', 'cl')
+    cases = [('serving', serving, None), ('serving_threshold', serving, 7.0)]
+    for name, B_, H_, W_, K_, valid, dt, layout, thr in GROUPING_CASES:
+        cases.append((name, _grouping_offsets_case(g, B_, H_, W_, K_, valid,
+                                                   dt, layout), thr))
+    # a tie: three centres at one place, the first invalid: centre 1
+    # (id 2) must win every foreground pixel
+    off, ctr, ok, fg = _grouping_offsets_case(g, 2, 48, 64, 3, 'p1.0',
+                                              'f32', 'cl')
+    ctr[:, 1:] = ctr[:, :1]
+    ok[:, 0] = False
+    cases.append(('tie', (off, ctr, ok, fg), None))
+    for name, args, thr in cases:
+        got = grp.group_pixels_offsets(*args, threshold=thr,
+                                       return_min_d2=True)
         torch.cuda.synchronize()
-        ids_r, d2_r = grp.group_pixels_reference(*args)
-        if not (torch.equal(ids_k, ids_r) and torch.equal(d2_k, d2_r)):
-            fail(f'grouping case {i}: ids/min_d2 differ from the plain '
-                 f'version')
-        if i == 1 and bool((ids_k != 0).any()):
+        _same_grouping(name, got, grp.group_pixels_offsets_reference(
+            *args, threshold=thr))
+        if name == 'no_valid_centre' and bool((got[0] != 0).any()):
             fail('grouping: ids without any valid centre')
-    args = cases[0]
-    ms = cuda_ms(lambda: grp.group_pixels_kernel(*args))
-    plain_ms = cuda_ms(lambda: grp.group_pixels_reference(*args))
-    n_valid = int(valid.sum())                # centres the data needs
-    n_bytes = B * P * (4 + 4 + 1 + 4 + 4) + B * K * 9
-    n_ops = P * n_valid * 6
+        if name == 'tie' and not bool((got[0][args[3]] == 2).all()):
+            fail('grouping: tied centres did not resolve to the first')
+    loc_y = torch.rand(B, P, device='cuda', generator=g) * H
+    loc_x = torch.rand(B, P, device='cuda', generator=g) * W
+    ctr = serving[1]
+    valid = serving[2]
+    fg = torch.rand(B, P, device='cuda', generator=g) < 0.6
+    k254 = _grouping_offsets_case(g, 2, 16, 128, 254, 'p0.6', 'f32', 'cl')
+    loc_cases = [(loc_y, loc_x, ctr.float(), valid, fg),
+                 (loc_y, loc_x, ctr, valid, fg),
+                 (loc_y, loc_x, ctr, torch.zeros_like(valid), fg),
+                 (loc_y[:, :100003], loc_x[:, :100003], ctr, valid,
+                  fg[:, :100003]),
+                 (loc_y[:2, :1500] * (16 / H), loc_x[:2, :1500] * (128 / W),
+                  k254[1], k254[2], fg[:2, :1500])]
+    for i, args in enumerate(loc_cases):
+        got = grp.group_pixels_kernel(*args)
+        torch.cuda.synchronize()
+        _same_grouping(f'loc case {i}', got, grp.group_pixels_reference(*args))
+        if i == 2 and bool((got[0] != 0).any()):
+            fail('grouping: ids without any valid centre')
+    ms = cuda_ms(lambda: grp.group_pixels_offsets(*serving))
+    card = stream_ms(lambda: grp.group_pixels_offsets(*serving))
+    plain_ms = cuda_ms(lambda: grp.group_pixels_offsets_reference(*serving))
+    loc_args = loc_cases[0]
+    loc_ms = cuda_ms(lambda: grp.group_pixels_kernel(*loc_args))
+    loc_card = stream_ms(lambda: grp.group_pixels_kernel(*loc_args))
+    off, _, ok, fg_s = serving
+    # bytes: offsets, mask and ids, the centres and their validity, each
+    # once; operations: each foreground pixel against each valid centre
+    # of its image (dy, dx, dx * dx, fma as 2, compare: 6), what this
+    # run's data needs (background pixels are not grouped)
+    n_bytes = off.numel() * off.element_size() + B * P * (1 + 4) + B * K * 9
+    n_ops = 6 * int((fg_s.reshape(B, -1).sum(1) * ok.sum(1)).sum())
     b_ms, b_by = bound(n_bytes, n_ops)
+    loc_bytes = B * P * (4 + 4 + 1 + 4 + 4) + B * K * 9
+    loc_b_ms, _ = bound(loc_bytes, 6 * P * int(valid.sum()))
+    resources = {}
+    for key, pieces, loc in (
+            ('offsets', ('group_pixels_kernelILb0E13__nv_bfloat16i',), False),
+            ('loc', ('group_pixels_kernelILb1Eff',), True)):
+        regs, st, ld = _ptxas_of(build, 'grouping', *pieces)
+        resources[key] = dict(grid=[-(-P // grp.TILE), B], registers=regs,
+                              spill_store_bytes=st, spill_load_bytes=ld,
+                              blocks_per_sm=grp.blocks_per_sm(loc, K))
     report['grouping'] = dict(
         name='grouping', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/grouping.cu',
         replaces='nicr_mtsa_tpu/ops/pallas/grouping_kernel.py:58',
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
-    print(json.dumps({'phase': 'kernel', **report['grouping']}),
-          flush=True)
+    print(json.dumps({'phase': 'kernel', **report['grouping'],
+                      'stream_ms': card, 'cases': len(cases) + len(loc_cases),
+                      'valid_centres': int(ok.sum()),
+                      'loc_entry': {'ms': loc_ms, 'stream_ms': loc_card,
+                                    'bound_ms': loc_b_ms},
+                      'resources': resources}), flush=True)
 
 
 def _eval_logits(seed):
@@ -1158,52 +1272,86 @@ def check_finisher_bilinear(fin, report, build):
                                  'upsampling'}), flush=True)
 
 
-def check_finisher2x(fin, report):
+# the 2x finisher's checks beyond the path's shape: (B, C, H, W, dtype,
+# layout, bias): a ragged shape (no 32 x 64 tile divides 74 x 106), 19
+# classes (the generic instance), and an odd shape without a bias
+FINISHER2X_CASES = ((2, 40, 37, 53, 'bf16', 'cl', True),
+                    (2, 40, 37, 53, 'f32', 'nchw', True),
+                    (2, 19, 37, 53, 'bf16', 'cl', True),
+                    (2, 19, 37, 53, 'f32', 'nchw', True),
+                    (3, 13, 7, 10, 'bf16', 'nchw', False),
+                    (3, 13, 7, 10, 'f32', 'cl', False))
+
+
+def check_finisher2x(fin, report, build):
     """Row 4 at the `--no-defer4x` path's (8, 40, 240, 320) logits,
     channels-last (the head's layout on the card) and contiguous, bf16
-    and f32; tied classes (the first index must win) and an odd shape
-    (3, 13, 7, 10) with no bias. Times bf16 channels-last."""
+    and f32, and at FINISHER2X_CASES; tied classes at 8 and 40 classes
+    (the first index must win): idx bit for bit, scores within rtol
+    1e-5. Times bf16 channels-last (`cuda_ms` and `stream_ms`) and
+    prints its plan, registers, spills and blocks an SM."""
     g = torch.Generator(device='cuda').manual_seed(10)
     B, C, H, W = 8, 40, 240, 320
     x = torch.randn(B, C, H, W, device='cuda', generator=g) * 3
     k = torch.randn(C, 1, 3, 3, device='cuda', generator=g) * 0.3
     b = torch.randn(C, device='cuda', generator=g) * 0.1
-    xo = torch.randn(3, 13, 7, 10, device='cuda', generator=g) * 3
-    ko = torch.randn(13, 1, 3, 3, device='cuda', generator=g) * 0.3
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         xd = x.to(dt)
         cases += [(xd.contiguous(memory_format=torch.channels_last), k, b),
-                  (xd, k, b), (xo.to(dt), ko, None)]
+                  (xd, k, b)]
+    for Bc, Cc, Hc, Wc, dt, layout, with_bias in FINISHER2X_CASES:
+        xc = _finisher4x_input(g, Bc, Cc, Hc, Wc, dt, layout)
+        kc = torch.randn(Cc, 1, 3, 3, device='cuda', generator=g) * 0.3
+        bc = torch.randn(Cc, device='cuda', generator=g) * 0.1
+        cases.append((xc, kc, bc if with_bias else None))
     err = 0.0
     for args in cases:
         got = fin.upsample2x_argmax_score(*args)
         torch.cuda.synchronize()
-        err = max(err, _same('finisher2x', got,
+        err = max(err, _same(f'finisher2x {tuple(args[0].shape)} '
+                             f'{args[0].dtype} {args[0].stride()}', got,
                              fin.upsample2x_argmax_score_reference(*args)))
-    kt = torch.zeros(8, 1, 3, 3, device='cuda')
-    kt[:, :, 1, 1] = 1.0
-    xt = _tied_logits().contiguous(memory_format=torch.channels_last)
-    i_k, _ = fin.upsample2x_argmax_score(xt, kt, None)
-    torch.cuda.synchronize()
-    if not bool((i_k == 2).all()):
-        fail('finisher2x: tied classes did not resolve to the first index')
+    for Ct, first, other in ((8, 2, 5), (40, 7, 31)):
+        kt = torch.zeros(Ct, 1, 3, 3, device='cuda')
+        kt[:, :, 1, 1] = 1.0          # the centre tap: ties survive
+        xt = torch.zeros(2, Ct, 48, 64, device='cuda', dtype=torch.bfloat16)
+        xt[:, first] = 1.5
+        xt[:, other] = 1.5
+        i_k, _ = fin.upsample2x_argmax_score(
+            xt.contiguous(memory_format=torch.channels_last), kt, None)
+        torch.cuda.synchronize()
+        if not bool((i_k == first).all()):
+            fail(f'finisher2x: tied classes ({Ct} classes) did not resolve '
+                 f'to the first index')
     xd = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     ms = cuda_ms(lambda: fin.upsample2x_argmax_score(xd, k, b))
+    card = stream_ms(lambda: fin.upsample2x_argmax_score(xd, k, b))
     plain_ms = cuda_ms(lambda: fin.upsample2x_argmax_score_reference(xd, k, b))
     P = B * 4 * H * W                         # output pixels
     # logits read once, the (C, 16) kernel and (C,) bias in f32, idx and
     # score written once; per output pixel-class 4 mul + 3 add taps, the
     # bias add, max, subtract, exp and sum add; per pixel one divide
     b_ms, b_by = bound(xd.numel() * 2 + C * 17 * 4 + P * 8, P * C * 12 + P)
+    plan = fin.plan_for(xd)
+    regs, st, ld = _ptxas_of(build, 'finisher4x',
+                             'finisher2x_kernelI13__nv_bfloat16Li40E')
     report['finisher2x'] = dict(
         name='finisher2x', route='cuda',
-        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/finisher2x.cu',
+        source='nicr_mtsa_tpu_torch/ops/cuda/csrc/finisher4x.cu',
         replaces='nicr_mtsa_tpu/ops/pallas/semantic_finisher.py:161',
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
     print(json.dumps({'phase': 'kernel', **report['finisher2x'],
-                      'shape': [B, C, H, W],
+                      'stream_ms': card, 'shape': [B, C, H, W],
+                      'cases': len(cases) + 2,
+                      'resources': dict(
+                          plan=plan._asdict(),
+                          grid=[plan.tiles_x, plan.tiles_y, B],
+                          registers=regs, spill_store_bytes=st,
+                          spill_load_bytes=ld,
+                          blocks_per_sm=fin.blocks_per_sm(xd.dtype, C,
+                                                          plan)),
                       'library': 'none: no single PyTorch call gives the '
                                  'argmax and max-softmax score of an '
                                  'upsampling'}), flush=True)
@@ -1453,6 +1601,24 @@ def profile(fn, result, key):
                                for r in rows[:5]]}), flush=True)
 
 
+def _segment_matches(pa, pb, M: int):
+    """Of one image's two flat panoptic maps: the segment ids of each
+    (ua, ub), each pixel's segment index (ia, ib), the segment areas
+    (area_a, area_b), and the (len(ua), len(ub)) matrix of the segments
+    matched by PQ's rule: same class and IoU > 0.5 (a match is then
+    unique), void (0) never matched."""
+    ua, ia = torch.unique(pa, return_inverse=True)
+    ub, ib = torch.unique(pb, return_inverse=True)
+    area_a = torch.bincount(ia, minlength=len(ua))
+    area_b = torch.bincount(ib, minlength=len(ub))
+    inter = torch.bincount(ia * len(ub) + ib, minlength=len(ua) * len(ub)
+                           ).view(len(ua), len(ub))
+    union = area_a[:, None] + area_b[None, :] - inter
+    match = ((ua[:, None] // M == ub[None, :] // M) & (ua != 0)[:, None]
+             & (ub != 0)[None, :] & (2 * inter > union))
+    return ua, ub, ia, ib, area_a, area_b, match
+
+
 def panoptic_matched_share(a, b, M: int = PANOPTIC_ID_CLASS):
     """The share of the segment pixels of two (B, H, W) panoptic maps
     (ids class * M + k, 0 void; both maps' pixels counted) that lie in
@@ -1462,20 +1628,31 @@ def panoptic_matched_share(a, b, M: int = PANOPTIC_ID_CLASS):
     matched = total = 0
     for pa, pb in zip(a.reshape(len(a), -1).long(),
                       b.reshape(len(b), -1).long()):
-        ua, ia = torch.unique(pa, return_inverse=True)
-        ub, ib = torch.unique(pb, return_inverse=True)
-        area_a = torch.bincount(ia, minlength=len(ua))
-        area_b = torch.bincount(ib, minlength=len(ub))
-        inter = torch.bincount(ia * len(ub) + ib,
-                               minlength=len(ua) * len(ub)
-                               ).view(len(ua), len(ub))
-        union = area_a[:, None] + area_b[None, :] - inter
-        seg_a, seg_b = ua != 0, ub != 0
-        match = ((ua[:, None] // M == ub[None, :] // M) & seg_a[:, None]
-                 & seg_b[None, :] & (2 * inter > union))
+        ua, ub, _, _, area_a, area_b, match = _segment_matches(pa, pb, M)
         matched += int(area_a[match.any(1)].sum() + area_b[match.any(0)].sum())
-        total += int(area_a[seg_a].sum() + area_b[seg_b].sum())
+        total += int(area_a[ua != 0].sum() + area_b[ub != 0].sum())
     return matched / max(total, 1)
+
+
+def panoptic_border_agreement(a, b, M: int = PANOPTIC_ID_CLASS):
+    """The pixel agreement of the matched segments of two (B, H, W)
+    panoptic maps: each segment of `a` matched by
+    `panoptic_matched_share`'s rule is mapped to its segment of `b`;
+    over the pixels that lie in a matched segment in either map, the
+    share where `a`'s mapped segment is `b`'s segment. A border moved by
+    a few pixels lowers it, where the matched share would not move;
+    renumbering does not."""
+    agree = total = 0
+    for pa, pb in zip(a.reshape(len(a), -1).long(),
+                      b.reshape(len(b), -1).long()):
+        ua, _, ia, ib, _, _, match = _segment_matches(pa, pb, M)
+        partner = torch.full((len(ua),), -1, dtype=torch.long)
+        rows, cols = match.nonzero(as_tuple=True)
+        partner[rows] = cols
+        counted = match.any(1)[ia] | match.any(0)[ib]
+        agree += int((partner[ia] == ib).sum())
+        total += int(counted.sum())
+    return agree / max(total, 1)
 
 
 def planted_panoptic_faults(pan, M: int = PANOPTIC_ID_CLASS):
@@ -1507,20 +1684,51 @@ def planted_panoptic_faults(pan, M: int = PANOPTIC_ID_CLASS):
             'instances_merged': merged if any_pair else None}
 
 
+def _capture_centres(pipe, into: dict):
+    """Record the instance centre table (centres_yx, valid) of each call
+    of `pipe` into `into` (a hook on its postprocessing)."""
+    postprocess = pipe.post.postprocess
+
+    def hooked(*args, **kwargs):
+        r_dict = postprocess(*args, **kwargs)
+        meta = r_dict['panoptic_segmentation_deeplab_instance_meta']
+        into['yx'], into['valid'] = meta['centers_yx'], meta['valid']
+        return r_dict
+
+    pipe.post.postprocess = hooked
+
+
+def _centre_lists(table):
+    """Per image, the valid centres' (y, x) in table order."""
+    return [[tuple(int(v) for v in yx) for yx, ok in zip(img, val) if ok]
+            for img, val in zip(table['yx'].cpu(), table['valid'].cpu())]
+
+
 def card_vs_cpu(result, cfg, key, frame_seed):
     """The f32 serving pipeline of `cfg` on one frame, on the card and
     on the CPU, with the same weights (the same seed builds the same
     model on both): semantic_idx must agree on >= 99.9 % of pixels, and
     the panoptic segments match (`panoptic_matched_share` >=
-    PANOPTIC_MATCH_MIN), while each planted panoptic fault must fall
-    below that limit."""
+    PANOPTIC_MATCH_MIN) with their borders in place
+    (`panoptic_border_agreement` >= PANOPTIC_BORDER_MIN), while each
+    planted panoptic fault must fall below its gate. First prints
+    whether the centre tables agree as ordered lists or only as sets."""
     from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
     rgb, depth = frames(1, seed=frame_seed)
-    outs = {}
+    outs, centres = {}, {}
     for dev in ('cuda', 'cpu'):
         pipe = build_serving_pipeline(cfg, device=dev, seed=0)
+        centres[dev] = {}
+        _capture_centres(pipe, centres[dev])
         outs[dev] = {k: v.cpu() for k, v in pipe(rgb, depth).items()}
         del pipe
+    lists = {dev: _centre_lists(t) for dev, t in centres.items()}
+    order = {'ordered_equal': lists['cuda'] == lists['cpu'],
+             'set_equal': all(set(a) == set(b) for a, b in
+                              zip(lists['cuda'], lists['cpu'])),
+             'n_valid': {dev: [len(v) for v in li]
+                         for dev, li in lists.items()}}
+    print(json.dumps({'phase': f'{key}_centres', **order}), flush=True)
     check_outputs(outs['cuda'], 1, 480, 640, 40)
     agree = {k: float((outs['cuda'][k] == outs['cpu'][k]).float().mean())
              for k in ('semantic_idx', 'panoptic', 'panoptic_semantic',
@@ -1535,20 +1743,31 @@ def card_vs_cpu(result, cfg, key, frame_seed):
                        - outs['cpu']['scene_logits']).abs().max())
     pan_card, pan_cpu = outs['cuda']['panoptic'], outs['cpu']['panoptic']
     matched = panoptic_matched_share(pan_card, pan_cpu)
+    border = panoptic_border_agreement(pan_card, pan_cpu)
     faults = {name: None if bad is None else
               panoptic_matched_share(bad, pan_cpu) for name, bad in
               planted_panoptic_faults(pan_card).items()}
+    rolled = torch.roll(pan_card, BORDER_ROLL, dims=2)
+    roll = {'matched_share': panoptic_matched_share(rolled, pan_cpu),
+            'border_agreement': panoptic_border_agreement(rolled, pan_cpu)}
     n_segments = {dev: [len(torch.unique(p)) for p in o['panoptic']]
                   for dev, o in outs.items()}
+    border_min = PANOPTIC_BORDER_MIN.get(key, PANOPTIC_MATCH_MIN)
     result[key] = dict(agreement=agree, scene_max_abs=scene_err,
                        n_instance_ids=n_instances,
                        panoptic_matched_share=matched,
+                       panoptic_border_agreement=border,
+                       panoptic_border_min=border_min,
                        panoptic_faults_matched_share=faults,
+                       panoptic_roll=roll, centres=order,
                        n_panoptic_ids=n_segments)
     print(json.dumps({'phase': key, 'agreement': agree,
                       'n_instance_ids': n_instances,
                       'panoptic_matched_share': matched,
+                      'panoptic_border_agreement': border,
+                      'panoptic_border_min': border_min,
                       'panoptic_faults_matched_share': faults,
+                      'panoptic_roll': roll,
                       'n_panoptic_ids': n_segments,
                       'scene_max_abs': scene_err}), flush=True)
     if agree['semantic_idx'] < 0.999:
@@ -1556,10 +1775,15 @@ def card_vs_cpu(result, cfg, key, frame_seed):
     if matched < PANOPTIC_MATCH_MIN:
         fail(f'{key}: panoptic matched share {matched} < '
              f'{PANOPTIC_MATCH_MIN}')
+    if border < border_min:
+        fail(f'{key}: panoptic border agreement {border} < {border_min}')
     for name, share in faults.items():
         if share is not None and share >= PANOPTIC_MATCH_MIN:
             fail(f'{key}: the planted panoptic fault {name} passed the '
                  f'gate (matched share {share})')
+    if roll['border_agreement'] >= border_min:
+        fail(f"{key}: the planted {BORDER_ROLL}-pixel roll passed the "
+             f"border gate ({roll['border_agreement']})")
 
 
 def serve_exact(cfg, n_requests, want, kernels, card, result, key,
@@ -1984,7 +2208,7 @@ def main():
               'ptxas': dict(_build.BUILD_LOGS)}
     kernel_resources(_build, result)
     check_finisher(finisher4x, report, _build)
-    check_grouping(grouping, report)
+    check_grouping(grouping, report, _build)
     check_semantic_reduce(semantic_reduce, report)
     check_resize_reduce(resize_reduce, report, _build)
     check_intersection(intersection, report)
@@ -2006,7 +2230,7 @@ def main():
     check_window_attention_core(window_attention_core, report)
     train_launches = train_swin(args, kernels, card, result)
     train_card_vs_cpu(result)
-    check_finisher2x(finisher2x, report)
+    check_finisher2x(finisher2x, report, _build)
     defer2x_launches = serve_exact(
         emsanet_bench_config(defer=True), args.requests, DEFER2X_KERNELS,
         kernels, card, result, 'serving_defer2x', args.profile)

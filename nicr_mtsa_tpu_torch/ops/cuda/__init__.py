@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port (sm_90a), with their plain
 PyTorch versions. `KERNELS` lists each wrapper, whose `launches`
-attribute counts the kernel launches it made. The differentiable
+attribute counts the kernel launches it made (the grouping's is the
+pipeline's entry, `group_pixels_offsets`; the loc-level
+`group_pixels_kernel` counts its own). The differentiable
 window-attention core is `window_attention_core.window_attention_core`
 and the attention over the packed qkv
 `window_attention_qkv.window_attention_qkv` (the modules of the same
@@ -14,7 +16,9 @@ from .finisher4x import (finish_deferred_bilinear2,
                          upsample4x_argmax_score_reference,
                          upsample4x_bilinear_argmax_score,
                          upsample4x_bilinear_argmax_score_reference)
-from .grouping import group_pixels_kernel, group_pixels_reference
+from .grouping import (group_pixels_kernel, group_pixels_offsets,
+                       group_pixels_offsets_reference,
+                       group_pixels_reference)
 from .intersection import (intersection_matrix_kernel,
                            intersection_matrix_reference)
 from .layernorm import fused_layer_norm, layer_norm_reference
@@ -31,7 +35,7 @@ from .window_attention_core import (
 from . import window_attention_qkv as _window_attention_qkv
 
 KERNELS = {'finisher4x': upsample4x_argmax_score,
-           'grouping': group_pixels_kernel,
+           'grouping': group_pixels_offsets,
            'resize_reduce': crop_resize_argmax_score,
            'semantic_reduce': semantic_argmax_score,
            'intersection': intersection_matrix_kernel,
@@ -58,6 +62,7 @@ __all__ = ['build_all', 'finish_deferred_semantic',
            'upsample4x_bilinear_argmax_score',
            'upsample4x_bilinear_argmax_score_reference',
            'group_pixels_kernel', 'group_pixels_reference',
+           'group_pixels_offsets', 'group_pixels_offsets_reference',
            'intersection_matrix_kernel', 'intersection_matrix_reference',
            'crop_resize_argmax_score', 'crop_resize_argmax_score_reference',
            'semantic_argmax_score', 'semantic_argmax_score_reference',

@@ -1,71 +1,82 @@
-// Fused 4x semantic finisher for Hopper (sm_90a).
+// Fused semantic finishers for Hopper (sm_90a): the 4x finishers (two
+// x2 upsampling stages) and the 2x finisher (one stage), as instances of
+// one tile template (`finisher_tile<T, EDGE, STAGES, CT>`).
 //
-// Replaces the TPU kernel nicr_mtsa_tpu/ops/pallas/semantic_finisher4x.py
+// Replaces the TPU kernels nicr_mtsa_tpu/ops/pallas/semantic_finisher4x.py
 // (`_finisher4x_call`, reached from `upsample4x_argmax_score` and
-// `upsample4x_bilinear_argmax_score`): two x2 depthwise upsamplings of
-// the quarter-res semantic logits, then the first-index argmax over the
-// classes and the max-softmax score 1 / sum_c exp(l_c - max) at full
-// resolution. Neither the 2x nor the 4x logits are ever written to
-// device memory. Two entries share one template (`EDGE`):
-// - learned-3x3-zeropad stages: the input zero-padded, the stage-2 zero
-//   ring applied to the stage-1 plane AFTER the stage-1 bias;
-// - half-pixel bilinear stages (fixed weights, zero biases): the input
-//   edge-replicated, no ring.
+// `upsample4x_bilinear_argmax_score`) and nicr_mtsa_tpu/ops/pallas/
+// semantic_finisher.py (`upsample2x_argmax_score` -> `_finisher_call`):
+// x2 depthwise upsamplings of the semantic logits (two from quarter
+// resolution, or one from half resolution), then the first-index argmax
+// over the classes and the max-softmax score 1 / sum_c exp(l_c - max) at
+// full resolution. No upsampled logits are ever written to device
+// memory. Three entries share the template:
+// - two learned-3x3-zeropad stages (`finisher4x_*`, EDGE false): the
+//   input zero-padded, the stage-2 zero ring applied to the stage-1
+//   plane AFTER the stage-1 bias;
+// - two half-pixel bilinear stages (`finisher4x_*`, EDGE true; fixed
+//   weights, zero biases): the input edge-replicated, no ring;
+// - one learned-3x3-zeropad stage (`finisher2x_*`, STAGES 1): the
+//   zero-padded input window is the plane that the last stage reads.
 //
-// Numerics (exactly those of `finisher4x_logits_exact`, which is the
-// JAX package's `_finisher4x_logits_exact`): per phase, four taps
-// multiplied and summed in f32 in (a, b) order, rounded to T, plus the
-// T-rounded bias in f32, rounded to T (zeropad_phase.cuh, shared with
-// finisher2x.cu); then the max, the first class attaining it (strict
-// `>`), and sum exp(l - max) in class order (the accurate expf) and its
-// reciprocal. Built with -fmad=false, written with _rn intrinsics.
+// Numerics (exactly those of `finisher4x_logits_exact` and
+// `zeropad2x_logits_exact`, which are the JAX package's
+// `_finisher4x_logits_exact` and `_zeropad_2x_phases_exact`): per phase,
+// four taps multiplied and summed in f32 in (a, b) order, rounded to T,
+// plus the T-rounded bias in f32, rounded to T (zeropad_phase.cuh); then
+// the max, the first class attaining it (strict `>`), and sum
+// exp(l - max) in class order (the accurate expf) and its reciprocal.
+// Built with -fmad=false, written with _rn intrinsics.
 //
 // Layout: x is (B, C, H, W) with any strides, read where it lies: on the
 // card the model is channels-last, so the head's logits are NHWC in
 // memory and a contiguous copy would cost a pass over them. The fused
 // 4x4 stage kernels arrive as (C, 16) f32 values rounded to T, the
-// biases as (C,) f32 rounded to T. Outputs are (B, 4H, 4W) int32 idx and
-// f32 score. Any B, H, W and C; ragged tiles are masked.
+// biases as (C,) f32 rounded to T. Outputs are (B, 4H, 4W) (two stages)
+// or (B, 2H, 2W) (one stage) int32 idx and f32 score. Any B, H, W and
+// C; ragged tiles are masked.
 //
-// What bounds it on an H100: operations. At the serving shape
+// What bounds it on an H100: operations. At the 4x serving shape
 // (8, 40, 120, 160) bf16 the kernel reads 12.3 MB and writes 19.7 MB
 // (~0.0096 ms at 3.35 TB/s), against ~98 M output logits of ~12 f32
 // operations each (4 taps, bias, two roundings, compare, subtract, exp,
-// add), ~1.4 GFLOP (~0.021 ms at 67 TFLOP/s). Issued, with the bf16
-// unpacking, the shared-memory loads and the accurate expf (8
-// instructions), a logit takes ~32 instructions; the measured variants
-// fit a warp's 16-byte shared load costing 4 cycles of the SM's 128
-// bytes a cycle even where every lane reads one address, so the issue
-// rate and the shared-memory bandwidth bound it together (PERF.md). The
-// first form spent 30x its bound: it computed every logit twice (a max
-// pass and an exp pass), rebuilt stage 1 one class at a time in both
-// passes (2 C barrier rounds a block, each behind a dependent round trip
-// of 2-byte global loads), read its tap weights from global memory, and
-// its wrapper copied channels-last input to NCHW. The design:
+// add), ~1.4 GFLOP (~0.021 ms at 67 TFLOP/s); the 2x finisher's serving
+// shape (8, 40, 240, 320) gives the same 98 M logits from 49 MB of
+// input. Issued, with the bf16 unpacking, the shared-memory loads and
+// the accurate expf (8 instructions), a logit takes ~32 instructions;
+// the measured variants fit a warp's 16-byte shared load costing 4
+// cycles of the SM's 128 bytes a cycle even where every lane reads one
+// address, so the issue rate and the shared-memory bandwidth bound it
+// together (PERF.md). The first forms spent 23-30x their bound: they
+// computed every logit twice (a max pass and an exp pass), restaged the
+// input (and rebuilt stage 1) one class chunk at a time in both passes,
+// behind dependent round trips of 2-byte global loads, and read their
+// tap weights from global memory. The design:
 // - a block owns one image and a tile_y x tile_x output tile (the host
-//   plan `finisher4x.f4_plan`; 32 x 64 at the serving shape). It stages
-//   the tile's padded-input window (tile_y/4 + 2 rows, tile_x/4 + 2
-//   columns, all classes, class fastest) into shared memory once: a
-//   channels-last pixel's classes are contiguous, copied by 16-byte
+//   plan `finisher4x.f4_plan`; 32 x 64 at both serving shapes). It
+//   stages the tile's padded-input window (two stages: tile_y/4 + 2
+//   rows, tile_x/4 + 2 columns; one stage: tile_y/2 + 2 and
+//   tile_x/2 + 2; all classes, class fastest) into shared memory once:
+//   a channels-last pixel's classes are contiguous, copied by 16-byte
 //   cp.async; other layouts by plain loads. The halo is zero-filled
 //   (zeropad) or edge-clamped (bilinear) as it is staged. The weights
 //   (permuted to [class][phase][tap]) and biases come in by 4-byte
 //   cp.async beside it;
-// - stage 1 once for all classes: the tile's stage-1 window
+// - two stages: stage 1 once for all classes: the tile's stage-1 window
 //   (tile_y/2 + 2 x tile_x/2 + 2 values a class) into shared memory in
 //   T (each value is T-exact: `logit` rounds to T), a thread a
 //   position, 16 bytes of classes at a time, with the ring applied as
-//   before;
-// - stage 2 and the reduction: each 4x logit computed once. A thread
-//   keeps one column and a phase, so that a warp shares its weight
-//   loads' address, and takes two pixels two rows apart at a time: they
-//   share a stage-1 row and every weight and bias load (16-byte shared
-//   loads of 4 weights of a class, of 8 bf16 taps). At C = 40 (both
-//   served configurations) the 40 logits of both pixels stay in
-//   registers, two bf16 to a register; the max is a packed bf16 max,
-//   the argmax the first class equal to it, the exp sum in class order
-//   over the registers. Any other C takes the generic instance, which
-//   recomputes the logits from shared memory in each pass.
+//   before. One stage has no stage 1: the staged window is the plane;
+// - the last stage and the reduction: each output logit computed once.
+//   A thread keeps one column and a phase, so that a warp shares its
+//   weight loads' address, and takes two pixels two rows apart at a
+//   time: they share a plane row and every weight and bias load
+//   (16-byte shared loads of 4 weights of a class, of 8 bf16 taps). At
+//   C = 40 (both served configurations) the 40 logits of both pixels
+//   stay in registers, two bf16 to a register; the max is a packed bf16
+//   max, the argmax the first class equal to it, the exp sum in class
+//   order over the registers. Any other C takes the generic instance,
+//   which recomputes the logits from shared memory in each pass.
 // Launch bounds of 2 blocks an SM: 128 registers, no spills (one pixel
 // at a time in 80 registers at 3 blocks an SM ran 4 % slower; a stage-1
 // window in f32, without the unpacking, ran slower still on the shared-
@@ -181,15 +192,17 @@ __host__ __device__ __forceinline__ int bias_len(int C) {
   return (C + 7) / 8 * 8;
 }
 
-// dynamic shared memory of a tile: the padded-input window, the
-// stage-1 window (both [row][col][class] in T), the permuted (C, 16)
-// kernels and the biases of both stages in f32
+// dynamic shared memory of a tile of `stages` stages: the padded-input
+// window and (two stages) the stage-1 window, both [row][col][class] in
+// T; the permuted (C, 16) kernels and the biases of each stage in f32
 __host__ __device__ __forceinline__ int smem_bytes(int C, int elt,
-                                                   int tile_y, int tile_x) {
+                                                   int tile_y, int tile_x,
+                                                   int stages) {
   const int cp = padded_classes(C, elt);
-  const int win = ((tile_y / 4 + 2) * (tile_x / 4 + 2) +
-                   (tile_y / 2 + 2) * (tile_x / 2 + 2)) * cp * elt;
-  return win + 2 * C * 16 * 4 + 2 * bias_len(C) * 4;
+  const int plane = (tile_y / 2 + 2) * (tile_x / 2 + 2);
+  const int win = (stages == 2 ? (tile_y / 4 + 2) * (tile_x / 4 + 2) + plane
+                               : plane) * cp * elt;
+  return win + stages * (C * 16 * 4 + bias_len(C) * 4);
 }
 
 // the V biases of classes [c0, c0 + V) (c0 a multiple of V)
@@ -329,42 +342,51 @@ __device__ __forceinline__ void pair_logits(const __nv_bfloat16* p00, int row,
   }
 }
 
-// Block (tile column, tile row, image). Three phases, each behind a
-// barrier: stage the window, weights and biases; stage 1 into shared
-// memory; stage 2 and the reduction, two pixels a thread at a time.
-// CT: the class count the instance is specialised on (0: any).
-template <typename T, bool EDGE, int CT>
-__global__ void __launch_bounds__(THREADS, 2)
-finisher4x_kernel(const T* __restrict__ x, const float* __restrict__ k1,
-                  const float* __restrict__ b1,
-                  const float* __restrict__ k2,
-                  const float* __restrict__ b2, int* __restrict__ idx_out,
-                  float* __restrict__ score_out, Geom g) {
+// One block's tile (block (tile column, tile row, image)), in phases
+// behind barriers: stage the window, weights and biases; (two stages)
+// stage 1 into shared memory; the last stage and the reduction, two
+// pixels a thread at a time. STAGES: 2 (the 4x finishers) or 1 (the 2x
+// finisher); CT: the class count the instance is specialised on (0:
+// any).
+template <typename T, bool EDGE, int STAGES, int CT>
+__device__ __forceinline__ void finisher_tile(
+    unsigned char* smem_raw, const T* __restrict__ x,
+    const float* __restrict__ k1, const float* __restrict__ b1,
+    const float* __restrict__ k2, const float* __restrict__ b2,
+    int* __restrict__ idx_out, float* __restrict__ score_out,
+    const Geom& g) {
   using VT = Vec<T>;
   constexpr int V = VT::V;
   static_assert(CT % V == 0, "a specialised class count fills 16 bytes");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  static_assert(STAGES == 2 || (STAGES == 1 && !EDGE),
+                "one stage is the learned-zeropad x2 finisher");
   const int C = CT > 0 ? CT : g.C;
   const int CP = CT > 0 ? CT : padded_classes(g.C, sizeof(T));
   const int NG = CP / V;                       // 16-byte words a position
   const int H = g.H, W = g.W;
   const int TY = g.tile_y, TX = g.tile_x;
-  const int PR = TY / 4 + 2, PC = TX / 4 + 2;  // padded-input window
-  const int R1 = TY / 2 + 2, S1 = TX / 2 + 2;  // stage-1 window
+  // the plane the last stage reads: the stage-1 window (two stages) or
+  // the padded-input window (one stage)
+  const int R1 = TY / 2 + 2, S1 = TX / 2 + 2;
+  // the staged padded-input window
+  const int PR = STAGES == 2 ? TY / 4 + 2 : R1;
+  const int PC = STAGES == 2 ? TX / 4 + 2 : S1;
   T* win = reinterpret_cast<T*>(smem_raw);
-  T* inter = win + PR * PC * CP;
+  T* inter = STAGES == 2 ? win + PR * PC * CP : win;
+  // [k1 (two stages)][k2][b1 (two stages)][b2]
   float* k1s = reinterpret_cast<float*>(inter + R1 * S1 * CP);
-  float* k2s = k1s + C * 16;
+  float* k2s = k1s + (STAGES - 1) * C * 16;
   float* b1s = k2s + C * 16;
-  float* b2s = b1s + bias_len(C);
+  float* b2s = b1s + (STAGES - 1) * bias_len(C);
   const float4* k1q = reinterpret_cast<const float4*>(k1s);
   const float4* k2q = reinterpret_cast<const float4*>(k2s);
 
   const int tid = threadIdx.x;
   const long long b = blockIdx.z;
   const int Y0 = blockIdx.y * TY, X0 = blockIdx.x * TX;
-  const int Q0 = Y0 / 2, S0 = X0 / 2;   // first stage-1 row / col
-  const int I0 = Q0 / 2, J0 = S0 / 2;   // first padded-input row / col
+  const int Q0 = Y0 / 2, S0 = X0 / 2;   // first plane row / col
+  // first padded-input row / col of the staged window
+  const int I0 = STAGES == 2 ? Q0 / 2 : Q0, J0 = STAGES == 2 ? S0 / 2 : S0;
   const int QMAX = 2 * H + 1, SMAX = 2 * W + 1;
   const T* xb = x + b * g.sb;
 
@@ -418,76 +440,78 @@ finisher4x_kernel(const T* __restrict__ x, const float* __restrict__ k1,
     const int c = e >> 4, ph = (e >> 2) & 3, j = e & 3;
     const int src = c * 16 + (2 * (j >> 1) + (ph >> 1)) * 4 +
                     2 * (j & 1) + (ph & 1);
-    cp_async4(k1s + e, k1 + src);
+    if constexpr (STAGES == 2) cp_async4(k1s + e, k1 + src);
     cp_async4(k2s + e, k2 + src);
   }
   for (int e = tid; e < bias_len(C); e += THREADS) {
     if (e < C) {
-      cp_async4(b1s + e, b1 + e);
+      if constexpr (STAGES == 2) cp_async4(b1s + e, b1 + e);
       cp_async4(b2s + e, b2 + e);
     } else {
-      b1s[e] = 0.0f;
+      if constexpr (STAGES == 2) b1s[e] = 0.0f;
       b2s[e] = 0.0f;
     }
   }
   cp_async_wait_all();
   __syncthreads();
 
-  // stage 1: value (q, s) of the (2H + 2, 2W + 2) plane is phase
-  // (py, px) = ((q + 1) & 1, (s + 1) & 1) of padded input (q >> 1,
-  // s >> 1). A thread a position, all its classes, 16 bytes at a time:
-  // a warp's threads read 4 weight addresses at a time, and their
-  // consecutive positions (80 bytes apart at C = 40 bf16) meet no bank
-  // twice in a quarter warp
-  const int n1 = R1 * S1;
-  for (int pos = tid; pos < n1; pos += THREADS) {
-    const int qi = pos / S1, si = pos - qi * S1;
-    const int q = Q0 + qi, s = S0 + si;
-    const int ph = ((q + 1) & 1) * 2 + ((s + 1) & 1);
-    const T* p0 = win + (((q >> 1) - I0) * PC + (s >> 1) - J0) * CP;
-    // beyond the plane, and (zeropad) the stage-2 zero ring after the
-    // bias: 0 (0 rounds to 0)
-    const bool zero = q > QMAX || s > SMAX ||
-                      (!EDGE && (q == 0 || q == QMAX || s == 0 ||
-                                 s == SMAX));
+  if constexpr (STAGES == 2) {
+    // stage 1: value (q, s) of the (2H + 2, 2W + 2) plane is phase
+    // (py, px) = ((q + 1) & 1, (s + 1) & 1) of padded input (q >> 1,
+    // s >> 1). A thread a position, all its classes, 16 bytes at a
+    // time: a warp's threads read 4 weight addresses at a time, and
+    // their consecutive positions (80 bytes apart at C = 40 bf16) meet
+    // no bank twice in a quarter warp
+    const int n1 = R1 * S1;
+    for (int pos = tid; pos < n1; pos += THREADS) {
+      const int qi = pos / S1, si = pos - qi * S1;
+      const int q = Q0 + qi, s = S0 + si;
+      const int ph = ((q + 1) & 1) * 2 + ((s + 1) & 1);
+      const T* p0 = win + (((q >> 1) - I0) * PC + (s >> 1) - J0) * CP;
+      // beyond the plane, and (zeropad) the stage-2 zero ring after the
+      // bias: 0 (0 rounds to 0)
+      const bool zero = q > QMAX || s > SMAX ||
+                        (!EDGE && (q == 0 || q == QMAX || s == 0 ||
+                                   s == SMAX));
 #pragma unroll
-    for (int w16 = 0; w16 < NG; ++w16) {
-      const T* p00 = p0 + w16 * V;
-      float x00[V], x01[V], x10[V], x11[V], acc[V], bias[V];
-      VT::unpack(*reinterpret_cast<const uint4*>(p00), x00);
-      VT::unpack(*reinterpret_cast<const uint4*>(p00 + CP), x01);
-      VT::unpack(*reinterpret_cast<const uint4*>(p00 + PC * CP), x10);
-      VT::unpack(*reinterpret_cast<const uint4*>(p00 + (PC + 1) * CP),
-                 x11);
+      for (int w16 = 0; w16 < NG; ++w16) {
+        const T* p00 = p0 + w16 * V;
+        float x00[V], x01[V], x10[V], x11[V], acc[V], bias[V];
+        VT::unpack(*reinterpret_cast<const uint4*>(p00), x00);
+        VT::unpack(*reinterpret_cast<const uint4*>(p00 + CP), x01);
+        VT::unpack(*reinterpret_cast<const uint4*>(p00 + PC * CP), x10);
+        VT::unpack(*reinterpret_cast<const uint4*>(p00 + (PC + 1) * CP),
+                   x11);
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const int c = w16 * V + v;
-        // (padded classes of the generic instance: 0)
-        acc[v] = CT > 0 || c < C ? taps4(k1q[c * 4 + ph], x00[v], x01[v],
-                                         x10[v], x11[v])
-                                 : 0.0f;
+        for (int v = 0; v < V; ++v) {
+          const int c = w16 * V + v;
+          // (padded classes of the generic instance: 0)
+          acc[v] = CT > 0 || c < C ? taps4(k1q[c * 4 + ph], x00[v], x01[v],
+                                           x10[v], x11[v])
+                                   : 0.0f;
+        }
+        round_v<T>(acc);
+        biases<V>(b1s, w16 * V, bias);
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          acc[v] = zero ? 0.0f : __fadd_rn(acc[v], bias[v]);
+        *reinterpret_cast<uint4*>(inter + pos * CP + w16 * V) =
+            VT::pack(acc);
       }
-      round_v<T>(acc);
-      biases<V>(b1s, w16 * V, bias);
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        acc[v] = zero ? 0.0f : __fadd_rn(acc[v], bias[v]);
-      *reinterpret_cast<uint4*>(inter + pos * CP + w16 * V) =
-          VT::pack(acc);
     }
+    __syncthreads();
   }
-  __syncthreads();
 
-  // stage 2 and the reduction: output (Y, X) is phase (qy, qx) =
-  // (Y & 1, X & 1) of stage-1 value (Y >> 1, X >> 1) of the ringed
-  // plane. A thread keeps one column of the tile; the first half of a
-  // row's threads take the even columns, the second half the odd ones,
-  // so that a warp's threads share a phase and read the same weights.
-  // With n = THREADS / tile_x threads a column (n even: tile_x divides
-  // THREADS / 2), thread t of a column takes the row pairs (r, r + 2),
-  // r = 4 (t / 2) + t % 2 + 2 n k: rows of one phase, whose taps share a
-  // stage-1 row
-  const int HO = 4 * H, WO = 4 * W;
+  // the last stage and the reduction: output (Y, X) is phase (qy, qx) =
+  // (Y & 1, X & 1) of value (Y >> 1, X >> 1) of the plane (the ringed
+  // stage-1 plane, or the zero-padded input). A thread keeps one column
+  // of the tile; the first half of a row's threads take the even
+  // columns, the second half the odd ones, so that a warp's threads
+  // share a phase and read the same weights. With n = THREADS / tile_x
+  // threads a column (n even: tile_x divides THREADS / 2), thread t of a
+  // column takes the row pairs (r, r + 2), r = 4 (t / 2) + t % 2 + 2 n k:
+  // rows of one phase, whose taps share a plane row
+  const int HO = (2 << (STAGES - 1)) * H, WO = (2 << (STAGES - 1)) * W;
   const int jx = tid % TX, half = TX / 2;
   const int X = X0 + (jx < half ? 2 * jx : 2 * (jx - half) + 1);
   if (X >= WO) return;
@@ -551,28 +575,66 @@ finisher4x_kernel(const T* __restrict__ x, const float* __restrict__ k1,
   }
 }
 
+// the 4x finishers: two stages, learned-zeropad or (EDGE) bilinear
 template <typename T, bool EDGE, int CT>
+__global__ void __launch_bounds__(THREADS, 2)
+finisher4x_kernel(const T* __restrict__ x, const float* __restrict__ k1,
+                  const float* __restrict__ b1,
+                  const float* __restrict__ k2,
+                  const float* __restrict__ b2, int* __restrict__ idx_out,
+                  float* __restrict__ score_out, Geom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  finisher_tile<T, EDGE, 2, CT>(smem_raw, x, k1, b1, k2, b2, idx_out,
+                                score_out, g);
+}
+
+// the 2x finisher: one learned-zeropad stage (k2, b2)
+template <typename T, int CT>
+__global__ void __launch_bounds__(THREADS, 2)
+finisher2x_kernel(const T* __restrict__ x, const float* __restrict__ k,
+                  const float* __restrict__ bias, int* __restrict__ idx_out,
+                  float* __restrict__ score_out, Geom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  finisher_tile<T, false, 1, CT>(smem_raw, x, nullptr, nullptr, k, bias,
+                                 idx_out, score_out, g);
+}
+
+// the kernel of an instance: (stages, EDGE, C specialised or 0)
+template <typename T, int STAGES, bool EDGE, int CT>
+const void* kernel_fn() {
+  if constexpr (STAGES == 2)
+    return (const void*)finisher4x_kernel<T, EDGE, CT>;
+  else
+    return (const void*)finisher2x_kernel<T, CT>;
+}
+
+template <typename T, int STAGES, bool EDGE, int CT>
 int set_smem(int smem) {
   return (int)cudaFuncSetAttribute(
-      finisher4x_kernel<T, EDGE, CT>,
+      kernel_fn<T, STAGES, EDGE, CT>(),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <typename T, bool EDGE, int CT>
+template <typename T, int STAGES, bool EDGE, int CT>
 int launch_one(const T* x, const float* k1, const float* b1, const float* k2,
                const float* b2, int* idx, float* score, const Geom& g,
                int B, int smem, cudaStream_t st) {
-  const int err = set_smem<T, EDGE, CT>(smem);
+  const int err = set_smem<T, STAGES, EDGE, CT>(smem);
   if (err != (int)cudaSuccess) return err;
-  const dim3 grid((unsigned)((4 * g.W + g.tile_x - 1) / g.tile_x),
-                  (unsigned)((4 * g.H + g.tile_y - 1) / g.tile_y),
+  const int up = 2 << (STAGES - 1);
+  const dim3 grid((unsigned)((up * g.W + g.tile_x - 1) / g.tile_x),
+                  (unsigned)((up * g.H + g.tile_y - 1) / g.tile_y),
                   (unsigned)B);
-  finisher4x_kernel<T, EDGE, CT><<<grid, THREADS, smem, st>>>(
-      x, k1, b1, k2, b2, idx, score, g);
+  if constexpr (STAGES == 2)
+    finisher4x_kernel<T, EDGE, CT><<<grid, THREADS, smem, st>>>(
+        x, k1, b1, k2, b2, idx, score, g);
+  else
+    finisher2x_kernel<T, CT><<<grid, THREADS, smem, st>>>(x, k2, b2, idx,
+                                                          score, g);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int STAGES>
 int launch(const void* xv, const float* k1, const float* b1, const float* k2,
            const float* b2, int* idx, float* score, int B, int C, int H,
            int W, long long sb, long long sc, long long sh, long long sw,
@@ -580,7 +642,7 @@ int launch(const void* xv, const float* k1, const float* b1, const float* k2,
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   if (tile_y <= 0 || tile_x <= 0 || tile_y % 4 || tile_x % 4 ||
       (THREADS / 2) % tile_x || B > 65535 ||
-      (4LL * H + tile_y - 1) / tile_y > 65535)
+      ((2LL << (STAGES - 1)) * H + tile_y - 1) / tile_y > 65535)
     return (int)cudaErrorInvalidValue;
   const T* x = static_cast<const T*>(xv);
   const long long elt = sizeof(T);
@@ -591,35 +653,37 @@ int launch(const void* xv, const float* k1, const float* b1, const float* k2,
                reinterpret_cast<uintptr_t>(x) % 16 == 0))
     return (int)cudaErrorInvalidValue;
   const Geom g{C, H, W, sb, sc, sh, sw, tile_y, tile_x, vec};
-  const int smem = smem_bytes(C, (int)elt, tile_y, tile_x);
+  const int smem = smem_bytes(C, (int)elt, tile_y, tile_x, STAGES);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool fast = C == FAST_C;
-  if (edge)
-    return fast ? launch_one<T, true, FAST_C>(x, k1, b1, k2, b2, idx, score,
-                                              g, B, smem, st)
-                : launch_one<T, true, 0>(x, k1, b1, k2, b2, idx, score, g, B,
-                                         smem, st);
-  return fast ? launch_one<T, false, FAST_C>(x, k1, b1, k2, b2, idx, score, g,
-                                             B, smem, st)
-              : launch_one<T, false, 0>(x, k1, b1, k2, b2, idx, score, g, B,
-                                        smem, st);
+  if constexpr (STAGES == 2) {
+    if (edge)
+      return fast ? launch_one<T, 2, true, FAST_C>(x, k1, b1, k2, b2, idx,
+                                                   score, g, B, smem, st)
+                  : launch_one<T, 2, true, 0>(x, k1, b1, k2, b2, idx, score,
+                                              g, B, smem, st);
+  }
+  return fast ? launch_one<T, STAGES, false, FAST_C>(x, k1, b1, k2, b2, idx,
+                                                     score, g, B, smem, st)
+              : launch_one<T, STAGES, false, 0>(x, k1, b1, k2, b2, idx,
+                                                score, g, B, smem, st);
 }
 
-// resident blocks an SM of the instance that takes C classes, at a
-// tile's shared memory (-1 on error)
-template <typename T>
+// resident blocks an SM of the zeropad instance of `STAGES` stages that
+// takes C classes, at a tile's shared memory (-1 on error)
+template <typename T, int STAGES>
 int blocks_per_sm(int C, int tile_y, int tile_x) {
-  const int smem = smem_bytes(C, sizeof(T), tile_y, tile_x);
+  const int smem = smem_bytes(C, sizeof(T), tile_y, tile_x, STAGES);
   const bool fast = C == FAST_C;
-  if ((fast ? set_smem<T, false, FAST_C>(smem)
-            : set_smem<T, false, 0>(smem)) != (int)cudaSuccess)
+  if ((fast ? set_smem<T, STAGES, false, FAST_C>(smem)
+            : set_smem<T, STAGES, false, 0>(smem)) != (int)cudaSuccess)
     return -1;
   int per_sm = 0;
-  const cudaError_t err =
-      fast ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &per_sm, finisher4x_kernel<T, false, FAST_C>, THREADS, smem)
-           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &per_sm, finisher4x_kernel<T, false, 0>, THREADS, smem);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm,
+      fast ? kernel_fn<T, STAGES, false, FAST_C>()
+           : kernel_fn<T, STAGES, false, 0>(),
+      THREADS, smem);
   return err == cudaSuccess ? per_sm : -1;
 }
 
@@ -632,12 +696,27 @@ int blocks_per_sm(int C, int tile_y, int tile_x) {
                       long long sb, long long sc, long long sh,             \
                       long long sw, int edge, int tile_y, int tile_x,       \
                       int vec, void* stream) {                              \
-    return launch<T>(x, k1, b1, k2, b2, idx, score, B, C, H, W, sb, sc, sh, \
-                     sw, edge, tile_y, tile_x, vec, stream);                \
+    return launch<T, 2>(x, k1, b1, k2, b2, idx, score, B, C, H, W, sb, sc,  \
+                        sh, sw, edge, tile_y, tile_x, vec, stream);         \
   }                                                                         \
   extern "C" int NAME##_blocks_per_sm(int C, int tile_y, int tile_x) {      \
-    return blocks_per_sm<T>(C, tile_y, tile_x);                             \
+    return blocks_per_sm<T, 2>(C, tile_y, tile_x);                          \
+  }
+
+#define FINISHER2X_ENTRY(NAME, T)                                           \
+  extern "C" int NAME(const void* x, const float* k, const float* bias,     \
+                      int* idx, float* score, int B, int C, int H, int W,   \
+                      long long sb, long long sc, long long sh,             \
+                      long long sw, int tile_y, int tile_x, int vec,        \
+                      void* stream) {                                       \
+    return launch<T, 1>(x, nullptr, nullptr, k, bias, idx, score, B, C, H,  \
+                        W, sb, sc, sh, sw, 0, tile_y, tile_x, vec, stream); \
+  }                                                                         \
+  extern "C" int NAME##_blocks_per_sm(int C, int tile_y, int tile_x) {      \
+    return blocks_per_sm<T, 1>(C, tile_y, tile_x);                          \
   }
 
 FINISHER4X_ENTRY(finisher4x_f32, float)
 FINISHER4X_ENTRY(finisher4x_bf16, __nv_bfloat16)
+FINISHER2X_ENTRY(finisher2x_f32, float)
+FINISHER2X_ENTRY(finisher2x_bf16, __nv_bfloat16)

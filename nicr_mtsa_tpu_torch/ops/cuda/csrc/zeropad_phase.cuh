@@ -1,7 +1,8 @@
 // The phase arithmetic of a learned-3x3-zeropad x2 upsampling stage, as
-// the semantic finishers compute it (finisher2x.cu, finisher4x.cu), with
-// the rounding points of the TPU kernels (nicr_mtsa_tpu/ops/pallas/
-// semantic_finisher.py `phase`, semantic_finisher4x.py):
+// the semantic finishers compute it (finisher4x.cu: the 4x finishers'
+// stages and the 2x finisher's one), with the rounding points of the TPU
+// kernels (nicr_mtsa_tpu/ops/pallas/semantic_finisher.py `phase`,
+// semantic_finisher4x.py):
 //   out[2i + py][2j + px] = round_T(round_T(acc) + bias),
 //   acc = sum over (a, b) in (0,0), (0,1), (1,0), (1,1), in that order, of
 //         kt[2a + py][2b + px] * xp[i + a + py][j + b + px]
@@ -34,18 +35,6 @@ template <> __device__ __forceinline__ float round_t<float>(float v) {
 template <> __device__ __forceinline__ float round_t<__nv_bfloat16>(
     float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// acc of output phase (py, px): k is one class's fused kernel as 16 f32
-// values (row-major 4 x 4), xp(a, b) the padded input at
-// [i + a + py][j + b + px]
-template <typename XP>
-__device__ __forceinline__ float taps(const float* k, int py, int px,
-                                      XP xp) {
-  float acc = __fmul_rn(k[py * 4 + px], xp(0, 0));
-  acc = __fadd_rn(acc, __fmul_rn(k[py * 4 + 2 + px], xp(0, 1)));
-  acc = __fadd_rn(acc, __fmul_rn(k[(2 + py) * 4 + px], xp(1, 0)));
-  return __fadd_rn(acc, __fmul_rn(k[(2 + py) * 4 + 2 + px], xp(1, 1)));
 }
 
 // the phase's logit from its acc and the class's bias (an f32 value

@@ -1,6 +1,7 @@
 """Fused 4x semantic finisher: two x2 upsamplings of quarter-res
 logits, then first argmax and max-softmax score at full resolution,
-without writing the 2x or 4x logits.
+without writing the 2x or 4x logits. (Its CUDA source also holds the
+2x finisher, finisher2x.py: the same tile template with one stage.)
 
 Counterpart of nicr_mtsa_tpu/ops/pallas/semantic_finisher4x.py:
 - `upsample4x_argmax_score` / `finish_deferred_semantic2`: two
@@ -42,11 +43,12 @@ TILES = ((32, 64), (16, 64), (16, 32), (8, 32), (8, 16), (4, 16), (4, 8),
 class F4Plan(NamedTuple):
     """The kernel's geometry: block (tile column, tile row, image)
     computes output rows [tile row tile_y, + tile_y) and columns
-    [tile column tile_x, + tile_x); it stages the padded input's
-    `window(...)[0]` and the stage-1 plane's `window(...)[1]`, `classes`
-    values a position (C rounded up to 16 bytes), `smem` bytes with the
-    weights; `vec`: the window is copied by 16-byte cp.async (channels-
-    last, aligned)."""
+    [tile column tile_x, + tile_x) of `stages` x2 stages (2: the 4x
+    finishers, 1: the 2x finisher); it stages the padded input's
+    `window(...)[0]` and (two stages) builds the stage-1 plane's
+    `window(...)[1]`, `classes` values a position (C rounded up to 16
+    bytes), `smem` bytes with the weights; `vec`: the window is copied
+    by 16-byte cp.async (channels-last, aligned)."""
     tile_y: int
     tile_x: int
     tiles_y: int
@@ -54,6 +56,7 @@ class F4Plan(NamedTuple):
     classes: int
     smem: int
     vec: bool
+    stages: int = 2
 
 
 def padded_classes(C: int, elt: int) -> int:
@@ -61,46 +64,57 @@ def padded_classes(C: int, elt: int) -> int:
     return -(-C // v) * v
 
 
-def smem_bytes(C: int, elt: int, tile_y: int, tile_x: int) -> int:
+def smem_bytes(C: int, elt: int, tile_y: int, tile_x: int,
+               stages: int = 2) -> int:
     """A block's dynamic shared memory (csrc/finisher4x.cu `smem_bytes`):
-    both windows in the input's dtype, the two permuted (C, 16) kernels
-    and the two biases (C rounded up to a multiple of 8) in f32."""
-    n_pos = ((tile_y // 4 + 2) * (tile_x // 4 + 2)
-             + (tile_y // 2 + 2) * (tile_x // 2 + 2))
-    return n_pos * padded_classes(C, elt) * elt + 2 * C * 64 \
-        + 2 * (-(-C // 8) * 8) * 4
+    the windows in the input's dtype (two stages: the padded input's and
+    the stage-1 plane's; one stage: the padded input's, which is the
+    plane), a permuted (C, 16) kernel and a bias (C rounded up to a
+    multiple of 8) a stage in f32."""
+    n_pos = (tile_y // 2 + 2) * (tile_x // 2 + 2)
+    if stages == 2:
+        n_pos += (tile_y // 4 + 2) * (tile_x // 4 + 2)
+    return n_pos * padded_classes(C, elt) * elt \
+        + stages * (C * 64 + (-(-C // 8) * 8) * 4)
 
 
 def window(plan: F4Plan, tile_row: int, tile_col: int):
-    """((row0, rows, col0, cols) of the padded input (H + 2, W + 2),
-    the same of the stage-1 plane (2H + 2, 2W + 2)) that the tile
-    stages."""
+    """((row0, rows, col0, cols) of the padded input (H + 2, W + 2) that
+    the tile stages, the same of the plane that its last stage reads):
+    two stages read the stage-1 plane (2H + 2, 2W + 2), one stage the
+    staged padded input itself."""
     q0, s0 = tile_row * plan.tile_y // 2, tile_col * plan.tile_x // 2
+    plane = (q0, plan.tile_y // 2 + 2, s0, plan.tile_x // 2 + 2)
+    if plan.stages == 1:
+        return plane, plane
     return ((q0 // 2, plan.tile_y // 4 + 2, s0 // 2, plan.tile_x // 4 + 2),
-            (q0, plan.tile_y // 2 + 2, s0, plan.tile_x // 2 + 2))
+            plane)
 
 
 @functools.lru_cache(maxsize=256)
-def f4_plan(shape, strides, elt: int, aligned: bool = True) -> F4Plan:
+def f4_plan(shape, strides, elt: int, aligned: bool = True,
+            stages: int = 2) -> F4Plan:
     """The geometry for logits of `shape` (B, C, H, W) and `strides`,
-    `elt` bytes a value, the data address 16-byte `aligned` or not: the
-    first tile of TILES whose shared memory lets two blocks share an SM,
-    else the first within MAX_SMEM; the window copied by 16-byte
-    cp.async where each pixel's classes are contiguous whole 16-byte
-    words (channels-last, aligned), else by plain loads."""
+    `elt` bytes a value, the data address 16-byte `aligned` or not,
+    upsampled by `stages` x2 stages: the first tile of TILES whose
+    shared memory lets two blocks share an SM, else the first within
+    MAX_SMEM; the window copied by 16-byte cp.async where each pixel's
+    classes are contiguous whole 16-byte words (channels-last, aligned),
+    else by plain loads."""
     B, C, H, W = shape
     sb, sc, sh, sw = strides
     vec = (aligned and sc == 1 and C * elt % 16 == 0 and sw * elt % 16 == 0
            and sh * elt % 16 == 0 and sb * elt % 16 == 0)
-    sizes = [(ty, tx, smem_bytes(C, elt, ty, tx)) for ty, tx in TILES]
+    sizes = [(ty, tx, smem_bytes(C, elt, ty, tx, stages)) for ty, tx in TILES]
     fits = [s for s in sizes if 2 * (s[2] + 1024) <= SM_SMEM] \
         or [s for s in sizes if s[2] <= MAX_SMEM]
     if not fits:
-        raise ValueError(f'upsample4x_argmax_score: {C} classes do not fit '
-                         f'the kernel\'s shared memory')
+        raise ValueError(f'semantic finisher: {C} classes do not fit the '
+                         f'kernel\'s shared memory')
     ty, tx, smem = fits[0]
-    return F4Plan(ty, tx, -(-4 * H // ty), -(-4 * W // tx),
-                  padded_classes(C, elt), smem, vec)
+    up = 2 ** stages
+    return F4Plan(ty, tx, -(-up * H // ty), -(-up * W // tx),
+                  padded_classes(C, elt), smem, vec, stages)
 
 
 def upsample4x_argmax_score_reference(x, kernel1, bias1, kernel2, bias2):

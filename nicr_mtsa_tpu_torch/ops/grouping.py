@@ -5,7 +5,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .cuda.grouping import group_pixels_kernel
+from .cuda.grouping import group_pixels_offsets
 from .nms import Centers, get_instance_centers
 
 
@@ -26,20 +26,11 @@ def denormalize_offsets(offset, height: int, width: int):
 def group_pixels(centers_yx, centers_valid, offset, foreground_mask,
                  offset_distance_threshold=None):
     """(B, H, W) int32 instance ids (1..K, 0 = background) for
-    unnormalised offsets (B, 2, H, W)."""
-    B, _, H, W = offset.shape
-    dev = offset.device
-    yy = torch.arange(H, dtype=torch.float32, device=dev).view(1, H, 1)
-    xx = torch.arange(W, dtype=torch.float32, device=dev).view(1, 1, W)
-    loc_y = (yy + offset[:, 0].float()).reshape(B, H * W)
-    loc_x = (xx + offset[:, 1].float()).reshape(B, H * W)
-    ids, min_d2 = group_pixels_kernel(
-        loc_y, loc_x, centers_yx.float(), centers_valid,
-        foreground_mask.reshape(B, H * W))
-    if offset_distance_threshold is not None:
-        thr = float(offset_distance_threshold) ** 2
-        ids = torch.where(min_d2 <= thr, ids, 0)
-    return ids.reshape(B, H, W)
+    unnormalised offsets (B, 2, H, W): one launch of the grouping kernel
+    (loc formation, the mask and the threshold inside) on the card."""
+    ids, _ = group_pixels_offsets(offset, centers_yx, centers_valid,
+                                  foreground_mask, offset_distance_threshold)
+    return ids
 
 
 def instance_areas(segmentation, top_k: int):

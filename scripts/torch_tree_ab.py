@@ -29,7 +29,10 @@ from a seed:
   chip_smoke.py's checks make for them (B=8: the finishers' bf16
   logits, channels-last as the heads give them on the card, rows 1
   and 3 also NCHW (`*_nchw`); the grouping's 307200 pixels and 64
-  centres, the eval reductions' (8, 40, 480, 640) channels-last logits
+  centres, and the whole `ops.grouping.group_pixels` call at the
+  serving shape (offsets (8, 2, 480, 640) bf16 channels-last, 64 int32
+  centres) with its device launches (`row2_group_pixels`), the eval
+  reductions' (8, 40, 480, 640) channels-last logits
   (row 5 to 512 x 512), the LayerNorm's rows at each of its Swin
   serving widths
   (chip_smoke.py's LN_SHAPES: 153600 x 96, 32 and 128, 38400 x 256,
@@ -91,6 +94,21 @@ def _times(fn):
             times.append(a.elapsed_time(b) / batch)
         out[key] = float(np.median(times))
     return out
+
+
+def _device_launches(fn) -> int:
+    """The device activities (kernels, copies, fills) of one fn() call,
+    by torch.profiler, after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in p.key_averages()
+                   if e.device_type == DeviceType.CUDA))
 
 
 def stages():
@@ -167,6 +185,14 @@ def other_rows(kernels, g, ln_shapes):
     valid, fg = rand(B, K) < 0.7, rand(B, P) < 0.6
     out['row2_grouping'] = _times(lambda: kernels.group_pixels_kernel(
         loc_y, loc_x, ctr, valid, fg))
+    from nicr_mtsa_tpu_torch.ops.grouping import group_pixels
+    off = (rnd(B, 2, 480, 640) * 8).to(bf).contiguous(
+        memory_format=torch.channels_last)
+    ctr_i = ctr.to(torch.int32)
+    fg_map = fg.view(B, 480, 640)
+    call = lambda: group_pixels(ctr_i, valid, off, fg_map)
+    out['row2_group_pixels'] = dict(_times(call),
+                                    device_launches=_device_launches(call))
     out['row3_finisher4x_bilinear'] = _times(
         lambda: kernels.upsample4x_bilinear_argmax_score(x_cl))
     out['row3_finisher4x_bilinear_nchw'] = _times(

@@ -91,6 +91,78 @@ def test_f4_plan_rejects_what_shared_memory_cannot_hold():
         t_fin.f4_plan((1, 40000, 8, 8), (1, 1, 1, 1), 4)
 
 
+# the 2x finisher's one-stage plan (`f4_plan(..., stages=1)`): its
+# path's shape in bf16 and f32, ragged shapes, other class counts, tiny
+# inputs
+PLAN2X_CASES = [(8, 40, 240, 320, 2), (8, 40, 240, 320, 4),
+                (2, 40, 37, 53, 2), (2, 19, 37, 53, 4), (3, 13, 7, 10, 2),
+                (1, 40, 5, 3, 4), (1, 300, 9, 11, 4)]
+
+
+@pytest.mark.parametrize('layout', ['cl', 'nchw'])
+@pytest.mark.parametrize('case', PLAN2X_CASES)
+def test_f4_plan_one_stage_covers_pixels_and_window_holds_taps(case,
+                                                              layout):
+    """The 2x finisher's plan: every output pixel of (2H, 2W) computed by
+    exactly one tile; each tile's staged padded-input window (the plane
+    its one stage reads) holds the 2 x 2 taps of each of its pixels,
+    borders included; the shared memory within a block's; 16-byte
+    staging exactly for aligned channels-last whole 16-byte words."""
+    B, C, H, W, elt = case
+    plan = t_fin.f4_plan((B, C, H, W), _strides(B, C, H, W, layout), elt,
+                         stages=1)
+    assert plan.stages == 1
+    HO, WO = 2 * H, 2 * W
+    seen = np.zeros((HO, WO), np.int64)
+    for tr in range(plan.tiles_y):
+        for tc in range(plan.tiles_x):
+            staged, plane = t_fin.window(plan, tr, tc)
+            assert staged == plane
+            q0, r1, s0, s1 = plane
+            ys = np.arange(tr * plan.tile_y, min((tr + 1) * plan.tile_y, HO))
+            xs = np.arange(tc * plan.tile_x, min((tc + 1) * plan.tile_x, WO))
+            assert len(ys) and len(xs)
+            seen[ys[:, None], xs[None, :]] += 1
+            # output Y reads padded-input rows (Y >> 1) + (Y & 1) + {0, 1}
+            # (H + 2 rows)
+            for out, first, n, padded in ((ys, q0, r1, H + 2),
+                                          (xs, s0, s1, W + 2)):
+                lo = (out >> 1) + (out & 1)
+                assert lo.min() >= first and lo.max() + 1 < first + n
+                assert lo.max() + 1 < padded
+    assert (seen == 1).all()
+    assert plan.smem == t_fin.smem_bytes(C, elt, plan.tile_y, plan.tile_x,
+                                         stages=1)
+    assert plan.smem <= t_fin.MAX_SMEM and plan.classes * elt % 16 == 0
+    assert plan.tile_y % 4 == 0 and plan.tile_x % 4 == 0
+    assert 128 % plan.tile_x == 0       # a thread keeps a column's phase
+    assert plan.vec == (layout == 'cl' and C * elt % 16 == 0)
+    if (C, H, W) == (40, 240, 320) and elt == 2:
+        # the `--no-defer4x` call: 32 x 64 tiles, a 18 x 34 x 40 bf16
+        # window (48,960 B) and one stage's weights, two blocks an SM
+        assert (plan.tile_y, plan.tile_x) == (32, 64)
+        assert plan.smem == 18 * 34 * 40 * 2 + 40 * 64 + 40 * 4
+        assert 2 * (plan.smem + 1024) <= t_fin.SM_SMEM
+
+
+def test_f4_plan_one_stage_16_bytes_only_when_aligned():
+    shape, strides = (8, 40, 240, 320), _strides(8, 40, 240, 320, 'cl')
+    assert t_fin.f4_plan(shape, strides, 2, aligned=True, stages=1).vec
+    assert not t_fin.f4_plan(shape, strides, 2, aligned=False,
+                             stages=1).vec
+    assert not t_fin.f4_plan((8, 38, 240, 320), strides, 2, stages=1).vec
+
+
+def test_f4_plan_one_stage_smaller_than_two_and_within_limit():
+    """One stage stages no stage-1 window and one stage's weights; a
+    class count no tile can hold is refused."""
+    for ty, tx in t_fin.TILES:
+        assert t_fin.smem_bytes(40, 2, ty, tx, stages=1) < \
+            t_fin.smem_bytes(40, 2, ty, tx)
+    with pytest.raises(ValueError, match='shared memory'):
+        t_fin.f4_plan((1, 60000, 8, 8), (1, 1, 1, 1), 4, stages=1)
+
+
 def _stage_params(seed, C=6):
     rng = np.random.default_rng(seed)
     k = torch.from_numpy(rng.normal(0, 0.3, (C, 1, 3, 3)).astype(np.float32))
