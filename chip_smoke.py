@@ -25,7 +25,18 @@ phases; any failure exits non-zero and prints no result:
    with y0, x0 > 0, an output wider than its crop, a 333 x 500 output,
    NCHW and channels-last, bf16 and f32, tied classes at 8 and 40
    classes, with the card's time alone (`stream_ms`) and its plan,
-   registers, spills and blocks an SM; the grouping through both entries
+   registers, spills and blocks an SM; the score/argmax reduce at the
+   eval call and in `_sr_cases` (NCHW, f32 in both layouts, the sliced
+   view of a crop, storage one element off alignment, 41 classes, ties
+   at 8 classes in both layouts and 40 channels-last), with the kernel
+   each case took (`sr_plan`), the staged kernel's plan, registers,
+   spills and blocks an SM, one device launch a call and `stream_ms`
+   beside `cuda_ms` at the eval call and NCHW; the intersection histogram on random maps, one bin,
+   out-of-range slots, 257 x 129 bins, B=1, P = 262143, storage 4 bytes
+   off a 16-byte boundary (both maps, one map) and an image stride of P
+   + 1, with each case's plan, registers, spills, one device launch a
+   call and `stream_ms` (random, one bin); the grouping through
+   both entries
    (the pipeline's, on the offset map, at the serving call and
    GROUPING_CASES: bf16 and f32 offsets, channels-last and NCHW, with
    and without a distance threshold, no valid centre, valid and invalid
@@ -57,7 +68,10 @@ phases; any failure exits non-zero and prints no result:
    before: the crop+resize+reduce, the score/argmax reduce and the
    intersection histogram must have run in every step (1, 1 and 2
    launches a step), and mIoU, PQ and the scene accuracy from the
-   states must lie in [0, 1];
+   states must lie in [0, 1]; the slot maps the warm-up step passed
+   the intersection histogram, captured, must be two (8, 262144) pairs
+   at 129 x 129 bins and give counts equal to the plain version's and
+   torch.bincount's (timed, `stream_ms`);
 6. postprocess and update the metric states of the card's raw eval
    outputs (B=2) on the card and on the CPU: integer states equal,
    float sums within rtol 1e-5;
@@ -225,7 +239,8 @@ BORDER_ROLL = 16
 # kernels whose device time and calls each profile sums by name
 PROFILED_KERNELS = ('layer_norm_kernel', 'resize_reduce_kernel',
                     'finisher4x_kernel', 'finisher2x_kernel',
-                    'group_pixels_kernel')
+                    'group_pixels_kernel', 'staged_kernel',
+                    'intersection_kernel')
 
 
 def fail(msg: str) -> None:
@@ -627,34 +642,86 @@ def _reduce_ops(n_values, n_px, per_value):
     return n_values * (per_value + 4) + n_px
 
 
-def check_semantic_reduce(sr, report):
-    """Row 6 at the eval model's working-resolution logits."""
+def _sr_cases(x, x_cl):
+    """Row 6's cases beyond the eval call, from its NCHW x and
+    channels-last x_cl: (name, logits, the first index every pixel must
+    take or None)."""
+    g = torch.Generator(device='cuda').manual_seed(6)
+    off = torch.empty(x_cl[:2].numel() + 1, device='cuda',
+                      dtype=torch.bfloat16)[1:].as_strided(
+        x_cl[:2].shape, x_cl[:2].stride())
+    off.copy_(x_cl[:2])
+    c41 = (torch.randn(2, 41, 480, 640, device='cuda', generator=g) * 3
+           ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    tied40 = torch.zeros(2, 40, 48, 64, device='cuda', dtype=torch.bfloat16)
+    tied40[:, 7] = 1.5
+    tied40[:, 31] = 1.5
+    return (('nchw', x, None), ('cl_f32', x_cl.float(), None),
+            ('nchw_f32', x.float(), None),
+            ('cl_sliced', x_cl[:, :, 8:472, 16:624], None),
+            ('cl_misaligned', off, None), ('cl_41_classes', c41, None),
+            ('ties_8_nchw', _tied_logits(), 2),
+            ('ties_8_cl', _tied_logits().contiguous(
+                memory_format=torch.channels_last), 2),
+            ('ties_40_cl', tied40.contiguous(
+                memory_format=torch.channels_last), 7))
+
+
+def check_semantic_reduce(sr, report, build):
+    """Row 6: the eval call ((8, 40, 480, 640) bf16 channels-last) and
+    `_sr_cases` against the plain version (idx bit for bit, scores
+    within rtol 1e-5; tied classes to the first index). Prints each
+    case's path, the staged kernel's plan, registers, spills and blocks
+    an SM (the strided kernel's registers and spills at C = 40); one
+    device launch a call at the eval call and NCHW, both timed
+    (`cuda_ms`, `stream_ms`)."""
     x, x_cl = _eval_logits(3)
-    err = 0.0
-    for xx in (x, x_cl, x.float()):
+    err, paths = 0.0, {}
+    for name, xx, first in (('eval_cl', x_cl, None), *_sr_cases(x, x_cl)):
         got = sr.semantic_argmax_score(xx)
         torch.cuda.synchronize()
-        err = max(err, _same('semantic_reduce', got,
+        err = max(err, _same(f'semantic_reduce {name}', got,
                              sr.semantic_argmax_score_reference(xx)))
-    i_k, _ = sr.semantic_argmax_score(_tied_logits())
-    torch.cuda.synchronize()
-    if not bool((i_k == 2).all()):
-        fail('semantic_reduce: tied classes did not resolve to the first '
-             'index')
+        if first is not None and not bool((got[0] == first).all()):
+            fail(f'semantic_reduce {name}: tied classes did not resolve '
+                 f'to the first index')
+        paths[name] = sr.plan_of(xx).path
+    launches = {name: device_launches(lambda: sr.semantic_argmax_score(xx))
+                for name, xx in (('eval_cl', x_cl), ('nchw', x))}
+    if set(launches.values()) != {1}:
+        fail(f'semantic_reduce: device launches a call {launches}, '
+             f'expected 1')
     ms = cuda_ms(lambda: sr.semantic_argmax_score(x_cl))
+    card = stream_ms(lambda: sr.semantic_argmax_score(x_cl))
+    nchw = {'cuda_ms': cuda_ms(lambda: sr.semantic_argmax_score(x)),
+            'stream_ms': stream_ms(lambda: sr.semantic_argmax_score(x))}
     plain_ms = cuda_ms(lambda: sr.semantic_argmax_score_reference(x_cl))
     B, C, H, W = x.shape
     P = B * H * W
     b_ms, b_by = bound(x.numel() * 2 + P * 8,
                        _reduce_ops(x.numel(), P, 0))
+    plan = sr.plan_of(x_cl)
+    regs, st, ld = _ptxas_of(build, 'semantic_reduce',
+                             'staged_kernelI13__nv_bfloat16Li40E')
+    _, _, occ = sr._fns(torch.bfloat16)
+    resources = dict(plan=plan._asdict(), registers=regs,
+                     spill_store_bytes=st, spill_load_bytes=ld,
+                     blocks_per_sm=occ(C, plan.run, plan.smem),
+                     strided_nchw=dict(zip(
+                         ('registers', 'spill_store_bytes',
+                          'spill_load_bytes'),
+                         _ptxas_of(build, 'semantic_reduce',
+                                   'strided_kernelI13__nv_bfloat16Li40E'))))
     report['semantic_reduce'] = dict(
         name='semantic_reduce', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/semantic_reduce.cu',
         replaces='nicr_mtsa_tpu/ops/pallas/semantic_reduce.py:42',
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
-    print(json.dumps({'phase': 'kernel', **report['semantic_reduce']}),
-          flush=True)
+    print(json.dumps({'phase': 'kernel', **report['semantic_reduce'],
+                      'stream_ms': card, 'nchw': nchw, 'paths': paths,
+                      'device_launches': launches,
+                      'resources': resources}), flush=True)
 
 
 def _ptxas_of(build, lib, *pieces):
@@ -743,50 +810,130 @@ def check_resize_reduce(rr, report, build):
                       'resources': resources}), flush=True)
 
 
-def check_intersection(it, report):
-    """Row 11: two random slot maps (8, 512 * 512) in [0, 128], one
-    with every pixel in one bin (all atomics on one address), one with
-    out-of-range slots (not counted); exact against the plain version
-    and torch.bincount. Times the random case."""
+def _bincount(a, b, n_gt, n_pred):
+    """torch.bincount of the (image, gt, pred) cells of slot maps (B, P)
+    (out-of-range slots to a dropped cell): the same counts as row 11."""
+    B, G, Q = a.shape[0], n_gt + 1, n_pred + 1
+    ok = (a >= 0) & (a <= n_gt) & (b >= 0) & (b <= n_pred)
+    img = torch.arange(B, device=a.device)[:, None] * (G * Q)
+    cell = torch.where(ok, img + a.long() * Q + b.long(), B * G * Q)
+    return torch.bincount(cell.reshape(-1), minlength=B * G * Q + 1
+                          )[:-1].view(B, G, Q)
+
+
+def _offset_view(t, by: int):
+    """A copy of (B, P) t whose storage starts `by` int32 elements past
+    a 16-byte boundary (unit strides)."""
+    buf = torch.empty(t.numel() + 4, device=t.device, dtype=t.dtype)
+    view = buf[by:by + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def device_launches(fn) -> int:
+    """The device activities (kernels, copies, fills) of one fn() call,
+    by torch.profiler, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in p.key_averages()
+                   if e.device_type == DeviceType.CUDA))
+
+
+def _same_counts(it, name, a, b, n_gt, n_pred):
+    got = it.intersection_matrix_kernel(a, b, n_gt, n_pred)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, it.intersection_matrix_reference(
+            a, b, n_gt, n_pred)) and torch.equal(
+                got, _bincount(a, b, n_gt, n_pred).float())):
+        fail(f'intersection {name}: counts differ from the plain version '
+             f'or torch.bincount')
+    return it.plan_of(a.to(torch.int32), b.to(torch.int32), n_gt,
+                      n_pred)._asdict()
+
+
+def check_intersection(it, report, build):
+    """Row 11 on slot maps (8, 512 * 512) in [0, 128]: random, every
+    pixel in one bin, out-of-range slots (not counted), 257 x 129 bins,
+    B=1, P = 262143, storage 4 bytes past a 16-byte boundary (both maps,
+    one map) and rows 4 bytes apart (an image stride of P + 1); exact
+    against the plain version and torch.bincount. Prints each case's
+    plan, the kernel's registers and spills and the device launches of
+    one call (which must be 1); times the random and the one-bin case (`cuda_ms`,
+    `stream_ms`). The eval step's own maps: `check_intersection_eval`."""
     g = torch.Generator(device='cuda').manual_seed(5)
     B, P, n = 8, 512 * 512, 128
     gt = torch.randint(0, n + 1, (B, P), device='cuda', generator=g,
                        dtype=torch.int32)
     pred = torch.randint(0, n + 1, (B, P), device='cuda', generator=g,
                          dtype=torch.int32)
-
-    def bincount(a, b):
-        G = n + 1
-        ok = (a >= 0) & (a <= n) & (b >= 0) & (b <= n)
-        img = torch.arange(B, device='cuda')[:, None] * (G * G)
-        cell = torch.where(ok, img + a.long() * G + b.long(), B * G * G)
-        return torch.bincount(cell.reshape(-1), minlength=B * G * G + 1
-                              )[:-1].view(B, G, G)
-
-    cases = [(gt, pred), (torch.full_like(gt, 7), torch.full_like(pred, 3)),
-             (gt - 1, pred + 1)]
-    for i, (a, b) in enumerate(cases):
-        got = it.intersection_matrix_kernel(a, b, n, n)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, it.intersection_matrix_reference(a, b, n, n))
-                and torch.equal(got, bincount(a, b).float())):
-            fail(f'intersection case {i}: counts differ from the plain '
-                 f'version or torch.bincount')
-    if int(it.intersection_matrix_kernel(*cases[1], n, n)[:, 7, 3].min()) \
-            != P:
+    one = (torch.full_like(gt, 7), torch.full_like(pred, 3))
+    gt256 = torch.randint(0, 257, (B, P), device='cuda', generator=g,
+                          dtype=torch.int32)
+    wide = torch.randint(0, n + 1, (B, P + 1), device='cuda', generator=g,
+                         dtype=torch.int32)
+    cases = (('random', gt, pred, n, n), ('one_bin', *one, n, n),
+             ('out_of_range', gt - 1, pred + 1, n, n),
+             ('bins_257x129', gt256, pred, 256, n),
+             ('b1', gt[:1], pred[:1], n, n),
+             ('p262143', gt[:, :P - 1], pred[:, :P - 1], n, n),
+             ('offset_both', _offset_view(gt, 1), _offset_view(pred, 1),
+              n, n),
+             ('offset_gt', _offset_view(gt, 1), pred, n, n),
+             ('row_stride_p_plus_1', wide[:, 1:], pred, n, n))
+    plans = {name: _same_counts(it, name, a, b, ng, npd)
+             for name, a, b, ng, npd in cases}
+    if int(it.intersection_matrix_kernel(*one, n, n)[:, 7, 3].min()) != P:
         fail('intersection: the one-bin case lost counts')
-    ms = cuda_ms(lambda: it.intersection_matrix_kernel(gt, pred, n, n))
+    call = lambda: it.intersection_matrix_kernel(gt, pred, n, n)
+    launches = device_launches(call)
+    if launches != 1:
+        fail(f'intersection: {launches} device launches a call, '
+             f'expected 1')
+    ms = cuda_ms(call)
+    stream = {'random': stream_ms(call), 'one_bin': stream_ms(
+        lambda: it.intersection_matrix_kernel(*one, n, n))}
     plain_ms = cuda_ms(lambda: it.intersection_matrix_reference(
         gt, pred, n, n))
-    library_ms = cuda_ms(lambda: bincount(gt, pred))
+    library_ms = cuda_ms(lambda: _bincount(gt, pred, n, n))
     b_ms, b_by = bound(2 * B * P * 4 + B * (n + 1) ** 2 * 4, 2 * B * P)
+    regs, st, ld = _ptxas_of(build, 'intersection', 'intersection_kernel')
     report['intersection'] = dict(
         name='intersection', route='cuda',
         source='nicr_mtsa_tpu_torch/ops/cuda/csrc/intersection.cu',
         replaces='nicr_mtsa_tpu/ops/pallas/intersection_kernel.py:60',
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=library_ms)
-    print(json.dumps({'phase': 'kernel', **report['intersection']}),
+    print(json.dumps({'phase': 'kernel', **report['intersection'],
+                      'stream_ms': stream, 'plans': plans,
+                      'device_launches': launches,
+                      'resources': dict(registers=regs,
+                                        spill_store_bytes=st,
+                                        spill_load_bytes=ld)}), flush=True)
+
+
+def check_intersection_eval(it, maps):
+    """Row 11 on the slot maps the fused eval step passed it (phase 5:
+    the panoptic and the instance helper's, which must be two maps of
+    (8, 512 * 512) pixels and 129 x 129 bins): exact against the plain
+    version and torch.bincount, timed (`stream_ms`)."""
+    got = [(tuple(a.shape), tuple(b.shape), n_gt, n_pred)
+           for a, b, n_gt, n_pred in maps]
+    if got != [((8, 512 * 512), (8, 512 * 512), 128, 128)] * 2:
+        fail(f'intersection: the eval step passed row 11 {got}, expected '
+             f'two (8, 262144) map pairs of 129 x 129 bins')
+    out = {}
+    for i, (a, b, n_gt, n_pred) in enumerate(maps):
+        plan = _same_counts(it, f'eval map {i}', a, b, n_gt, n_pred)
+        out[f'map{i}'] = dict(plan=plan, stream_ms=stream_ms(
+            lambda: it.intersection_matrix_kernel(a, b, n_gt, n_pred)),
+            shape=list(a.shape),
+            distinct_pairs=int((_bincount(a, b, n_gt, n_pred) > 0).sum()))
+    print(json.dumps({'phase': 'intersection_eval_maps', **out}),
           flush=True)
 
 
@@ -2056,10 +2203,32 @@ EVAL_LOG_KEYS = ('semantic_miou', 'panoptic_deeplab_semantic_miou',
 IS_THING = tuple(i < 8 for i in range(40))
 
 
+@contextlib.contextmanager
+def _captured_slot_maps():
+    """Within: the (gt slots, pred slots, n_gt, n_pred) of each call of
+    the PQ metrics' intersection matrix (copies), in a list."""
+    from nicr_mtsa_tpu_torch.metrics import pq
+    inner, maps = pq.intersection_matrix, []
+
+    def hooked(gt_slots, pred_slots, n_gt, n_pred):
+        B = gt_slots.shape[0]
+        maps.append((gt_slots.reshape(B, -1).clone(),
+                     pred_slots.reshape(B, -1).clone(), n_gt, n_pred))
+        return inner(gt_slots, pred_slots, n_gt, n_pred)
+
+    pq.intersection_matrix = hooked
+    try:
+        yield maps
+    finally:
+        pq.intersection_matrix = inner
+
+
 def evaluate(args, kernels, card, result):
-    """The fused eval step at B=8: one warm-up step, then three timed
-    rounds of N steps carrying the metric states, each round ending in
-    a device sync on a state scalar; frames/s is the median round."""
+    """The fused eval step at B=8: one warm-up step (the slot maps it
+    passes row 11 captured), then three timed rounds of N steps carrying
+    the metric states, each round ending in a device sync on a state
+    scalar; frames/s is the median round. Returns the launches, the
+    pipeline and the captured maps."""
     from nicr_mtsa_tpu_torch.pipeline import build_eval_pipeline
     from nicr_mtsa_tpu_torch.testing import build_eval_batch
     B = 8
@@ -2070,7 +2239,8 @@ def evaluate(args, kernels, card, result):
         fail(f'eval batch: {eb.segment_table_overflow} GT segments did '
              f'not fit into the segment tables')
     step = pipe.make_fused_eval_step(eb.static_batch)
-    _, losses, states = step(eb.batch, pipe.empty_metric_states())
+    with _captured_slot_maps() as maps:
+        _, losses, states = step(eb.batch, pipe.empty_metric_states())
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
@@ -2112,7 +2282,7 @@ def evaluate(args, kernels, card, result):
                       'metrics': metrics, 'card': card}), flush=True)
     if args.profile:
         profile(lambda: step(eb.batch, states), result, 'eval')
-    return launches, pipe
+    return launches, pipe, maps
 
 
 def _states_equal(card, cpu, name=''):
@@ -2209,14 +2379,16 @@ def main():
     kernel_resources(_build, result)
     check_finisher(finisher4x, report, _build)
     check_grouping(grouping, report, _build)
-    check_semantic_reduce(semantic_reduce, report)
+    check_semantic_reduce(semantic_reduce, report, _build)
     check_resize_reduce(resize_reduce, report, _build)
-    check_intersection(intersection, report)
+    check_intersection(intersection, report, _build)
     check_ties()
     launches = serve(args, kernels, card, result)
     card_vs_cpu(result, emsanet_bench_config(dtype='float32'),
                 'card_vs_cpu', frame_seed=3)
-    eval_launches, pipe = evaluate(args, kernels, card, result)
+    eval_launches, pipe, eval_maps = evaluate(args, kernels, card, result)
+    check_intersection_eval(intersection, eval_maps)
+    del eval_maps
     eval_card_vs_cpu(pipe, result)
     del pipe
     check_window_attention(window_attention, report, result)

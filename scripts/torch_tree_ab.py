@@ -36,7 +36,10 @@ from a seed:
   (row 5 to 512 x 512), the LayerNorm's rows at each of its Swin
   serving widths
   (chip_smoke.py's LN_SHAPES: 153600 x 96, 32 and 128, 38400 x 256,
-  9600 x 512, 2400 x 1024), the intersection's (8, 262144) slots), with
+  9600 x 512, 2400 x 1024), the intersection's (8, 262144) slots:
+  random with the device launches of one call, every pixel in one bin,
+  and the two slot maps one fused eval step passes it (`*_eval`:
+  chip_smoke.py phase 5's pipeline and batch)), row 6 also NCHW, with
   F.layer_norm beside row 10 at each shape and torch.bincount beside
   row 11;
 each in two ways: `event_ms`, CUDA events around one call (as
@@ -209,6 +212,9 @@ def other_rows(kernels, g, ln_shapes):
         lambda: kernels.crop_resize_argmax_score(xe, full, 512, 512))
     out['row6_semantic_reduce'] = _times(
         lambda: kernels.semantic_argmax_score(xe))
+    xe = xe.contiguous()
+    out['row6_semantic_reduce_nchw'] = _times(
+        lambda: kernels.semantic_argmax_score(xe))
     del xe
     out['row10_layernorm'], out['row10_library_f_layer_norm'] = {}, {}
     for rows, C, _ in ln_shapes:
@@ -235,10 +241,47 @@ def other_rows(kernels, g, ln_shapes):
         return torch.bincount(cell.reshape(-1), minlength=Bi * G * G + 1
                               )[:-1].view(Bi, G, G)
 
-    out['row11_intersection'] = _times(
-        lambda: kernels.intersection_matrix_kernel(gt, pred, n, n))
+    call = lambda: kernels.intersection_matrix_kernel(gt, pred, n, n)
+    out['row11_intersection'] = dict(_times(call),
+                                     device_launches=_device_launches(call))
     out['row11_library_bincount'] = _times(bincount)
+    one = (torch.full_like(gt, 7), torch.full_like(pred, 3))
+    out['row11_intersection_one_bin'] = _times(
+        lambda: kernels.intersection_matrix_kernel(*one, n, n))
+    out['row11_intersection_eval'] = {
+        key: _times(lambda: kernels.intersection_matrix_kernel(*m))
+        for key, m in zip(('panoptic', 'instance'), eval_slot_maps())}
     return out
+
+
+def eval_slot_maps():
+    """The (gt slots, pred slots, n_gt, n_pred) that one fused eval step
+    (chip_smoke.py phase 5's pipeline and B=8 batch) passes row 11: one
+    call for the panoptic and one for the instance PQ helper."""
+    import torch
+    from nicr_mtsa_tpu_torch.metrics import pq
+    from nicr_mtsa_tpu_torch.pipeline import build_eval_pipeline
+    from nicr_mtsa_tpu_torch.testing import build_eval_batch
+    pipe = build_eval_pipeline(device='cuda', seed=0)
+    eb = build_eval_batch(8, (480, 640), (512, 512), 40,
+                          tuple(i < 8 for i in range(40)), seed=0,
+                          segment_table_size=128, device='cuda')
+    inner, maps = pq.intersection_matrix, []
+
+    def hooked(gt_slots, pred_slots, n_gt, n_pred):
+        B = gt_slots.shape[0]
+        maps.append((gt_slots.reshape(B, -1).clone(),
+                     pred_slots.reshape(B, -1).clone(), n_gt, n_pred))
+        return inner(gt_slots, pred_slots, n_gt, n_pred)
+
+    pq.intersection_matrix = hooked
+    try:
+        pipe.make_fused_eval_step(eb.static_batch)(
+            eb.batch, pipe.empty_metric_states())
+        torch.cuda.synchronize()
+    finally:
+        pq.intersection_matrix = inner
+    return maps
 
 
 def child(args) -> None:

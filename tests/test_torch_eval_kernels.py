@@ -9,8 +9,8 @@ the Pallas kernels run in interpret mode, as the JAX package's own
 tests run them. Inputs come from numpy seeds. idx and counts must be
 bit-identical; scores (a 40-term exp sum, which the JAX side may take
 through logsumexp) within rtol 1e-5. The CUDA kernels are held against
-the same plain versions on the card by chip_smoke.py and by the tests
-marked `cuda` below."""
+the same plain versions on the card by chip_smoke.py and by
+tests/test_torch_eval_kernels_card.py."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -31,6 +31,7 @@ from nicr_mtsa_tpu_torch.models import upsampling as t_up
 from nicr_mtsa_tpu_torch.ops.cuda import intersection as t_int
 from nicr_mtsa_tpu_torch.ops.cuda import resize_reduce as t_rr
 from nicr_mtsa_tpu_torch.ops.cuda import semantic_reduce as t_sr
+from test_torch_eval_kernels_card import _blocky_slots
 
 torch.set_num_threads(2)
 
@@ -277,24 +278,208 @@ def test_intersection_out_of_range_slots_not_counted():
     np.testing.assert_array_equal(got.numpy(), brute)
 
 
-@pytest.mark.cuda
-def test_eval_kernels_match_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.normal(size=(2, 40, 60, 80)).astype(
-        np.float32)).cuda().to(torch.bfloat16)
-    crop = (slice(4, 56), slice(0, 80))
-    for xx in (x, x.contiguous(memory_format=torch.channels_last)):
-        for (idx, score), (idx_r, score_r) in (
-                (t_rr.crop_resize_argmax_score(xx, crop, 64, 96),
-                 t_rr.crop_resize_argmax_score_reference(xx, crop, 64, 96)),
-                (t_sr.semantic_argmax_score(xx),
-                 t_sr.semantic_argmax_score_reference(xx))):
-            assert torch.equal(idx, idx_r)
-            torch.testing.assert_close(score, score_r, rtol=1e-5, atol=0)
-    gt = torch.randint(0, 130, (2, 5000), device='cuda', dtype=torch.int32)
-    pred = torch.randint(0, 130, (2, 5000), device='cuda', dtype=torch.int32)
-    assert torch.equal(
-        t_int.intersection_matrix_kernel(gt, pred, 128, 128),
-        t_int.intersection_matrix_reference(gt, pred, 128, 128))
+def _cl(B, C, H, W, dtype=torch.bfloat16):
+    return torch.zeros(B, C, H, W, dtype=dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+# row 6's host plan: (name, logits, 16-byte aligned storage, path)
+SR_PLAN_CASES = [
+    ('eval_cl', lambda: _cl(8, 40, 480, 640), True, 'staged'),
+    ('cl_f32', lambda: _cl(2, 40, 48, 64, torch.float32), True, 'staged'),
+    ('nchw', lambda: torch.zeros(8, 40, 48, 64, dtype=torch.bfloat16), True,
+     'strided'),
+    ('cl_sliced', lambda: _cl(2, 40, 480, 640)[:, :, 8:472, 16:624], True,
+     'staged'),
+    ('cl_misaligned', lambda: _cl(2, 40, 48, 64), False, 'strided'),
+    ('cl_41_classes', lambda: _cl(2, 41, 48, 64), True, 'strided'),
+    ('cl_odd_column', lambda: _cl(2, 40, 48, 64)[:, :, :, 1:], True,
+     'staged'),
+    ('cl_short_rows', lambda: _cl(3, 16, 5, 7)[:, :, 1:4, 2:5], True,
+     'staged'),
+]
+
+
+def _sr_plan(x, aligned):
+    return t_sr.sr_plan(tuple(x.shape), tuple(x.stride()),
+                        x.element_size(), aligned, n_sm=132,
+                        blocks_per_sm=lambda threads, smem: 5)
+
+
+@pytest.mark.parametrize('case', SR_PLAN_CASES, ids=lambda c: c[0])
+def test_sr_plan_paths_and_runs_cover_pixels(case):
+    """`sr_plan` chooses the staged kernel exactly where a pixel's
+    classes are one 16-byte aligned run, and its runs, walked as
+    csrc/semantic_reduce.cu `tile_of` walks them, read each pixel's
+    classes where they lie and write each output pixel once."""
+    _, make, aligned, path = case
+    x = make()
+    plan = _sr_plan(x, aligned)
+    assert plan.path == path
+    B, C, H, W = x.shape
+    if path == 'strided':
+        assert plan.blocks == B * H * -(-W // t_sr.STRIDED_THREADS)
+        return
+    sb, sc, sh, sw = x.stride()
+    assert (sc, sw) == (1, C) and C * x.element_size() % 16 == 0
+    assert plan.smem == plan.stages * plan.slot_bytes <= t_sr.MAX_SMEM
+    assert plan.run * C * x.element_size() <= plan.slot_bytes
+    assert plan.blocks <= min(plan.tiles, 132 * 5)
+    written = np.zeros(B * H * W, np.int64)
+    for t in range(plan.tiles):
+        seg, r = divmod(t, plan.runs_per_seg)
+        img, row = divmod(seg, plan.segs_per_img)
+        w0 = r * plan.run
+        n = min(plan.run, plan.seg_len - w0)
+        assert n > 0
+        p = seg * plan.seg_len + w0 + np.arange(n)
+        written[p] += 1
+        b, rest = np.divmod(p, H * W)
+        h, w = np.divmod(rest, W)
+        # the run's storage is contiguous from its first pixel's
+        start = img * sb + row * sh + w0 * C
+        np.testing.assert_array_equal(b * sb + h * sh + w * sw,
+                                      start + np.arange(n) * C)
+    assert (written == 1).all()
+
+
+def test_sr_plan_eval_call_one_wave():
+    plan = _sr_plan(_cl(8, 40, 480, 640), True)
+    # the whole tensor is one segment: 19200 runs of 128 pixels
+    assert (plan.seg_len, plan.run, plan.tiles) == (8 * 480 * 640, 128,
+                                                    19200)
+    assert plan.blocks == 132 * 5
+
+
+def _it_covered(plan, P, step_threads=t_int.THREADS):
+    """Pixels of one image each (rank, thread) counts, walked as
+    csrc/intersection.cu walks them (vectors by trips of U slots, then
+    the scalar head and tail)."""
+    T, U, cs = step_threads, 4, plan.cluster
+    step = cs * T
+    seen = np.zeros(P, np.int64)
+    for rank in range(cs):
+        base = rank * T
+        while base < plan.vectors:
+            v = base + np.arange(U)[:, None] * step + np.arange(T)
+            v = v[v < plan.vectors]
+            for j in range(4):
+                np.add.at(seen, plan.head + 4 * v + j, 1)
+            base += U * step
+        n_scalar = plan.head + plan.tail
+        i0 = rank * T
+        while i0 < n_scalar:
+            i = i0 + np.arange(T)
+            i = i[i < n_scalar]
+            np.add.at(seen, np.where(i < plan.head, i,
+                                     i + 4 * plan.vectors), 1)
+            i0 += step
+    return seen
+
+
+# row 11's host plan: (B, P, G, Q, gt phase, pred phase, image strides,
+# clusters of 16 / 8 the card holds at once, the cluster, vectors); the
+# H100 holds 7 / 15 at 129 x 129 bins
+IT_PLAN_CASES = [
+    (8, 262144, 129, 129, 0, 0, (262144, 262144), (7, 15), 8, True),
+    (8, 262144, 129, 129, 0, 0, (262144, 262144), (8, 15), 16, True),
+    (1, 262144, 129, 129, 0, 0, (0, 0), (7, 15), 16, True),
+    (8, 262144, 129, 129, 0, 0, (262144, 262144), (0, 15), 8, True),
+    (8, 262143, 257, 129, 0, 0, (262144, 262144), (7, 15), 8, True),
+    (8, 262144, 129, 129, 1, 1, (262144, 262144), (7, 15), 8, True),
+    (8, 262144, 129, 129, 1, 0, (262144, 262144), (7, 15), 8, False),
+    (8, 262144, 129, 129, 1, 1, (262145, 262144), (7, 15), 8, False),
+    (1, 777, 257, 129, 0, 0, (0, 0), (7, 15), 1, True),
+    (1, 777, 257, 129, 3, 3, (0, 0), (7, 15), 1, True),
+]
+
+
+@pytest.mark.parametrize('case', IT_PLAN_CASES)
+def test_it_plan_cluster_and_tail_cover_pixels(case):
+    """`it_plan`: the admitted cluster with the fewest waves a CTA's
+    pixels (then the fewest waves) that leaves a CTA a vector a thread,
+    16-byte vectors only where both maps share their phase and strides
+    keep it, the histogram of all bins in shared memory, every bin
+    summed by one rank, and the kernel's walk counts each pixel of an
+    image once."""
+    B, P, G, Q, pg, pp, (sg, sp), (n16, n8), cluster, vec = case
+    held = {16: n16, 8: n8, 4: 30, 2: 66, 1: 132}
+    plan = t_int.it_plan(B, P, G, Q, pg, pp, sg, sp,
+                         lambda cs, smem: held[cs])
+    assert (plan.cluster, plan.vec) == (cluster, vec)
+    assert plan.smem % 16 == 0 and G * Q * 4 <= plan.smem <= t_int.MAX_SMEM
+    assert plan.bins_per_rank % 4 == 0
+    assert plan.bins_per_rank * plan.cluster >= G * Q
+    assert plan.head + 4 * plan.vectors + plan.tail == P
+    if vec:
+        assert (pg + plan.head) % 4 == 0 and plan.tail < 4
+    else:
+        assert plan.vectors == 0
+    assert (_it_covered(plan, P) == 1).all()
+
+
+def test_it_plan_rejects_bins_beyond_shared_memory():
+    with pytest.raises(ValueError, match='shared memory'):
+        t_int.it_plan(1, 777, 257, 257, 0, 0, 0, 0, lambda cs, smem: 1)
+    with pytest.raises(ValueError, match='no cluster'):
+        t_int.it_plan(1, 777, 129, 129, 0, 0, 0, 0, lambda cs, smem: 0)
+
+
+def _port_score_idx(x_nhwc_full, sl, dtype):
+    """The port's (idx, score) of the channels-last NCHW view of the
+    NHWC numpy logits, sliced by `sl` (rows, columns)."""
+    xt = _nchw(x_nhwc_full, getattr(torch, dtype))[:, :, sl[0], sl[1]]
+    assert xt.stride(1) == 1
+    idx, score = t_sr.semantic_argmax_score(xt)
+    return idx.numpy(), score.numpy()
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('case', ['sliced_view', '41_classes'])
+def test_semantic_reduce_views_match_pallas(case, dtype):
+    """The port on a channels-last sliced view (rows and columns cut, as
+    postprocessing/semantic.py passes a crop) and on 41 classes, against
+    the Pallas kernel in interpret mode on the same values."""
+    rng = np.random.default_rng(12)
+    if case == 'sliced_view':
+        x = rng.normal(size=(2, 24, 131, 40)).astype(np.float32) * 4.0
+        sl = (slice(4, 20), slice(2, 130))
+    else:
+        x = rng.normal(size=(2, 8, 128, 41)).astype(np.float32) * 4.0
+        sl = (slice(None), slice(None))
+    x = np.asarray(jnp.asarray(x).astype(dtype).astype(jnp.float32))
+    score_j, idx_j = semantic_score_idx_pallas(
+        jnp.asarray(x[:, sl[0], sl[1], :]).astype(dtype), block_h=8,
+        interpret=True)
+    idx, score = _port_score_idx(x, sl, dtype)
+    np.testing.assert_array_equal(idx, np.asarray(idx_j))
+    np.testing.assert_allclose(score, np.asarray(score_j), rtol=1e-5,
+                               atol=0)
+
+
+def test_intersection_blocky_maps_match_pallas():
+    """257 x 129 bins on blocky slot maps (P a multiple of block_p):
+    the port's counts against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(13)
+    gt = _blocky_slots(rng, 2, 32, 64, 256, 6)
+    pred = _blocky_slots(rng, 2, 32, 64, 128, 9)
+    want = np.asarray(intersection_matrix_pallas(
+        jnp.asarray(gt), jnp.asarray(pred), n_gt=256, n_pred=128,
+        block_p=1024, interpret=True))
+    got = t_int.intersection_matrix_kernel(torch.from_numpy(gt),
+                                           torch.from_numpy(pred), 256, 128)
+    assert got.shape == (2, 257, 129)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_intersection_blocky_ragged_matches_segments():
+    """P not a multiple of block_p (30 x 50 pixels), out-of-range slots
+    in the maps: against ops/segments.intersection_matrix."""
+    rng = np.random.default_rng(14)
+    gt = _blocky_slots(rng, 3, 30, 50, 258, 7) - 1
+    pred = _blocky_slots(rng, 3, 30, 50, 129, 5)
+    want = np.asarray(intersection_matrix(jnp.asarray(gt),
+                                          jnp.asarray(pred), 256, 128))
+    got = t_int.intersection_matrix_kernel(torch.from_numpy(gt),
+                                           torch.from_numpy(pred), 256, 128)
+    np.testing.assert_array_equal(got.numpy(), want)
