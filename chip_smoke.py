@@ -152,7 +152,23 @@ phases; any failure exits non-zero and prints no result:
    window_attention_block, 36 LayerNorm, 1 bilinear finisher and 1
    grouping launch a request;
 18. run that pipeline in f32 on one frame on the card and on the CPU:
-   the gates of phase 4.
+   the gates of phase 4;
+19. train `emsanet_train_config()` (`bench.py --train`'s default model:
+   2x ResNet-34 NBt1D, dense decoders with their side heads, the
+   semantic upsampling in the head; 480 x 640, bf16, AdamW 1e-4, the
+   random batch at B=8, channel dropout from a CUDA generator): a
+   warm-up step, then three timed rounds of N steps, each ending in a
+   sync on the loss, counters set to 0 just before: no launch of any
+   kernel wrapper (the JAX package trains EMSANet through XLA); every
+   loss finite, the total loss of the last step below the first's;
+20. take one EMSANet training step with drop rates 0 on the card and on
+   the CPU, the recipe and gates of phase 12 (B=8 at 256 x 320) in
+   float64 (the model too), with its own planted 1 % faults: the
+   gradients of the decoders' learned-upsampling weights, and the
+   instance losses; beside it, ungated, the f32 step's losses card vs
+   CPU and between two CPU summation orders (an f32 step of this ReLU
+   network at random init moves by more than phase 12's limits with
+   the summation order alone).
 
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
@@ -225,6 +241,20 @@ TRAIN_GRAD_TOL, TRAIN_SPREAD_FACTOR = 1e-3, 4.0
 TRAIN_FAULTS = {'core_dbias': '.attn.cpb_fc',
                 'instance_losses': 'instance_decoder.'}
 TRAIN_FAULT_SIZE = 1e-2
+# EMSANet training (phases 19, 20; `bench.py --train`'s default model):
+# no kernel of the port runs in its step (the JAX package trains it
+# through XLA), so every wrapper of KERNELS must count this many
+# launches a step
+EMSANET_TRAIN_LAUNCHES = 0
+# its card-vs-CPU step runs in float64: at random init its f32 step is
+# too sensitive to summation order for phase 12's gates (its f32 losses
+# card vs CPU and between two CPU orders are printed beside), and in
+# f32 a few of its ReLUs' pre-activations round to the other side of 0;
+# the planted faults of that step: the gradients of the decoders'
+# learned-upsampling weights (their group: the decoder steps' and the
+# heads' upsamplings, weights and biases), the instance losses
+EMSANET_TRAIN_FAULTS = {'upsampling_weight_grad': '.upsample',
+                        'instance_losses': 'instance_decoder.'}
 # panoptic ids are class * PANOPTIC_ID_CLASS + k (ops/merge.py); the
 # card-vs-CPU panoptic gate: the least share of segment pixels in
 # segments matched by class and IoU > 0.5 (see PERF.md section 2)
@@ -830,18 +860,25 @@ def _offset_view(t, by: int):
     return view
 
 
-def device_launches(fn) -> int:
+def device_launches(fn, attempts: int = 3) -> int:
     """The device activities (kernels, copies, fills) of one fn() call,
-    by torch.profiler, after a warm-up call."""
+    by torch.profiler, after a warm-up call. A trace that recorded no
+    device activity at all is taken again, up to `attempts` times: a
+    call that launched a kernel has at least one (one such trace of
+    row 11 was seen among calls that counted 1)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
     fn()
     torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CUDA]) as p:
-        fn()
-        torch.cuda.synchronize()
-    return int(sum(e.count for e in p.key_averages()
-                   if e.device_type == DeviceType.CUDA))
+    for _ in range(attempts):
+        with prof(activities=[ProfilerActivity.CUDA]) as p:
+            fn()
+            torch.cuda.synchronize()
+        n = int(sum(e.count for e in p.key_averages()
+                    if e.device_type == DeviceType.CUDA))
+        if n:
+            break
+    return n
 
 
 def _same_counts(it, name, a, b, n_gt, n_pred):
@@ -1985,15 +2022,20 @@ def serve_exact(cfg, n_requests, want, kernels, card, result, key,
     return {k: launches[k] for k in want}
 
 
-def train_swin(args, kernels, card, result):
-    """`emsaformer_dve_v2` training at B=8, 480 x 640, bf16: a warm-up
-    step, then three timed rounds of N steps, each round ending in a
-    sync on the total loss; frames/s is the median round."""
+def train(args, kernels, card, result, key, cfg=None, want=TRAIN_KERNELS):
+    """Training of `cfg` (default `emsaformer_dve_v2`'s) at B=8, 480 x
+    640, bf16: a warm-up step, then three timed rounds of N steps, each
+    round ending in a sync on the total loss, the counters set to 0
+    just before; each kernel of `want` must make its number of launches
+    a step, every loss be finite and the last step's total loss below
+    the first's. frames/s is the median round."""
     from nicr_mtsa_tpu_torch.pipeline import build_train_pipeline
     from nicr_mtsa_tpu_torch.testing import build_train_batch
     B = 8
-    pipe = build_train_pipeline(device='cuda', seed=0)
-    batch = build_train_batch(B, 480, 640, seed=0, device='cuda')
+    pipe = build_train_pipeline(cfg, device='cuda', seed=0)
+    batch = build_train_batch(
+        B, 480, 640, seed=0, device='cuda',
+        rgbd=cfg is None or cfg.backbone_rgbd is not None)
     gen = torch.Generator(device='cuda').manual_seed(1)
     state = pipe.create_train_state()
     state, losses = pipe.train_step(state, batch, gen)
@@ -2013,20 +2055,20 @@ def train_swin(args, kernels, card, result):
         rounds.append(B * args.train_steps / (time.perf_counter() - t0))
     n = 3 * args.train_steps
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
-    per_step = {k: launches[k] / n for k in TRAIN_KERNELS}
-    for k, want in TRAIN_KERNELS.items():
-        if per_step[k] != want:
-            fail(f'kernel {k}: {per_step[k]} launches a training step, '
-                 f'expected {want}')
+    per_step = {k: launches[k] / n for k in want}
+    for k, n_want in want.items():
+        if per_step[k] != n_want:
+            fail(f'{key}: kernel {k}: {per_step[k]} launches a training '
+                 f'step, expected {n_want}')
     history = torch.stack(history).float().cpu()
     if not bool(torch.isfinite(history).all()):
-        fail('train_swin: a loss is not finite')
+        fail(f'{key}: a loss is not finite')
     last = float(losses['total_loss'])
     if not last < first:
-        fail(f'train_swin: total loss {last} at the last step is not below '
+        fail(f'{key}: total loss {last} at the last step is not below '
              f'{first} at the first')
     fps = float(np.median(rounds))
-    result['train_swin'] = dict(
+    result[key] = dict(
         batch=B, steps_per_round=args.train_steps,
         rounds_frames_per_s=rounds, frames_per_s=fps, card=card,
         launches_per_step=per_step, first_total_loss=first,
@@ -2034,32 +2076,39 @@ def train_swin(args, kernels, card, result):
         total_loss_per_step=[float(v) for v in history[:, -1]],
         losses={k: float(v) for k, v in losses.items()},
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(json.dumps({'phase': 'train_swin', 'frames_per_s': fps,
+    print(json.dumps({'phase': key, 'frames_per_s': fps,
                       'rounds_frames_per_s': rounds, 'batch': B,
                       'steps': n, 'launches_per_step': per_step,
                       'first_total_loss': first, 'last_total_loss': last,
-                      'peak_mem_gb': result['train_swin']['peak_mem_gb'],
+                      'peak_mem_gb': result[key]['peak_mem_gb'],
                       'card': card}), flush=True)
     if args.profile:
-        profile(lambda: pipe.train_step(state, batch, gen), result,
-                'train_swin')
-    return {k: launches[k] for k in TRAIN_KERNELS}
+        profile(lambda: pipe.train_step(state, batch, gen), result, key)
+    return {k: launches[k] for k in want}
 
 
 @contextlib.contextmanager
 def _planted_fault(fault, pipe):
-    """`fault` (None or one of TRAIN_FAULTS) planted for one step of
-    `pipe`: row 7's dbias, or the instance losses, scaled by 1 +
-    TRAIN_FAULT_SIZE."""
+    """`fault` (None or one of TRAIN_FAULTS, EMSANET_TRAIN_FAULTS)
+    planted for one step of `pipe`: row 7's dbias, the gradients of the
+    decoders' learned-upsampling weights, or the instance losses,
+    scaled by 1 + TRAIN_FAULT_SIZE."""
     from nicr_mtsa_tpu_torch.ops.cuda import window_attention_core as wac
     scale = 1.0 + TRAIN_FAULT_SIZE
     core = wac._WindowAttentionCore
     backward, compute_losses = core.backward, pipe.compute_losses
+    hooks = []
     if fault == 'core_dbias':
         def faulty(ctx, dout):
             dq, dk, dv, dbias, *rest = backward(ctx, dout)
             return (dq, dk, dv, dbias * scale, *rest)
         core.backward = staticmethod(faulty)
+    elif fault == 'upsampling_weight_grad':
+        # each ladder step's and each task head's upsampling weight
+        hooks = [p.register_hook(lambda g: g * scale)
+                 for n, p in pipe.model.named_parameters()
+                 if n.startswith(('semantic_decoder.', 'instance_decoder.'))
+                 and '.upsample' in n and n.endswith('.weight')]
     elif fault == 'instance_losses':
         pipe.compute_losses = lambda b, p: {
             k: v * scale if k.startswith('instance_') else v
@@ -2069,24 +2118,35 @@ def _planted_fault(fault, pipe):
     finally:
         core.backward = staticmethod(backward)
         pipe.compute_losses = compute_losses
+        for h in hooks:
+            h.remove()
 
 
 def _train_step_result(cfg, hw, batch, dev, order=None, fault=None):
-    """(losses, gradients, BatchNorm statistics, seconds) of one f32
-    training step on `dev` from seed 0's weights and batch seed 2; on
-    the CPU in summation `order` (None or one of TRAIN_CPU_ORDERS), on
-    the card with `fault` planted."""
+    """(losses, gradients, BatchNorm statistics, seconds) of one
+    training step in `cfg`'s dtype (f32, or float64 with the model in
+    float64) with drop rates 0 on `dev` from seed 0's weights and batch
+    seed 2; on the CPU in summation `order` (None or one of
+    TRAIN_CPU_ORDERS), on the card with `fault` planted."""
+    from nicr_mtsa_tpu_torch.models.common import Dropout
     from nicr_mtsa_tpu_torch.pipeline import (MultiTaskPipeline,
                                               build_train_pipeline)
     from nicr_mtsa_tpu_torch.testing import build_train_batch
     pipe = build_train_pipeline(cfg, device=dev, seed=0)
     if order == 'channels_last':
         pipe = MultiTaskPipeline(pipe.model, pipe.postprocessors,
-                                 pipe.task_helpers, channels_last=True)
+                                 pipe.task_helpers, cfg.torch_dtype,
+                                 channels_last=True)
+    for m in pipe.model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    if cfg.dtype == 'float64':
+        pipe.model.double()         # parameters and statistics too
     with torch.no_grad():
         pipe.model.instance_decoder.task_head.conv_orientation.bias.copy_(
             torch.tensor(TRAIN_CPU_ORIENTATION_BIAS))
-    batch_t = build_train_batch(batch, *hw, seed=2, device=dev)
+    batch_t = build_train_batch(batch, *hw, seed=2, device=dev,
+                                rgbd=cfg.backbone_rgbd is not None)
     state = pipe.create_train_state()
     t0 = time.perf_counter()
     with torch.backends.mkldnn.flags(enabled=order != 'no_mkldnn'), \
@@ -2101,34 +2161,50 @@ def _train_step_result(cfg, hw, batch, dev, order=None, fault=None):
             time.perf_counter() - t0)
 
 
-def train_card_vs_cpu(result, hw=TRAIN_CPU_HW, batch=TRAIN_CPU_BATCH):
-    """One f32 training step with drop rates 0 on the card and on the
-    CPU (`batch` at `hw`; the same seed builds the same weights and
-    batch): losses within rtol 1e-5, BatchNorm statistics within 1e-5,
-    and each gradient within its limit of its tensor's max |grad| (of
-    1e-5 x the step's largest, for a tensor whose exact gradient is 0):
-    TRAIN_GRAD_TOL, or TRAIN_SPREAD_FACTOR times the spread of the same
-    step on the CPU in its other summation orders, taken in this run,
-    where that is more. Controls: the card's step again with each of
-    TRAIN_FAULTS planted must fail the same check, in every tensor the
-    fault moves whose limit lies below a quarter of the fault."""
+def train_card_vs_cpu(result, hw=TRAIN_CPU_HW, batch=TRAIN_CPU_BATCH,
+                      cfg=None, faults=TRAIN_FAULTS,
+                      key='train_card_vs_cpu', f32_cfg=None):
+    """One training step of `cfg` (default `emsaformer_dve_v2`'s, f32)
+    with drop rates 0 on the card and on the CPU (`batch` at `hw`; the
+    same seed builds the same weights and batch): losses within rtol
+    1e-5, BatchNorm statistics within 1e-5, and each gradient within its
+    limit of its tensor's max |grad| (of 1e-5 x the step's largest, for
+    a tensor whose exact gradient is 0): TRAIN_GRAD_TOL, or
+    TRAIN_SPREAD_FACTOR times the spread of the same step on the CPU in
+    its other summation orders, taken in this run, where that is more.
+    Controls: the card's step again with each of `faults` planted must
+    fail the same check, in every tensor the fault moves whose limit
+    lies below a quarter of the fault. With `f32_cfg` (where `cfg` is a
+    float64 step) it also reports, ungated, how far the f32 step's
+    losses lie apart card vs CPU and between two CPU orders."""
     from nicr_mtsa_tpu_torch.pipeline import emsaformer_train_config
-    cfg = emsaformer_train_config(hw, 'float32', stochastic_depth=0.0,
-                                  decoder_dropout=0.0)
+    if cfg is None:
+        cfg = emsaformer_train_config(hw, 'float32', stochastic_depth=0.0,
+                                      decoder_dropout=0.0)
     l_card, g_card, s_card, t_card = _train_step_result(cfg, hw, batch,
                                                         'cuda')
     faulty = {f: _train_step_result(cfg, hw, batch, 'cuda', fault=f)[1]
-              for f in TRAIN_FAULTS}
+              for f in faults}
     l_cpu, g_cpu, s_cpu, t_cpu = _train_step_result(cfg, hw, batch, 'cpu')
     seconds = {'cuda': t_card, 'cpu': t_cpu}
     g_orders = {}
     for order in TRAIN_CPU_ORDERS:
         _, g_orders[order], _, seconds[f'cpu_{order}'] = _train_step_result(
             cfg, hw, batch, 'cpu', order)
-    loss_err = max(abs(l_card[k] - v) / max(abs(v), 1e-30)
-                   for k, v in l_cpu.items())
+    def rel(a, b):
+        return max(abs(a[k] - v) / max(abs(v), 1e-30) for k, v in b.items())
+
+    loss_err = rel(l_card, l_cpu)
+    f32 = {}
+    if f32_cfg is not None:
+        l32 = {dev: _train_step_result(f32_cfg, hw, batch, dev)[0]
+               for dev in ('cuda', 'cpu')}
+        l32_cl = _train_step_result(f32_cfg, hw, batch, 'cpu',
+                                    'channels_last')[0]
+        f32 = {'f32_loss_rel_err': rel(l32['cuda'], l32['cpu']),
+               'f32_cpu_loss_spread': rel(l32_cl, l32['cpu'])}
     if not loss_err <= 1e-5:
-        fail(f'train card vs CPU: losses differ by rtol {loss_err}')
+        fail(f'{key}: losses differ by rtol {loss_err}')
     largest = max(float(g.abs().max()) for g in g_cpu.values())
     den = {n: max(float(g.abs().max()), 1e-5 * largest)
            for n, g in g_cpu.items()}
@@ -2136,8 +2212,8 @@ def train_card_vs_cpu(result, hw=TRAIN_CPU_HW, batch=TRAIN_CPU_BATCH):
     def errs(grads):
         return {n: float((grads[n] - g).abs().max()) / den[n]
                 for n, g in g_cpu.items()}
-    spread = {n: max(e[n] for e in map(errs, g_orders.values()))
-              for n in g_cpu}
+    order_errs = [errs(g) for g in g_orders.values()]
+    spread = {n: max(e[n] for e in order_errs) for n in g_cpu}
     limit = {n: max(TRAIN_GRAD_TOL, TRAIN_SPREAD_FACTOR * spread[n])
              for n in g_cpu}
     grad_err = errs(g_card)
@@ -2152,7 +2228,7 @@ def train_card_vs_cpu(result, hw=TRAIN_CPU_HW, batch=TRAIN_CPU_BATCH):
         # the tensors of the fault's group it moves by at least half its
         # size (not those whose exact gradient is 0); where the limit
         # is under a quarter of it, the check cannot miss the fault
-        group = [n for n in g_cpu if TRAIN_FAULTS[fault] in n]
+        group = [n for n in g_cpu if faults[fault] in n]
         moved = [n for n in group if float((grads[n] - g_card[n]).abs()
                                            .max()) / den[n]
                  >= TRAIN_FAULT_SIZE / 2]
@@ -2162,7 +2238,7 @@ def train_card_vs_cpu(result, hw=TRAIN_CPU_HW, batch=TRAIN_CPU_BATCH):
             missed=[n for n in moved if limit[n] < TRAIN_FAULT_SIZE / 4
                     and not e[n] > limit[n]],
             hidden=[n for n in moved if limit[n] >= TRAIN_FAULT_SIZE])
-    print(json.dumps({'phase': 'train_card_vs_cpu_grads',
+    print(json.dumps({'phase': f'{key}_grads',
                       'largest_grad': largest,
                       'worst': [list(r) for r in table[:12]],
                       'n_limit_above_tol': sum(
@@ -2171,25 +2247,27 @@ def train_card_vs_cpu(result, hw=TRAIN_CPU_HW, batch=TRAIN_CPU_BATCH):
                       'controls': controls,
                       'seconds': seconds}), flush=True)
     if not ratio[worst] <= 1.0:
-        fail(f'train card vs CPU: gradient of {worst} differs by '
+        fail(f'{key}: gradient of {worst} differs by '
              f'{grad_err[worst]} of its max, above its limit {limit[worst]}')
     for fault, c in controls.items():
         if c['missed'] or not c['n_flagged']:
-            fail(f'train card vs CPU: a planted {TRAIN_FAULT_SIZE} fault in '
+            fail(f'{key}: a planted {TRAIN_FAULT_SIZE} fault in '
                  f'{fault} passed the gradient check of {c["missed"]}')
     stat_err = max(float((s_card[n] - b).abs().max() / (1 + b.abs().max()))
                    for n, b in s_cpu.items() if b.is_floating_point())
     if not stat_err <= 1e-5:
-        fail(f'train card vs CPU: BatchNorm statistics differ by {stat_err}')
-    result['train_card_vs_cpu'] = dict(
-        size=list(hw), batch=batch, loss_rel_err=loss_err,
+        fail(f'{key}: BatchNorm statistics differ by {stat_err}')
+    result[key] = dict(
+        size=list(hw), batch=batch, dtype=cfg.dtype, loss_rel_err=loss_err,
+        **f32,
         worst_grad=worst, worst_grad_rel_err=grad_err[worst],
         worst_grad_limit=limit[worst], bn_stat_err=stat_err,
         step_seconds=seconds, controls=controls,
         grads=[dict(zip(('err_over_limit', 'err', 'limit', 'cpu_spread',
                          'max_abs_grad', 'name'), r)) for r in table])
-    print(json.dumps({'phase': 'train_card_vs_cpu', 'size': list(hw),
-                      'batch': batch, 'loss_rel_err': loss_err,
+    print(json.dumps({'phase': key, 'size': list(hw),
+                      'batch': batch, 'dtype': cfg.dtype,
+                      'loss_rel_err': loss_err, **f32,
                       'worst_grad': worst,
                       'worst_grad_rel_err': grad_err[worst],
                       'worst_grad_limit': limit[worst],
@@ -2344,11 +2422,12 @@ def main():
     ap.add_argument('--steps', type=int, default=5,
                     help='eval steps per timed round (3 rounds)')
     ap.add_argument('--train-steps', type=int, default=3,
-                    help='Swin training steps per timed round (3 rounds)')
+                    help='training steps per timed round (3 rounds), for '
+                         'each of the two families')
     ap.add_argument('--profile', action='store_true',
                     help='also trace 3 requests of each serving path, '
-                         '3 eval steps and 3 training steps with '
-                         'torch.profiler')
+                         '3 eval steps and 3 training steps of each '
+                         'family with torch.profiler')
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2366,7 +2445,8 @@ def main():
                                               window_attention_core,
                                               window_attention_qkv)
     from nicr_mtsa_tpu_torch.pipeline import (emsaformer_bench_config,
-                                              emsanet_bench_config)
+                                              emsanet_bench_config,
+                                              emsanet_train_config)
     build_s = kernels.build_all()
     print(json.dumps({'phase': 'build', 'seconds': build_s}), flush=True)
     torch.backends.cudnn.allow_tf32 = False
@@ -2400,7 +2480,7 @@ def main():
     card_vs_cpu(result, emsaformer_bench_config(dtype='float32'),
                 'swin_card_vs_cpu', frame_seed=4)
     check_window_attention_core(window_attention_core, report)
-    train_launches = train_swin(args, kernels, card, result)
+    train_launches = train(args, kernels, card, result, 'train_swin')
     train_card_vs_cpu(result)
     check_finisher2x(finisher2x, report, _build)
     defer2x_launches = serve_exact(
@@ -2415,6 +2495,14 @@ def main():
     card_vs_cpu(result, emsaformer_bench_config(dtype='float32',
                                                 attn_backend='qkv'),
                 'qkv_card_vs_cpu', frame_seed=6)
+    train(args, kernels, card, result, 'train_emsanet',
+          emsanet_train_config(),
+          dict.fromkeys(kernels.KERNELS, EMSANET_TRAIN_LAUNCHES))
+    train_card_vs_cpu(result, cfg=emsanet_train_config(TRAIN_CPU_HW,
+                                                       'float64'),
+                      faults=EMSANET_TRAIN_FAULTS,
+                      key='emsanet_train_card_vs_cpu',
+                      f32_cfg=emsanet_train_config(TRAIN_CPU_HW, 'float32'))
 
     # each kernel's launches from the run of its own path (the grouping
     # from the EMSANet serving run)

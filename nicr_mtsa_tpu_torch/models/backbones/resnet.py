@@ -53,13 +53,13 @@ class ResNetBackbone(Backbone):
         return [2, 4, 8, 16, 32]
 
     def forward_stage(self, idx: int, x, generator=None):
-        """No random parts: `generator` is not read."""
+        """`generator` feeds the blocks' channel dropout in training."""
         if idx == 0:
             return self.act(self.norm1(self.conv1(x)))
         if idx == 1:
             x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self._layer_names[idx - 1]:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, generator)
         return x
 
 

@@ -1,11 +1,15 @@
 """Residual blocks: BasicBlock (ResNet v1) and NonBottleneck1D (ERFNet
-factorised 3x1/1x3), counterparts of nicr_mtsa_tpu/models/blocks.py.
-Inference only: NonBottleneck1D's channel dropout is the identity."""
+factorised 3x1/1x3 with channel dropout before the residual add),
+counterparts of nicr_mtsa_tpu/models/blocks.py. `forward(x, generator)`
+takes the generator of training mode's random parts (NonBottleneck1D's
+dropout, rate `dropout_p`, one draw per (sample, channel)); BasicBlock
+has none and does not read it."""
 from typing import Optional
 
 import torch.nn as nn
 
-from .common import BatchNorm, Conv2d, ConvNormAct, get_activation
+from .common import (BatchNorm, Conv2d, ConvNormAct, Dropout,
+                     get_activation)
 
 KNOWN_BLOCKS = ('basicblock', 'nonbottleneck1d')
 
@@ -33,7 +37,7 @@ class BasicBlock(nn.Module):
             if use_downsample else None)
         self.act = get_activation(act)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         out = self.act(self.norm1(self.conv1(x)))
         out = self.norm2(self.conv2(out))
         identity = x if self.downsample is None else self.downsample(x)
@@ -44,7 +48,7 @@ class NonBottleneck1D(nn.Module):
     def __init__(self, n_in: int, planes: int, stride: int = 1,
                  use_downsample: bool = False, dilation: int = 1,
                  norm: str = 'batchnorm', act: str = 'relu',
-                 generator=None):
+                 dropout_p: float = 0.2, generator=None):
         super().__init__()
         d = dilation
         g = generator
@@ -58,23 +62,29 @@ class NonBottleneck1D(nn.Module):
         self.conv2_2 = Conv2d(planes, planes, (1, 3), padding=(0, d),
                               dilation=(1, d), generator=g)
         self.norm2 = BatchNorm(planes)
+        self.dropout = Dropout(dropout_p)
         self.downsample = (
             ConvNormAct(n_in, planes, 1, stride=stride, norm=norm,
                         act=None, generator=g)
             if use_downsample else None)
         self.act = get_activation(act)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         act = self.act
         out = act(self.conv1_1(x))
         out = act(self.norm1(self.conv1_2(out)))
         out = act(self.conv2_1(out))
-        out = self.norm2(self.conv2_2(out))
+        out = self.dropout(self.norm2(self.conv2_2(out)), generator)
         identity = x if self.downsample is None else self.downsample(x)
         return act(out + identity)
 
 
 def make_block(block_type: str, **kwargs) -> nn.Module:
+    """The block of `block_type`; `dropout_p` reaches NonBottleneck1D
+    only."""
+    block_type = get_block_name(block_type)
+    if block_type != 'nonbottleneck1d':
+        kwargs.pop('dropout_p', None)
     cls = {'basicblock': BasicBlock,
-           'nonbottleneck1d': NonBottleneck1D}[get_block_name(block_type)]
+           'nonbottleneck1d': NonBottleneck1D}[block_type]
     return cls(**kwargs)

@@ -184,7 +184,9 @@ class Dropout(nn.Module):
     """Channel dropout of NCHW tensors in training mode (flax
     `nn.Dropout(rate, broadcast_dims=(1, 2))` on NHWC): one keep/drop
     draw per (sample, channel), broadcast over H and W; kept values
-    are divided by 1 - rate. The identity in eval mode or at rate 0."""
+    are divided by 1 - rate rounded to x's dtype (flax's weak-typed
+    `x / keep_prob`: 0.80078125 in bf16). The identity in eval mode or
+    at rate 0."""
 
     def __init__(self, rate: float = 0.1):
         super().__init__()
@@ -196,8 +198,9 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         mask = bernoulli_keep((x.shape[0], x.shape[1], 1, 1), keep,
                               generator, x.device)
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                       device=x.device))
+        scale = float(torch.tensor(keep, dtype=x.dtype))
+        return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 def trunc_normal_(t, std: float = 0.02, generator=None):

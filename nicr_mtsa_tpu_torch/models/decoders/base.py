@@ -1,10 +1,15 @@
 """Decoder bases (counterpart of nicr_mtsa_tpu/models/decoders/base.py);
-both return `(main, side_outputs)` with no side outputs. The dense
-decoders are ported for inference only (their training side outputs
-are not).
+both return `(main, side_outputs)`.
 
 - `DenseDecoderBase`: the dense ladder; each step is ConvNormAct 3x3 +
-  n residual blocks + 2x upsampling, followed by skip fusion.
+  n residual blocks (NonBottleneck1D's channel dropout in training,
+  drawn from the generator passed to `forward`) + 2x upsampling,
+  followed by skip fusion. In training mode every step that upsamples
+  also gives its features before the upsampling to a side head
+  (`side_head{i}`), and those predictions are the side outputs; the
+  side heads exist where the decoder is built with `side_heads=True`
+  (the parameters of the JAX package's `init(..., train=True)`). In
+  eval mode there are no side outputs.
 - `MLPDecoderBase`: SegFormer-style; a 1x1 embedding of the context
   features and of each (selected, LayerNormed) skip, all upsampled to
   `downsampling_in_heads`, concatenated, fused by a 1x1 ConvNormAct,
@@ -26,7 +31,8 @@ from ..upsampling import Upsampling
 def plan_dense_ladder(downsampling_in: int, downsamplings: Tuple[int, ...],
                       fusion_downsamplings: Tuple[int, ...]):
     """Per-step {do_upsampling, fusion_ds} and the side-output
-    downscales (reference dense_base.py:128-200)."""
+    downscales (reference dense_base.py:128-200): a step that upsamples
+    gives a side output at its input's downsampling."""
     assert sorted(downsamplings, reverse=True) == list(downsamplings)
     assert all(d <= downsampling_in for d in downsamplings)
     cur = downsampling_in
@@ -59,13 +65,16 @@ class DenseDecoderModule(nn.Module):
         self.upsample = (Upsampling(upsampling, n_channels)
                          if upsampling is not None else None)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """(output, the features before the upsampling); `generator`
+        feeds the blocks' dropout in training."""
         x = self.conv(x)
         for i in range(self.n_blocks):
-            x = getattr(self, f'block{i}')(x)
+            x = getattr(self, f'block{i}')(x, generator)
+        side = x
         if self.upsample is not None:
             x = self.upsample(x)
-        return x
+        return x, side
 
 
 class DenseDecoderBase(nn.Module):
@@ -79,7 +88,7 @@ class DenseDecoderBase(nn.Module):
                  norm: str = 'batchnorm', act: str = 'relu',
                  upsampling: str = 'learned-3x3-zeropad',
                  prediction_upsampling: str = 'learned-3x3-zeropad',
-                 generator=None):
+                 side_heads: bool = False, generator=None):
         super().__init__()
         assert len(fusion_n_channels) == len(fusion_downsamplings)
         self.downsamplings = tuple(downsamplings)
@@ -89,6 +98,10 @@ class DenseDecoderBase(nn.Module):
                                     tuple(fusion_downsamplings))
         fusion_cfg = parse_encoder_decoder_fusion(fusion)
         self._fusion_ds = []
+        # built by the subclass (`side_head{i}`) after its task head
+        self.side_heads = side_heads
+        self.side_output_n_channels = tuple(
+            n for n, p in zip(n_channels, plan) if p['do_upsampling'])
         n_prev = n_channels_in
         fusion_idx = 0
         for i, (n_out, p) in enumerate(zip(n_channels, plan)):
@@ -112,16 +125,29 @@ class DenseDecoderBase(nn.Module):
 
     def forward(self, x, skips, generator=None):
         """x: (context_features, context_branches); skips:
-        {str(ds): {modality: tensor}}. Returns (main, ()); no random
-        parts (`generator` is not read)."""
+        {str(ds): {modality: tensor}}; `generator` feeds the dropout in
+        training. Returns (main, side_outputs): in training mode one
+        side head's prediction a step that upsamples, else ()."""
+        if self.training and not self.side_heads:
+            raise ValueError('a dense decoder trains with its side heads: '
+                             'build it with side_heads=True (build_model('
+                             '..., train=True))')
         x, _ = x
+        sides = []
         fusion_idx = 0
         for i, fds in enumerate(self._fusion_ds):
-            x = getattr(self, f'module{i}')(x)
+            module = getattr(self, f'module{i}')
+            x, side = module(x, generator)
+            if module.upsample is not None:
+                sides.append(side)
             if fds != -1:
                 x = getattr(self, f'fusion{fusion_idx}')(skips[str(fds)], x)
                 fusion_idx += 1
-        return self.apply_task_head(x), ()
+        main = self.apply_task_head(x)
+        if not self.training:
+            return main, ()
+        return main, tuple(getattr(self, f'side_head{i}')(s)
+                           for i, s in enumerate(sides))
 
 
 class MLPDecoderBase(nn.Module):

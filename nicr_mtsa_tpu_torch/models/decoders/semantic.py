@@ -1,5 +1,6 @@
 """Semantic decoders, dense and MLP (counterpart of nicr_mtsa_tpu/
-models/decoders/semantic.py)."""
+models/decoders/semantic.py). With `side_heads`, the dense decoder has
+a 1x1 `TaskHead` a side output (`side_head{i}`)."""
 from math import log2
 
 from .base import DenseDecoderBase, MLPDecoderBase
@@ -17,6 +18,10 @@ class SemanticDecoder(DenseDecoderBase):
             n_upsamplings=int(log2(self.downsamplings[-1])),
             defer_last_upsampling=defer_prediction_upsampling,
             generator=generator)
+        if self.side_heads:
+            for i, n in enumerate(self.side_output_n_channels):
+                self.add_module(f'side_head{i}', TaskHead(
+                    n, n_classes, n_upsamplings=0, generator=generator))
 
     def apply_task_head(self, x):
         return self.task_head(x)

@@ -85,8 +85,9 @@ class MultiTaskModelConfig:
 class MultiTaskModel(nn.Module):
     """Composed network; `forward({'rgb', 'depth'})` (or `{'rgbd'}`)
     returns {task: (main, side_outputs)} with NCHW tensors. Training
-    mode is `train()`: every decoder that runs then trains (BatchNorm
-    statistics, dropout, stochastic depth)."""
+    mode is `train()`: every module that runs then trains (BatchNorm
+    statistics, dropout, stochastic depth), and the dense decoders give
+    their side outputs."""
 
     def __init__(self, encoder, context_module,
                  semantic_decoder: Optional[nn.Module] = None,
@@ -145,11 +146,15 @@ def _build_encoder(c: MultiTaskModelConfig, g, rgbd_backbone=None):
 
 
 def build_model(config: MultiTaskModelConfig, device=None,
-                seed: int = 0, rgbd_backbone=None) -> MultiTaskModel:
-    """Build the model, randomly initialised from `seed`, in eval mode
-    on `device` (default `cuda`). `rgbd_backbone`: a 4-channel backbone
-    module to use in place of the one the config names (for example a
-    narrower Swin); the rest of the model is sized from it."""
+                seed: int = 0, rgbd_backbone=None,
+                train: bool = False) -> MultiTaskModel:
+    """Build the model, randomly initialised from `seed`, on `device`
+    (default `cuda`), in eval mode, or with `train=True` in training
+    mode with the parameters only training has (the dense decoders'
+    side heads, as in the JAX package's `init(..., train=True)`).
+    `rgbd_backbone`: a 4-channel backbone module to use in place of the
+    one the config names (for example a narrower Swin); the rest of the
+    model is sized from it."""
     device = resolve_device(device)
     c = config
     g = torch.Generator().manual_seed(seed)
@@ -187,7 +192,8 @@ def build_model(config: MultiTaskModelConfig, device=None,
     else:
         common.update(n_channels=c.decoder_n_channels,
                       downsamplings=c.decoder_downsamplings,
-                      block=c.decoder_block, n_blocks=c.decoder_n_blocks)
+                      block=c.decoder_block, n_blocks=c.decoder_n_blocks,
+                      side_heads=train)
     tasks = set(c.tasks)
     semantic = instance = scene = embedding = None
     if tasks & {'semantic', 'panoptic'}:
@@ -212,4 +218,4 @@ def build_model(config: MultiTaskModelConfig, device=None,
                                         generator=g, **common)
     model = MultiTaskModel(encoder, context, semantic, instance, scene,
                            embedding)
-    return model.eval().to(device)
+    return model.train(train).to(device)

@@ -18,7 +18,8 @@
   the eval losses and the metric-state updates of every task helper,
   with the states carried by the caller on the device.
 - `MultiTaskPipeline.train_step`, the training path of `bench.py
-  --train` (`build_train_pipeline`, `emsaformer_train_config`): the
+  --train` (`build_train_pipeline` on `emsanet_train_config`, the
+  bench's default model, or `emsaformer_train_config`): the
   forward pass in training mode, the training pass-through of the
   postprocessing, the task losses and their sum, the gradients, the
   AdamW update (optim.py) and the new BatchNorm statistics. The model
@@ -485,6 +486,15 @@ class MultiTaskPipeline:
         return artifacts, examples, logs
 
 
+def emsanet_train_config(input_size: Tuple[int, int] = (480, 640),
+                         dtype: str = 'bfloat16',
+                         n_classes: int = 40) -> MultiTaskModelConfig:
+    """`emsanet-bench` as `bench.py --train` trains it (the default
+    model): `emsanet_bench_config` with the semantic prediction
+    upsampling in the head (`defer=False`), no remat."""
+    return emsanet_bench_config(input_size, dtype, n_classes, defer=False)
+
+
 def emsaformer_train_config(input_size: Tuple[int, int] = (480, 640),
                             dtype: str = 'bfloat16',
                             **overrides) -> MultiTaskModelConfig:
@@ -514,16 +524,17 @@ def train_task_helpers(n_classes: int = 40, n_thing: int = 8,
 
 
 def build_train_pipeline(config: MultiTaskModelConfig = None, device=None,
-                         seed: int = 0, n_thing: int = 8,
-                         top_k: int = 64) -> MultiTaskPipeline:
-    """The training pipeline of `bench.py --train --model
-    emsaformer_dve_v2` on `device` (default `cuda`): the model of
-    `config` (default `emsaformer_train_config()`; random weights from
-    `seed`) in training mode, the postprocessors of the bench's tasks,
-    its task helpers and `AdamW(1e-4)`, computing in the config's
-    dtype."""
+                         seed: int = 0, n_thing: int = 8, top_k: int = 64,
+                         mu_dtype=None) -> MultiTaskPipeline:
+    """The training pipeline of `bench.py --train` on `device` (default
+    `cuda`): the model of `config` (default `emsaformer_train_config()`,
+    `bench.py --model emsaformer_dve_v2`; `emsanet_train_config()` is
+    the bench's default model; random weights from `seed`) in training
+    mode, the postprocessors of the bench's tasks, its task helpers and
+    `AdamW(1e-4, mu_dtype=mu_dtype)` (`torch.bfloat16`: `bench.py
+    --mu-bf16`), computing in the config's dtype."""
     config = config or emsaformer_train_config()
-    model = build_model(config, device=device, seed=seed).train()
+    model = build_model(config, device=device, seed=seed, train=True)
     n = config.semantic_n_classes
     post = default_postprocessors(
         ('semantic', 'instance', 'orientation', 'scene', 'panoptic'),
@@ -533,7 +544,7 @@ def build_train_pipeline(config: MultiTaskModelConfig = None, device=None,
         model, post, train_task_helpers(n, n_thing, top_k,
                                         config.scene_n_classes),
         compute_dtype=config.torch_dtype,
-        optimizer=AdamW(1e-4))
+        optimizer=AdamW(1e-4, mu_dtype=mu_dtype))
 
 
 def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,

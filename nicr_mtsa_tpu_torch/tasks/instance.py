@@ -1,9 +1,10 @@
-"""Instance task helper (counterpart of nicr_mtsa_tpu/tasks/instance.py),
-fused-eval path.
+"""Instance task helper (counterpart of nicr_mtsa_tpu/tasks/instance.py):
+the training and fused-eval paths.
 
-Losses: masked centre MSE (instance_center_mask), masked offset L1
-(instance_foreground), von Mises orientation loss on the orientation
-foreground. Metric: the predicted instances (segmented under the GT
+Losses, at the main scale and at each side output's with its
+`_down_<k>` targets: masked centre MSE (instance_center_mask), masked
+offset L1 (instance_foreground), von Mises orientation loss on the
+orientation foreground; each total over all scales. Metric: the predicted instances (segmented under the GT
 foreground) are merged with the GT semantic and scored with the
 orientation-aware PQ against the GT panoptic map, the merge emitting
 the pred slot map directly (`deeplab_merge_pq`). The plain MAE against
@@ -53,31 +54,36 @@ class InstanceTaskHelper(TaskHelperBase):
         return self._is_thing[device]
 
     def compute_losses(self, batch, predictions_post) -> dict:
-        (pred,), keys = self.collect_predictions_for_loss(
-            predictions_post, 'instance_output', 'instance_side_outputs')
+        preds, keys, targets = self.collect_predictions_for_loss(
+            batch, predictions_post, 'instance_output',
+            'instance_side_outputs')
+        l_c, n_c, l_o, n_o, l_r, n_r = [], [], [], [], [], []
+        for pred, t in zip(preds, targets):
+            mask_c = t['instance_center_mask']
+            (loss, _), = self._loss_center([pred[0][:, 0] * mask_c],
+                                           [t['instance_center']])
+            l_c.append(loss)
+            n_c.append(mask_c.sum(dtype=torch.int32))
+            mask_o = t['instance_foreground']
+            (loss, _), = self._loss_offset([pred[1] * mask_o[:, None]],
+                                           [t['instance_offset']])
+            l_o.append(loss)
+            n_o.append(mask_o.sum(dtype=torch.int32))
+            if len(pred) == 3:
+                mask = t['orientation_foreground']
+                score = von_mises_biternion(pred[2], t['orientation'])
+                l_r.append(torch.where(mask, score, 0.0).sum())
+                n_r.append(mask.sum(dtype=torch.int32).clamp(min=1))
         d = {}
-        mask_c = batch['instance_center_mask']
-        (l_c, _), = self._loss_center([pred[0][:, 0] * mask_c],
-                                      [batch['instance_center']])
-        n_c = mask_c.sum(dtype=torch.int32)
-        mask_o = batch['instance_foreground']
-        (l_o, _), = self._loss_offset([pred[1] * mask_o[:, None]],
-                                      [batch['instance_offset']])
-        n_o = mask_o.sum(dtype=torch.int32)
-        d['instance_center_loss_main'] = l_c / n_c.clamp(min=1)
-        d['instance_offset_loss_main'] = l_o / n_o.clamp(min=1)
-        d[self.mark_as_total('instance_center')] = \
-            self.accumulate_losses([l_c], [n_c])
-        d[self.mark_as_total('instance_offset')] = \
-            self.accumulate_losses([l_o], [n_o])
-        if len(pred) == 3:
-            mask = batch['orientation_foreground']
-            score = von_mises_biternion(pred[2], batch['orientation'])
-            l_r = torch.where(mask, score, 0.0).sum()
-            n_r = mask.sum(dtype=torch.int32).clamp(min=1)
-            d['instance_orientation_loss_main'] = l_r / n_r
-            d[self.mark_as_total('instance_orientation')] = \
-                self.accumulate_losses([l_r], [n_r])
+        for name, losses, counts in (('center', l_c, n_c),
+                                     ('offset', l_o, n_o),
+                                     ('orientation', l_r, n_r)):
+            if not losses:
+                continue
+            for k, loss, n in zip(keys, losses, counts):
+                d[f'instance_{name}_loss_{k}'] = loss / n.clamp(min=1)
+            d[self.mark_as_total(f'instance_{name}')] = \
+                self.accumulate_losses(losses, counts)
         return d
 
     def empty_metric_states(self, device=None):

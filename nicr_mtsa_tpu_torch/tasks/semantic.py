@@ -1,5 +1,6 @@
 """Semantic task helper (counterpart of nicr_mtsa_tpu/tasks/semantic.py):
-class-weighted cross-entropy; a full-resolution confusion matrix
+class-weighted cross-entropy at the main scale and at each side
+output's with its `_down_<k>` targets; a full-resolution confusion matrix
 (void-masked, labels shifted by -1) accumulated on device -> mIoU."""
 import numpy as np
 import torch
@@ -25,9 +26,10 @@ class SemanticTaskHelper(TaskHelperBase):
         self._metric_iou = MeanIntersectionOverUnion(n_classes=n_classes)
 
     def compute_losses(self, batch, predictions_post) -> dict:
-        preds, keys = self.collect_predictions_for_loss(
-            predictions_post, 'semantic_output', 'semantic_side_outputs')
-        outs = self._loss(preds, [batch['semantic']])
+        preds, keys, targets = self.collect_predictions_for_loss(
+            batch, predictions_post, 'semantic_output',
+            'semantic_side_outputs')
+        outs = self._loss(preds, [t['semantic'] for t in targets])
         d = {f'semantic_loss_{k}': loss / n.clamp(min=1)
              for k, (loss, n) in zip(keys, outs)}
         d[self.mark_as_total('semantic')] = self.accumulate_losses(

@@ -93,15 +93,21 @@ def eval_arrays(samples: List[GroundTruth], work_hw: Tuple[int, int],
 
 
 def train_arrays(B: int, H: int, W: int, seed: int = 0,
-                 n_classes: int = 40) -> Dict[str, np.ndarray]:
-    """The random training batch of `bench.py --train` for a 4-channel
-    backbone, in the JAX package's layouts (NHWC inputs, maps (B, H,
-    W)), drawn in its order from `np.random.default_rng(seed)`: 'rgbd'
-    (B, H, W, 4), 'semantic' in [0, n_classes] (0 void), the instance
-    centre, offset and masks, the orientation and its mask, and 'scene'
-    in [1, 10)."""
+                 n_classes: int = 40,
+                 rgbd: bool = True) -> Dict[str, np.ndarray]:
+    """The random training batch of `bench.py --train`, in the JAX
+    package's layouts (NHWC inputs, maps (B, H, W)), drawn in its order
+    from `np.random.default_rng(seed)`: the inputs, 'rgbd' (B, H, W, 4)
+    for a 4-channel backbone or, with `rgbd=False`, 'rgb' (B, H, W, 3)
+    and 'depth' (B, H, W, 1) for two encoders; 'semantic' in
+    [0, n_classes] (0 void), the instance centre, offset and masks, the
+    orientation and its mask, and 'scene' in [1, 10)."""
     rng = np.random.default_rng(seed)
-    batch = {'rgbd': rng.normal(size=(B, H, W, 4)).astype(np.float32)}
+    if rgbd:
+        batch = {'rgbd': rng.normal(size=(B, H, W, 4)).astype(np.float32)}
+    else:
+        batch = {'rgb': rng.normal(size=(B, H, W, 3)).astype(np.float32),
+                 'depth': rng.normal(size=(B, H, W, 1)).astype(np.float32)}
     batch.update({
         'semantic': rng.integers(0, n_classes + 1, (B, H, W)).astype(
             np.int32),
@@ -117,13 +123,14 @@ def train_arrays(B: int, H: int, W: int, seed: int = 0,
 
 
 def build_train_batch(B: int, H: int, W: int, seed: int = 0, device=None,
-                      n_classes: int = 40) -> Dict[str, torch.Tensor]:
+                      n_classes: int = 40,
+                      rgbd: bool = True) -> Dict[str, torch.Tensor]:
     """`train_arrays` as tensors on `device` (default `cuda`): dense
-    images NCHW ('rgbd', 'instance_offset', 'orientation'), maps
-    (B, H, W) int32 or bool, 'scene' (B,) int32."""
+    images NCHW ('rgbd' or 'rgb' and 'depth', 'instance_offset',
+    'orientation'), maps (B, H, W) int32 or bool, 'scene' (B,) int32."""
     device = resolve_device(device)
     return {k: _to_device(v, device) for k, v in
-            train_arrays(B, H, W, seed, n_classes).items()}
+            train_arrays(B, H, W, seed, n_classes, rgbd).items()}
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:

@@ -25,7 +25,12 @@ to the port's names (`flax_tree_to_torch`), and its inverse takes the
 port's tensors into a flax tree (`torch_to_flax_variables`).
 
 Strict: every leaf is consumed and every torch parameter and buffer is
-filled, with matching shapes, or it raises."""
+filled, with matching shapes, or it raises. So a tree and a model must
+come from the same mode: a training init of the JAX package
+(`init(..., train=True)`) has the dense decoders' `side_head{i}`
+leaves, which only a model built for training
+(`build_model(..., train=True)`) has; an eval-mode init and a serving
+model have neither."""
 from typing import Dict, Iterator, Tuple
 
 import numpy as np

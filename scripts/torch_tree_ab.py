@@ -49,16 +49,18 @@ back-to-back calls queued behind a spin kernel, per call (the card's
 time alone). Unless --kernels-only, the turn then runs the tree's own
 chip_smoke.py phases 3 (EMSANet serving, B=8), 14 (`--no-defer4x`
 serving, B=8), 5 (the fused eval step, B=8), 8 (Swin serving, B=8), 17
-(`--attn-qkv` serving, B=8) and 11 (Swin training, B=8). The stages
-and shapes are those of this script's own tree (chip_smoke.py's
-CORE_CASES, PADDED_STAGES, BLOCK_STAGES and LN_SHAPES), passed to
-every turn. A tree under test needs chip_smoke.py's `_core_inputs`,
-`_padded_stage_qkv`, `_wab_weights`, `card_line`, `serve`,
-`serve_exact`, `evaluate`, `train_swin`, `SWIN_KERNELS`, `QKV_KERNELS`
-and `DEFER2X_KERNELS` with the signatures this tree's chip_smoke.py
-has. Each turn prints one JSON line; all of them, with the card's name
-and power limit, go to chiprun_out/tree_ab.json. Needs no network and
-no JAX."""
+(`--attn-qkv` serving, B=8), 11 (Swin training, B=8) and 19 (EMSANet
+training, B=8). The stages and shapes are those of this script's own
+tree (chip_smoke.py's CORE_CASES, PADDED_STAGES, BLOCK_STAGES and
+LN_SHAPES), passed to every turn. A tree under test needs
+chip_smoke.py's `_core_inputs`, `_padded_stage_qkv`, `_wab_weights`,
+`card_line`, `serve`, `serve_exact`, `evaluate`, `train` and
+`EMSANET_TRAIN_LAUNCHES` (or, in a tree without EMSANet training,
+`train_swin`: its turns report no `train_emsanet`), `SWIN_KERNELS`,
+`QKV_KERNELS` and `DEFER2X_KERNELS` with the signatures this tree's
+chip_smoke.py has. Each turn prints one JSON line; all of them, with
+the card's name and power limit, go to chiprun_out/tree_ab.json.
+Needs no network and no JAX."""
 import argparse
 import json
 import os
@@ -370,11 +372,21 @@ def child(args) -> None:
         cs.serve_exact(emsaformer_bench_config(attn_backend='qkv'),
                        args.swin_requests, cs.QKV_KERNELS, kernels, card,
                        result, 'serving_qkv')
-        cs.train_swin(argparse.Namespace(train_steps=args.train_steps,
-                                         profile=False), kernels, card,
-                      result)
-        for key in ('serving', 'serving_defer2x', 'eval', 'serving_swin',
-                    'serving_qkv', 'train_swin'):
+        train_args = argparse.Namespace(train_steps=args.train_steps,
+                                        profile=False)
+        keys = ['serving', 'serving_defer2x', 'eval', 'serving_swin',
+                'serving_qkv', 'train_swin']
+        if hasattr(cs, 'train'):
+            from nicr_mtsa_tpu_torch.pipeline import emsanet_train_config
+            cs.train(train_args, kernels, card, result, 'train_swin')
+            cs.train(train_args, kernels, card, result, 'train_emsanet',
+                     emsanet_train_config(),
+                     dict.fromkeys(kernels.KERNELS,
+                                   cs.EMSANET_TRAIN_LAUNCHES))
+            keys.append('train_emsanet')
+        else:                       # a tree without EMSANet training
+            cs.train_swin(train_args, kernels, card, result)
+        for key in keys:
             out[key] = {k: result[key][k] for k in
                         ('frames_per_s', 'rounds_frames_per_s')}
     print('TREE_AB ' + json.dumps(out), flush=True)

@@ -377,7 +377,9 @@ def test_kernel_wrappers_refuse_gradients(monkeypatch, tmp_path, kernel):
 
 
 @pytest.mark.parametrize('phase', ['check_window_attention_core',
-                                   'train_swin', 'train_card_vs_cpu'])
+                                   'train_swin', 'train_card_vs_cpu',
+                                   'train_emsanet',
+                                   'emsanet_train_card_vs_cpu'])
 def test_chip_smoke_training_phases_fail_without_card(phase):
     """The training phases of chip_smoke.py raise on a machine without
     a card: none of them falls back to the CPU."""
@@ -390,13 +392,22 @@ def test_chip_smoke_training_phases_fail_without_card(phase):
         sys.path.remove(str(ROOT))
     from nicr_mtsa_tpu_torch.ops import cuda as kernels
     from nicr_mtsa_tpu_torch.ops.cuda import window_attention_core as wac
+    from nicr_mtsa_tpu_torch.pipeline import emsanet_train_config
+    args = argparse.Namespace(train_steps=1, profile=False)
     calls = {
         'check_window_attention_core': lambda: cs.check_window_attention_core(
             wac, {}),
-        'train_swin': lambda: cs.train_swin(
-            argparse.Namespace(train_steps=1, profile=False), kernels,
-            'no card', {}),
+        'train_swin': lambda: cs.train(args, kernels, 'no card', {},
+                                       'train_swin'),
         'train_card_vs_cpu': lambda: cs.train_card_vs_cpu({}, (64, 96)),
+        'train_emsanet': lambda: cs.train(
+            args, kernels, 'no card', {}, 'train_emsanet',
+            emsanet_train_config((64, 96)),
+            dict.fromkeys(kernels.KERNELS, cs.EMSANET_TRAIN_LAUNCHES)),
+        'emsanet_train_card_vs_cpu': lambda: cs.train_card_vs_cpu(
+            {}, (64, 96), cfg=emsanet_train_config((64, 96), 'float32'),
+            faults=cs.EMSANET_TRAIN_FAULTS,
+            key='emsanet_train_card_vs_cpu'),
     }
     with pytest.raises(RuntimeError):
         calls[phase]()
