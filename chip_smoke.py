@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--requests N] [--swin-requests N] [--steps N]
-                          [--train-steps N] [--profile]
+                          [--swin-steps N] [--train-steps N] [--profile]
 
 Drives the port (nicr_mtsa_tpu_torch) end to end on the card, in
 phases; any failure exits non-zero and prints no result:
@@ -25,7 +25,9 @@ phases; any failure exits non-zero and prints no result:
    with y0, x0 > 0, an output wider than its crop, a 333 x 500 output,
    NCHW and channels-last, bf16 and f32, tied classes at 8 and 40
    classes, with the card's time alone (`stream_ms`) and its plan,
-   registers, spills and blocks an SM; the score/argmax reduce at the
+   registers, spills and blocks an SM, and, timed apart with its own
+   plan and bound, at the f32 call of phase 21's retrievals (channels-
+   last (8, 40, 480, 640) -> 512 x 512); the score/argmax reduce at the
    eval call and in `_sr_cases` (NCHW, f32 in both layouts, the sliced
    view of a crop, storage one element off alignment, 41 classes, ties
    at 8 classes in both layouts and 40 channels-last), with the kernel
@@ -168,7 +170,32 @@ phases; any failure exits non-zero and prints no result:
    instance losses; beside it, ungated, the f32 step's losses card vs
    CPU and between two CPU summation orders (an f32 step of this ReLU
    network at random init moves by more than phase 12's limits with
-   the summation order alone).
+   the summation order alone);
+21. run the fused eval step of `bench.py --eval --model
+   emsaformer_dve_v2` (`emsaformer_eval_config()`: the semantic
+   upsampling in the head; the semantic, instance, orientation, scene
+   and dense-visual-embedding tasks plus the panoptic helper, the
+   bench's class tables and DVE targets, embedding 512) on a synthetic
+   B=8 bf16 batch (480 x 640, ground truth at 512 x 512): a warm-up
+   step, then three timed rounds of N steps with the states carried,
+   counters set to 0 just before: exactly SWIN_EVAL_KERNELS' launches
+   a step (12 window-attention sub-blocks, 39 LayerNorms, 3
+   crop+resize+reduce, 1 score/argmax reduce, 2 groupings, 2
+   intersection histograms; every other wrapper none); every loss
+   finite, the DVE loss in [0, 2], every epoch metric in [0, 1], both
+   retrieval mIoUs among them;
+22. postprocess and update the metric states of the card's raw Swin
+   eval outputs (f32, B=2) on the card and on the CPU: the gates of
+   phase 6, except that the two retrieval confusion matrices may differ
+   at pixels whose top two full-resolution logits on the CPU lie within
+   1e-5 of their magnitude (counted; any other difference fails); on
+   the card at the full shape, the DVE loss of each pixel's own LUT row
+   must be <= 1e-5 and of its negation within 1e-5 of 2, and the
+   embedding set to the text-table row of each pixel's working-
+   resolution GT class must read a text retrieval mIoU >= 0.99 against
+   that GT (nothing resized) and retrieve >= 99 % of the counted pixels
+   right against the 512 x 512 GT (its mIoU printed: class borders
+   move under the resize).
 
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
@@ -210,6 +237,16 @@ SWIN_KERNELS = {'finisher4x_bilinear': 1, 'window_attention_block': 12,
 DEFER2X_KERNELS = {'finisher2x': 1, 'finisher4x': 0, 'grouping': 1}
 QKV_KERNELS = {'window_attention_qkv': 12, 'window_attention_block': 0,
                'layernorm': 36, 'finisher4x_bilinear': 1, 'grouping': 1}
+# launches of each kernel in one fused Swin eval step (`bench.py --eval
+# --model emsaformer_dve_v2`, phase 21): the sub-block once per Swin
+# block, every LayerNorm (serving's 36 and the embedding decoder's 3
+# skip LNs), the crop+resize+reduce for the semantic head (bf16) and the
+# two DVE retrievals (f32), the score/argmax reduce once (semantic), the
+# grouping and the intersection histogram twice each (the instance and
+# the panoptic helper); every other wrapper none
+SWIN_EVAL_KERNELS = {'window_attention_block': 12, 'layernorm': 39,
+                     'resize_reduce': 3, 'semantic_reduce': 1, 'grouping': 2,
+                     'intersection': 2}
 # launches of each kernel in one Swin training step: the attention core's
 # forward, backward and dbias reduction once per Swin block; the serving
 # kernels never (training LayerNorms run their plain version, as the
@@ -838,6 +875,40 @@ def check_resize_reduce(rr, report, build):
     print(json.dumps({'phase': 'kernel', **report['resize_reduce'],
                       'stream_ms': card, 'cases': len(cases) + 2,
                       'resources': resources}), flush=True)
+    check_resize_reduce_f32(rr, report, build, x_cl.float())
+
+
+def check_resize_reduce_f32(rr, report, build, x32):
+    """Row 5's f32 instance at the call of the Swin eval step's two
+    dense-visual-embedding retrievals: channels-last f32 (8, 40, 480,
+    640) -> 512 x 512 against the plain version (idx bit for bit,
+    scores within rtol 1e-5), timed, with its plan, registers, spills
+    and blocks an SM; its bound counts f32 input bytes."""
+    full = (slice(0, 480), slice(0, 640))
+    err = _same('resize_reduce f32 retrieval call',
+                rr.crop_resize_argmax_score(x32, full, 512, 512),
+                rr.crop_resize_argmax_score_reference(x32, full, 512, 512))
+    ms = cuda_ms(lambda: rr.crop_resize_argmax_score(x32, full, 512, 512))
+    card = stream_ms(lambda: rr.crop_resize_argmax_score(x32, full, 512,
+                                                         512))
+    plain_ms = cuda_ms(lambda: rr.crop_resize_argmax_score_reference(
+        x32, full, 512, 512))
+    P = 8 * 512 * 512
+    b_ms, b_by = bound(x32.numel() * 4 + P * 8, _reduce_ops(P * 40, P, 9))
+    plan = rr._plan(8, 40, 480, 512, 640, 512, torch.float32,
+                    torch.cuda.current_device())
+    regs, st, ld = _ptxas_of(build, 'resize_reduce',
+                             'resize_reduce_kernelIfLi40E')
+    _, occ = rr._fn(torch.float32)
+    report['resize_reduce_f32'] = dict(
+        name='resize_reduce_f32', call='(8, 40, 480, 640) f32 '
+        'channels-last -> 512 x 512 (the DVE retrievals)', max_abs_err=err,
+        ms=ms, stream_ms=card, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, resources=dict(
+            plan=plan._asdict(), registers=regs, spill_store_bytes=st,
+            spill_load_bytes=ld, blocks_per_sm=occ(40, plan.smem)))
+    print(json.dumps({'phase': 'kernel_f32', **report['resize_reduce_f32']}),
+          flush=True)
 
 
 def _bincount(a, b, n_gt, n_pred):
@@ -2378,6 +2449,14 @@ def _states_equal(card, cpu, name=''):
         fail(f'eval card vs CPU: state {name} differs')
 
 
+def _to_cpu(t):
+    if isinstance(t, torch.Tensor):
+        return t.cpu()
+    if isinstance(t, (tuple, list)):
+        return type(t)(_to_cpu(v) for v in t)
+    return t
+
+
 def eval_card_vs_cpu(pipe, result):
     """The card's raw eval outputs (bf16, B=2), postprocessed with
     their metric states updated on the card and, copied, on the CPU."""
@@ -2389,15 +2468,8 @@ def eval_card_vs_cpu(pipe, result):
         raw = pipe.model(pipe.model_inputs(batch))
         _, _, on_card = pipe.evaluate_outputs(raw, batch,
                                               pipe.empty_metric_states())
-
-        def cpu(t):
-            if isinstance(t, torch.Tensor):
-                return t.cpu()
-            if isinstance(t, (tuple, list)):
-                return type(t)(cpu(v) for v in t)
-            return t
-        raw_cpu = {k: cpu(v) for k, v in raw.items()}
-        batch_cpu = {k: cpu(v) for k, v in batch.items()}
+        raw_cpu = {k: _to_cpu(v) for k, v in raw.items()}
+        batch_cpu = {k: _to_cpu(v) for k, v in batch.items()}
         _, _, on_cpu = pipe.evaluate_outputs(
             raw_cpu, batch_cpu, pipe.empty_metric_states('cpu'))
     _states_equal(on_card, on_cpu)
@@ -2411,6 +2483,213 @@ def eval_card_vs_cpu(pipe, result):
                       **counts}), flush=True)
 
 
+SWIN_EVAL_LOG_KEYS = EVAL_LOG_KEYS + ('dense_visual_embedding_text_miou',
+                                      'dense_visual_embedding_visual_mean_miou')
+DVE = 'dense_visual_embedding'
+DVE_PREFIXES = {'text_cm': f'{DVE}_text_based_semantic',
+                'visual_mean_cm': f'{DVE}_visual_mean_based_semantic'}
+
+
+def _swin_eval_pipeline(dtype='bfloat16'):
+    """`bench.py --eval --model emsaformer_dve_v2`'s pipeline on the card
+    (random weights from seed 0), with the bench's class tables."""
+    from nicr_mtsa_tpu_torch.pipeline import (build_eval_pipeline,
+                                              emsaformer_eval_config)
+    from nicr_mtsa_tpu_torch.testing import dve_tables
+    _, text, visual_mean = dve_tables(40, 512)
+    return build_eval_pipeline(emsaformer_eval_config(dtype=dtype),
+                               device='cuda', seed=0,
+                               dve_tables=(text, visual_mean))
+
+
+def _swin_eval_batch(B, seed):
+    from nicr_mtsa_tpu_torch.testing import build_eval_batch
+    eb = build_eval_batch(B, (480, 640), (512, 512), 40, IS_THING,
+                          seed=seed, segment_table_size=128, device='cuda',
+                          dve_dim=512)
+    if eb.segment_table_overflow:
+        fail(f'Swin eval batch: {eb.segment_table_overflow} GT segments '
+             f'did not fit into the segment tables')
+    return eb
+
+
+def evaluate_swin(args, kernels, card, result):
+    """The fused Swin/DVE eval step at B=8, bf16: one warm-up step, then
+    three timed rounds of N steps carrying the metric states, each round
+    ending in a device sync on a state scalar, the counters set to 0
+    just before; each wrapper must launch exactly its SWIN_EVAL_KERNELS
+    count a step (others none), every loss be finite (the DVE loss in
+    [0, 2]) and every epoch metric in [0, 1]."""
+    B = 8
+    pipe = _swin_eval_pipeline()
+    eb = _swin_eval_batch(B, seed=0)
+    step = pipe.make_fused_eval_step(eb.static_batch)
+    torch.cuda.reset_peak_memory_stats()
+    _, losses, states = step(eb.batch, pipe.empty_metric_states())
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(args.swin_steps):
+            _, losses, states = step(eb.batch, states)
+        int(states['semantic'][0, 0])
+        rounds.append(B * args.swin_steps / (time.perf_counter() - t0))
+    n_steps = 3 * args.swin_steps
+    launches = {n: fn.launches for n, fn in kernels.KERNELS.items()}
+    for n, c in launches.items():
+        if c != SWIN_EVAL_KERNELS.get(n, 0) * n_steps:
+            fail(f'eval_swin: kernel {n}: {c} launches in {n_steps} steps, '
+                 f'expected {SWIN_EVAL_KERNELS.get(n, 0)} a step')
+    bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
+    if bad:
+        fail(f'eval_swin: losses not finite: {bad}')
+    dve_loss = float(losses[f'{DVE}_loss_main'])
+    if not 0.0 <= dve_loss <= 2.0:
+        fail(f'eval_swin: {DVE}_loss_main = {dve_loss} not in [0, 2]')
+    pipe.load_metric_states(states)
+    _, _, logs = pipe.validation_epoch_end()
+    missing = [k for k in SWIN_EVAL_LOG_KEYS if k not in logs]
+    if missing:
+        fail(f'eval_swin: epoch metrics missing: {missing}')
+    metrics = {k: float(logs[k]) for k in SWIN_EVAL_LOG_KEYS}
+    for k, v in metrics.items():
+        if not (np.isfinite(v) and 0.0 <= v <= 1.0):
+            fail(f'eval_swin: metric {k} = {v} not in [0, 1]')
+    fps = float(np.median(rounds))
+    result['eval_swin'] = dict(
+        batch=B, steps_per_round=args.swin_steps, rounds_frames_per_s=rounds,
+        frames_per_s=fps, card=card,
+        launches_per_step={n: c / n_steps for n, c in launches.items()},
+        metrics=metrics, losses={k: float(v) for k, v in losses.items()},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps({'phase': 'eval_swin', 'frames_per_s': fps,
+                      'rounds_frames_per_s': rounds, 'batch': B,
+                      'steps': n_steps, 'launches_per_step': result[
+                          'eval_swin']['launches_per_step'],
+                      'peak_mem_gb': result['eval_swin']['peak_mem_gb'],
+                      'metrics': metrics, 'card': card}), flush=True)
+    if args.profile:
+        profile(lambda: step(eb.batch, states), result, 'eval_swin')
+    return launches
+
+
+def _retrieval_near_ties(card_idx, cpu_idx, cpu_logits):
+    """Pixels whose full-resolution retrieval idx differs card vs CPU,
+    and how many of them are no near tie on the CPU's side: its top two
+    full-resolution logits (the bilinear resize of its working-resolution
+    logits) further apart than 1e-5 of their magnitude."""
+    from nicr_mtsa_tpu_torch.models.upsampling import resize_bilinear
+    diff = card_idx.cpu() != cpu_idx
+    n = int(diff.sum())
+    if n == 0:
+        return 0, 0
+    full = resize_bilinear(cpu_logits, *cpu_idx.shape[1:])
+    top2 = full.permute(0, 2, 3, 1)[diff].topk(2, dim=1).values
+    gap = top2[:, 0] - top2[:, 1]
+    return n, int((gap > 1e-5 * top2[:, 0].abs()).sum())
+
+
+def swin_eval_card_vs_cpu(result):
+    """The card's raw Swin eval outputs (f32, B=2), postprocessed with
+    their metric states updated on the card and, copied, on the CPU: the
+    states equal (float sums within rtol 1e-5), the DVE matrices equal
+    or apart only at counted near ties; then `_dve_controls`."""
+    pipe = _swin_eval_pipeline('float32')
+    eb = _swin_eval_batch(2, seed=1)
+    batch = dict(eb.batch, **eb.static_batch)
+    keys = tuple(f'{p}{s}' for p in DVE_PREFIXES.values()
+                 for s in ('_idx_fullres', '_output'))
+    with torch.inference_mode():
+        raw = pipe.model(pipe.model_inputs(batch))
+        preds, losses, on_card = pipe.evaluate_outputs(
+            raw, batch, pipe.empty_metric_states(), keys)
+        raw_cpu = {k: _to_cpu(v) for k, v in raw.items()}
+        batch_cpu = {k: _to_cpu(v) for k, v in batch.items()}
+        del raw
+        preds_cpu, losses_cpu, on_cpu = pipe.evaluate_outputs(
+            raw_cpu, batch_cpu, pipe.empty_metric_states('cpu'), keys)
+    _states_equal({k: v for k, v in on_card.items() if k != DVE},
+                  {k: v for k, v in on_cpu.items() if k != DVE})
+    ties = {}
+    for state_key, prefix in DVE_PREFIXES.items():
+        n, not_tie = _retrieval_near_ties(
+            preds[f'{prefix}_idx_fullres'], preds_cpu[f'{prefix}_idx_fullres'],
+            preds_cpu[f'{prefix}_output'])
+        ties[state_key] = n
+        if not_tie:
+            fail(f'swin eval card vs CPU: {not_tie} of {n} pixels of the '
+                 f'{state_key} retrieval differ without a near tie')
+        if n == 0 and not torch.equal(on_card[DVE][state_key].cpu(),
+                                      on_cpu[DVE][state_key]):
+            fail(f'swin eval card vs CPU: {state_key} differs')
+    del preds, preds_cpu, raw_cpu
+    controls = _dve_controls(pipe, batch)
+    counts = {'semantic_pixels': int(on_cpu['semantic'].sum()),
+              'dve_pixels': int(on_cpu[DVE]['text_cm'].sum()),
+              'dve_differing_pixels': ties,
+              'dve_loss_card': float(losses[f'{DVE}_loss_main']),
+              'dve_loss_cpu': float(losses_cpu[f'{DVE}_loss_main']),
+              **controls}
+    result['swin_eval_card_vs_cpu'] = dict(states='equal', **counts)
+    print(json.dumps({'phase': 'swin_eval_card_vs_cpu', 'states': 'equal',
+                      **counts}), flush=True)
+
+
+def _dve_controls(pipe, batch):
+    """On the card at the batch's shape: the DVE loss of each pixel's own
+    LUT row (must be <= 1e-5) and of its negation (within 1e-5 of 2);
+    the text retrieval of the embedding set to each pixel's working-
+    resolution GT class row of the text table, scored against that
+    working-resolution GT as its full resolution (mIoU >= 0.99: nothing
+    is resized) and against the 512 x 512 GT (the share of counted
+    pixels retrieved right >= 0.99: pixels at class borders move under
+    the resize, and a small class's IoU with them, so its mIoU is
+    printed, not gated)."""
+    helper = pipe.task_helpers[DVE]
+    post = pipe.postprocessors[DVE]
+    lut = batch[f'{DVE}_lut']
+    idx = batch[f'{DVE}_indices'].long()
+    own = torch.stack([lut[b][idx[b]] for b in range(idx.shape[0])]
+                      ).permute(0, 3, 1, 2)             # channels-last
+    out = {}
+    with torch.inference_mode():
+        for name, p in (('own_row', own), ('negated', -own)):
+            out[f'control_{name}_loss'] = float(helper.compute_losses(
+                batch, {f'{DVE}_output': p, f'{DVE}_side_outputs': ()})[
+                    f'{DVE}_loss_main'])
+        del own
+        sem = batch['semantic'].long()
+        text = post._table(DVE_PREFIXES['text_cm'], sem.device)
+        emb = torch.where((sem > 0)[..., None], text[(sem - 1).clamp(min=0)],
+                          0.0).permute(0, 3, 1, 2)
+        read = frozenset(helper.prediction_keys)
+        for name, b in (('working', dict(batch, semantic_fullres=sem)),
+                        ('fullres', batch)):
+            state = helper.update_metric_states(
+                None, b, post.postprocess((emb, ()), b, keys=read))
+            cm = state['text_cm'].double()
+            out[f'control_{name}_right_share'] = float(cm.trace() / cm.sum())
+            helper.load_metric_states(state)
+            out[f'control_{name}_text_miou'] = float(
+                helper.validation_epoch_end()[2][f'{DVE}_text_miou'])
+    if not out['control_own_row_loss'] <= 1e-5:
+        fail(f'DVE control: own-row loss {out["control_own_row_loss"]} '
+             f'> 1e-5')
+    if not abs(out['control_negated_loss'] - 2.0) <= 1e-5:
+        fail(f'DVE control: negated-row loss '
+             f'{out["control_negated_loss"]} not within 1e-5 of 2')
+    if not out['control_working_text_miou'] >= 0.99:
+        fail(f'DVE control: text mIoU of the GT class rows at the working '
+             f'resolution {out["control_working_text_miou"]} < 0.99')
+    if not out['control_fullres_right_share'] >= 0.99:
+        fail(f'DVE control: share of full-resolution pixels retrieved '
+             f'right {out["control_fullres_right_share"]} < 0.99')
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=10,
@@ -2421,6 +2700,8 @@ def main():
                          'each of its two serving variants')
     ap.add_argument('--steps', type=int, default=5,
                     help='eval steps per timed round (3 rounds)')
+    ap.add_argument('--swin-steps', type=int, default=3,
+                    help='Swin eval steps per timed round (3 rounds)')
     ap.add_argument('--train-steps', type=int, default=3,
                     help='training steps per timed round (3 rounds), for '
                          'each of the two families')
@@ -2461,6 +2742,7 @@ def main():
     check_grouping(grouping, report, _build)
     check_semantic_reduce(semantic_reduce, report, _build)
     check_resize_reduce(resize_reduce, report, _build)
+    result['resize_reduce_f32'] = report['resize_reduce_f32']
     check_intersection(intersection, report, _build)
     check_ties()
     launches = serve(args, kernels, card, result)
@@ -2503,6 +2785,8 @@ def main():
                       faults=EMSANET_TRAIN_FAULTS,
                       key='emsanet_train_card_vs_cpu',
                       f32_cfg=emsanet_train_config(TRAIN_CPU_HW, 'float32'))
+    evaluate_swin(args, kernels, card, result)
+    swin_eval_card_vs_cpu(result)
 
     # each kernel's launches from the run of its own path (the grouping
     # from the EMSANet serving run)

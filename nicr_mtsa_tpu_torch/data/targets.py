@@ -13,7 +13,9 @@ pass has no side outputs):
   data/preprocessing/panoptic.py `PanopticTargetGenerator` (panoptic
   map, sorted segment table, per-slot GT angles), which also reports
   how many ids the table could not hold: the JAX generator truncates
-  silently."""
+  silently,
+- `index_image`: data/preprocessing/dense_visual_embedding.py
+  `_index_image` (the dense-visual-embedding target's index map)."""
 from collections import Counter
 from typing import Dict, NamedTuple
 
@@ -176,3 +178,18 @@ def panoptic_fullres_targets(semantic: np.ndarray, instance: np.ndarray,
             valid[slot] = True
     return PanopticTargets(pan, table, angles, valid,
                            max(0, len(ids) - table_size))
+
+
+def index_image(panoptic: np.ndarray, segment_ids: np.ndarray) -> np.ndarray:
+    """Dense int32 image of 1-based positions in `segment_ids` (the row
+    of each pixel's segment in the embedding LUT), 0 where a pixel's id
+    is not among them (void): one sorted search over the pixel map."""
+    if not len(segment_ids):
+        return np.zeros(panoptic.shape, dtype=np.int32)
+    order = np.argsort(segment_ids)
+    table = segment_ids[order]
+    pixels = panoptic.astype(np.int64).ravel()
+    slot = np.clip(np.searchsorted(table, pixels), 0, len(table) - 1)
+    hit = table[slot] == pixels
+    dense = np.where(hit, order[slot] + 1, 0).astype(np.int32)
+    return dense.reshape(panoptic.shape)

@@ -1,8 +1,8 @@
 """Losses of the eval step and, under autograd, of the training step
 (counterpart of nicr_mtsa_tpu/losses/). A loss maps per-scale (input,
 target) pairs to (loss_sum, n_elements) tuples; n_elements stays a
-device scalar.
-Dense inputs are NCHW, maps (B, H, W)."""
+device scalar (with reduction='none': the per-element loss and the
+input's element count). Dense inputs are NCHW, maps (B, H, W)."""
 import torch
 
 from .utils.dtypes import upcast
@@ -43,24 +43,53 @@ class CrossEntropyLossSemantic(LossBase):
         return loss, valid.sum(dtype=torch.int32)
 
 
-def _reduce_sum(loss):
-    """Mean over the channel axis of (B, C, H, W) or (N, C), then sum;
-    n = the number of pixels."""
+def _reduce(loss, reduction: str):
+    """'sum': the mean over the channel axis of (B, C, H, W) or (N, C),
+    then the sum, n = the number of pixels; 'none': the per-element
+    loss, n = its element count (the callers of 'none' count their own
+    masked elements)."""
+    if reduction == 'none':
+        return loss, loss.numel()
     if loss.dim() in (2, 4):
         loss = loss.mean(dim=1)
     return loss.sum(), torch.tensor(loss.numel(), dtype=torch.int32,
                                     device=loss.device)
 
 
-class L1Loss(LossBase):
+class _ElementwiseLoss(LossBase):
+    def __init__(self, reduction: str = 'sum'):
+        if reduction not in ('sum', 'none'):
+            raise ValueError(f'unknown reduction {reduction!r}')
+        self._reduction = reduction
+
+
+class L1Loss(_ElementwiseLoss):
     def _compute_loss(self, input_, target):
-        return _reduce_sum(torch.abs(upcast(input_) - upcast(target)))
+        return _reduce(torch.abs(upcast(input_) - upcast(target)),
+                       self._reduction)
 
 
-class MSELoss(LossBase):
+class MSELoss(_ElementwiseLoss):
     def _compute_loss(self, input_, target):
         diff = upcast(input_) - upcast(target)
-        return _reduce_sum(diff * diff)
+        return _reduce(diff * diff, self._reduction)
+
+
+class CosineEmbeddingLoss(_ElementwiseLoss):
+    """1 - cos(input, target) over the channel axis 1, the product of
+    the norms clamped at 1e-8 (similar pairs, the only mode the JAX
+    package's callers use). The loss has no channel axis, so 'sum' sums
+    it as it is."""
+
+    def _compute_loss(self, input_, target):
+        x, y = upcast(input_), upcast(target)
+        cos = (x * y).sum(dim=1) / torch.clamp(
+            torch.linalg.vector_norm(x, dim=1)
+            * torch.linalg.vector_norm(y, dim=1), min=1e-8)
+        loss = 1.0 - cos
+        if self._reduction == 'none':
+            return loss, input_.numel()
+        return _reduce(loss.reshape(-1), 'sum')
 
 
 def von_mises_biternion(input_, target, kappa: float = 1.0):
@@ -70,5 +99,5 @@ def von_mises_biternion(input_, target, kappa: float = 1.0):
     return 1.0 - torch.exp(kappa * (cos_delta - 1.0))
 
 
-__all__ = ['LossBase', 'CrossEntropyLossSemantic', 'L1Loss', 'MSELoss',
-           'von_mises_biternion']
+__all__ = ['LossBase', 'CrossEntropyLossSemantic', 'CosineEmbeddingLoss',
+           'L1Loss', 'MSELoss', 'von_mises_biternion']

@@ -109,16 +109,18 @@ def crop_resize_argmax_score_reference(x, crop_slices, out_h: int,
 
 def _tables(in_h, out_h, in_w, out_w, device):
     """Device copies of the tap tables, made once per shape/device (a
-    copy per call would synchronise the host with the card)."""
+    copy per call would synchronise the host with the card), outside
+    inference mode (a cache must not hold a step's inference tensors)."""
     key = (in_h, out_h, in_w, out_w, str(device))
     if key not in _TABLES:
         ts = []
-        for n, m in ((in_h, out_h), (in_w, out_w)):
-            lo, hi, w0, w1 = two_tap_params(n, m)
-            ts += [torch.from_numpy(lo).to(device, torch.int32),
-                   torch.from_numpy(hi).to(device, torch.int32),
-                   torch.from_numpy(w0).to(device),
-                   torch.from_numpy(w1).to(device)]
+        with torch.inference_mode(False):
+            for n, m in ((in_h, out_h), (in_w, out_w)):
+                lo, hi, w0, w1 = two_tap_params(n, m)
+                ts += [torch.from_numpy(lo).to(device, torch.int32),
+                       torch.from_numpy(hi).to(device, torch.int32),
+                       torch.from_numpy(w0).to(device),
+                       torch.from_numpy(w1).to(device)]
         _TABLES[key] = tuple(ts)
     return _TABLES[key]
 

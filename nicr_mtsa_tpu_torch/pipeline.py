@@ -16,7 +16,10 @@
 - `MultiTaskPipeline.make_fused_eval_step`, the eval path: forward,
   postprocessing with full-resolution keys, the shared GT slot map,
   the eval losses and the metric-state updates of every task helper,
-  with the states carried by the caller on the device.
+  with the states carried by the caller on the device, for both
+  families of `bench.py --eval` (`build_eval_pipeline`; EMSAFormer on
+  `emsaformer_eval_config` with its dense-visual-embedding task, the
+  retrieval against the caller's class tables).
 - `MultiTaskPipeline.train_step`, the training path of `bench.py
   --train` (`build_train_pipeline` on `emsanet_train_config`, the
   bench's default model, or `emsaformer_train_config`): the
@@ -43,10 +46,11 @@ from .models.upsampling import DEFERRED_TYPES
 from .ops.segments import ids_to_slots
 from .optim import AdamW
 from .tasks.base import TOTAL_LOSS_SUFFIX
-from .postprocessing import (InstancePostprocessing, PanopticPostprocessing,
+from .postprocessing import (DenseVisualEmbeddingPostprocessing,
+                             InstancePostprocessing, PanopticPostprocessing,
                              ScenePostprocessing, SemanticPostprocessing)
-from .tasks import (InstanceTaskHelper, PanopticTaskHelper, SceneTaskHelper,
-                    SemanticTaskHelper)
+from .tasks import (DenseVisualEmbeddingTaskHelper, InstanceTaskHelper,
+                    PanopticTaskHelper, SceneTaskHelper, SemanticTaskHelper)
 
 # ImageNet statistics scaled to [0, 255] (the JAX package's
 # data/preprocessing/normalize.py RGB_MEAN / RGB_STD)
@@ -268,15 +272,16 @@ def default_postprocessors(tasks: Sequence[str],
                            top_k_instances: int = 64,
                            heatmap_threshold: float = 0.1,
                            heatmap_nms_kernel_size: int = 3,
-                           semantic_class_has_orientation=None) -> dict:
+                           semantic_class_has_orientation=None,
+                           **dve_kwargs) -> dict:
     """The per-task postprocessors of the enabled tasks
-    (`semantic_classes_is_thing` without void). Dense scores and the
-    normal/DVE postprocessors are not ported."""
+    (`semantic_classes_is_thing` without void); `dve_kwargs` go to the
+    dense-visual-embedding postprocessor (its class tables). Dense
+    scores and the normal postprocessor are not ported."""
     tasks = set(tasks)
-    unported = tasks & {'normal', 'dense_visual_embedding'}
-    if unported:
-        raise NotImplementedError(f'postprocessing of {sorted(unported)} '
-                                  f'is not ported yet')
+    if 'normal' in tasks:
+        raise NotImplementedError("postprocessing of ['normal'] is not "
+                                  "ported yet")
     post = {}
     sem_post = SemanticPostprocessing()
     ins_post = InstancePostprocessing(
@@ -299,6 +304,9 @@ def default_postprocessors(tasks: Sequence[str],
             post['instance'] = ins_post
     if 'scene' in tasks:
         post['scene'] = ScenePostprocessing()
+    if 'dense_visual_embedding' in tasks:
+        post['dense_visual_embedding'] = DenseVisualEmbeddingPostprocessing(
+            **dve_kwargs)
     return post
 
 
@@ -325,12 +333,19 @@ class MultiTaskPipeline:
     def model_inputs(self, batch: dict) -> dict:
         """The model's NCHW inputs in the compute dtype (channels-last on
         the card): {'rgb', 'depth'}, or {'rgbd'} for a 4-channel
-        backbone."""
+        backbone, concatenated from 'rgb' and 'depth' where the batch
+        carries them apart (as every eval batch does)."""
         fmt = (torch.channels_last if self._channels_last
                else torch.contiguous_format)
-        keys = ('rgbd',) if self._rgbd else ('rgb', 'depth')
-        return {k: batch[k].to(self._compute_dtype).contiguous(
-            memory_format=fmt) for k in keys if k in batch}
+        dt = self._compute_dtype
+        if self._rgbd and 'rgbd' not in batch \
+                and 'rgb' in batch and 'depth' in batch:
+            inputs = {'rgbd': torch.cat([batch['rgb'].to(dt),
+                                         batch['depth'].to(dt)], dim=1)}
+        else:
+            keys = ('rgbd',) if self._rgbd else ('rgb', 'depth')
+            inputs = {k: batch[k].to(dt) for k in keys if k in batch}
+        return {k: v.contiguous(memory_format=fmt) for k, v in inputs.items()}
 
     # --- training -----------------------------------------------------------
     def create_train_state(self) -> dict:
@@ -547,12 +562,26 @@ def build_train_pipeline(config: MultiTaskModelConfig = None, device=None,
         optimizer=AdamW(1e-4, mu_dtype=mu_dtype))
 
 
+def emsaformer_eval_config(input_size: Tuple[int, int] = (480, 640),
+                           dtype: str = 'bfloat16') -> MultiTaskModelConfig:
+    """The `emsaformer_dve_v2` preset (40 classes) as `bench.py --eval
+    --model emsaformer_dve_v2` evaluates it: the semantic prediction
+    upsampling in the head (eval defers nothing), the window attention
+    on the whole-sub-block kernel as in serving."""
+    return dataclasses.replace(
+        emsaformer_dve_v2(n_classes=40, input_size=tuple(input_size),
+                          dtype=dtype),
+        defer_semantic_prediction_upsampling=False)
+
+
 def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,
-                      top_k: int = 64, scene_n_classes: int = 10) -> dict:
+                      top_k: int = 64, scene_n_classes: int = 10,
+                      dense_visual_embedding: bool = False) -> dict:
     """The task helpers of the JAX package's `bench.py --eval`: the
-    first `n_thing` classes are things."""
+    first `n_thing` classes are things; with `dense_visual_embedding`
+    also the embedding's (cosine loss, retrieval mIoU)."""
     is_thing_v = (False,) + tuple(i < n_thing for i in range(n_classes))
-    return {
+    helpers = {
         'semantic': SemanticTaskHelper(n_classes=n_classes),
         'instance': InstanceTaskHelper(
             semantic_n_classes=n_classes + 1,
@@ -562,24 +591,43 @@ def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,
             semantic_classes_is_thing=is_thing_v),
         'scene': SceneTaskHelper(n_classes=scene_n_classes),
     }
+    if dense_visual_embedding:
+        helpers['dense_visual_embedding'] = DenseVisualEmbeddingTaskHelper(
+            n_classes=n_classes)
+    return helpers
 
 
 def build_eval_pipeline(config: MultiTaskModelConfig = None, device=None,
-                        seed: int = 0, n_thing: int = 8,
-                        top_k: int = 64) -> MultiTaskPipeline:
-    """The eval pipeline of `bench.py --eval`: `emsanet-bench` with the
-    semantic prediction upsampling in the head (random weights from
-    `seed`), the tasks' postprocessors plus the panoptic helper, top-k
-    `top_k`, on `device` (default `cuda`), computing in the config's
-    dtype."""
+                        seed: int = 0, n_thing: int = 8, top_k: int = 64,
+                        dve_tables=None) -> MultiTaskPipeline:
+    """The eval pipeline of `bench.py --eval` on `device` (default
+    `cuda`): the model of `config` (default `emsanet-bench` with the
+    semantic prediction upsampling in the head; `emsaformer_eval_config()`
+    is `--model emsaformer_dve_v2`; random weights from `seed`), the
+    tasks' postprocessors plus the panoptic helper, top-k `top_k`,
+    computing in the config's dtype. A config with the
+    dense-visual-embedding task needs `dve_tables`, the (text,
+    visual-mean) class embedding tables, (C, D) each."""
     config = config or emsanet_bench_config(defer=False)
+    with_dve = 'dense_visual_embedding' in config.tasks
+    if with_dve and dve_tables is None:
+        raise ValueError('the dense-visual-embedding task needs its class '
+                         'tables: pass dve_tables=(text, visual_mean)')
+    dve_kwargs = {}
+    if with_dve:
+        text, visual_mean = dve_tables
+        dve_kwargs = dict(
+            with_text_embeddings_per_class=True,
+            text_embeddings_per_class=text,
+            with_mean_visual_embedding_per_class=True,
+            mean_visual_embedding_per_class=visual_mean)
     model = build_model(config, device=device, seed=seed)
     n = config.semantic_n_classes
     post = default_postprocessors(
         tuple(config.tasks) + ('panoptic',),
         semantic_classes_is_thing=tuple(i < n_thing for i in range(n)),
-        top_k_instances=top_k)
+        top_k_instances=top_k, **dve_kwargs)
     return MultiTaskPipeline(
         model, post, eval_task_helpers(n, n_thing, top_k,
-                                       config.scene_n_classes),
+                                       config.scene_n_classes, with_dve),
         compute_dtype=config.torch_dtype)

@@ -1,9 +1,11 @@
 from .base import PostprocessingBase
+from .dense_visual_embedding import DenseVisualEmbeddingPostprocessing
 from .instance import InstancePostprocessing
 from .panoptic import PanopticPostprocessing
 from .scene import ScenePostprocessing
 from .semantic import SemanticPostprocessing
 
-__all__ = ['PostprocessingBase', 'InstancePostprocessing',
+__all__ = ['PostprocessingBase', 'DenseVisualEmbeddingPostprocessing',
+           'InstancePostprocessing',
            'PanopticPostprocessing', 'ScenePostprocessing',
            'SemanticPostprocessing']

@@ -8,7 +8,9 @@ batch, the full-resolution idx/score come from the crop + resize +
 reduce kernel without building the full-resolution logits. Keys follow
 the JAX package; the dense softmax and full-resolution logits keys are
 not computed (nothing on the ported paths reads them)."""
-from ..data.fullres import get_fullres_key, has_valid_region
+from ..data.fullres import (get_fullres_key,
+                            get_valid_region_slices_and_fullres_shape,
+                            has_valid_region)
 from ..models.upsampling import (DEFERRED_TYPES, DeferredBilinear2,
                                 DeferredUpsampling, DeferredUpsampling2)
 from ..ops.cuda.finisher2x import finish_deferred_semantic
@@ -20,6 +22,25 @@ from .base import DensePostprocessingBase, wants
 
 _FULLRES_KEYS = (get_fullres_key('semantic_segmentation_idx'),
                  get_fullres_key('semantic_segmentation_score'))
+
+
+def fullres_idx_score(output, batch, idx=None, score=None):
+    """(idx, score) at the full resolution of the batch's semantic
+    ground truth, of NCHW logits at the working resolution: the
+    working-resolution (idx, score) where given and the valid region is
+    the whole image at the full size, the score/argmax kernel on the
+    crop where only a crop is needed, else the crop + resize + reduce
+    kernel (the counterpart of the JAX package's `_fullres_score_idx`;
+    its argmax bit-identical to reducing the resized logits)."""
+    (sy, sx), (h, w) = get_valid_region_slices_and_fullres_shape(
+        batch, 'semantic')
+    H, W = output.shape[-2:]
+    if idx is not None and sy.indices(H) == (0, H, 1) \
+            and sx.indices(W) == (0, W, 1) and (h, w) == (H, W):
+        return idx, score
+    if (h, w) == (len(range(*sy.indices(H))), len(range(*sx.indices(W)))):
+        return semantic_argmax_score(output[:, :, sy, sx])
+    return crop_resize_argmax_score(output, (sy, sx), h, w)
 
 
 class SemanticPostprocessing(DensePostprocessingBase):
@@ -45,17 +66,7 @@ class SemanticPostprocessing(DensePostprocessingBase):
         if not want_fullres:
             return r_dict
 
-        (sy, sx), (h, w) = self._fullres_args(batch, 'semantic')
-        H, W = output.shape[-2:]
-        if sy.indices(H) == (0, H, 1) and sx.indices(W) == (0, W, 1) \
-                and (h, w) == (H, W):
-            idx_fr, score_fr = idx, score
-        elif (h, w) == (len(range(*sy.indices(H))),
-                        len(range(*sx.indices(W)))):
-            idx_fr, score_fr = semantic_argmax_score(output[:, :, sy, sx])
-        else:
-            idx_fr, score_fr = crop_resize_argmax_score(output, (sy, sx),
-                                                        h, w)
+        idx_fr, score_fr = fullres_idx_score(output, batch, idx, score)
         r_dict[_FULLRES_KEYS[0]] = idx_fr
         r_dict[_FULLRES_KEYS[1]] = score_fr
         return r_dict

@@ -16,9 +16,10 @@ import numpy as np
 import torch
 
 from ..data.fullres import nearest_indices, resize_provenance
-from ..data.targets import (instance_targets, orientation_targets,
-                            panoptic_fullres_targets)
+from ..data.targets import (index_image, instance_targets,
+                            orientation_targets, panoptic_fullres_targets)
 from ..pipeline import RGB_MEAN, RGB_STD
+from ..tasks.dense_visual_embedding import pad_embedding_luts
 from ..utils.device import resolve_device
 
 DEPTH_MEAN, DEPTH_STD = 8000.0, 4000.0       # bench.py NormalizeDepth
@@ -141,21 +142,64 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _unit_rows(rng, n: int, dim: int) -> np.ndarray:
+    m = rng.normal(size=(n, dim)).astype(np.float32)
+    return m / np.linalg.norm(m, axis=1, keepdims=True)
+
+
+def dve_tables(n_classes: int, dim: int, seed: int = 7):
+    """(generator, text table, visual-mean table) of the JAX package's
+    `bench.py --eval` with the dense-visual-embedding task: unit rows of
+    normals, (n_classes, dim) f32 each, drawn in the bench's order from
+    `np.random.default_rng(seed)`; the generator goes on to draw the
+    LUTs (`dve_arrays`)."""
+    rng = np.random.default_rng(seed)
+    text = _unit_rows(rng, n_classes, dim)
+    return rng, text, _unit_rows(rng, n_classes, dim)
+
+
+def dve_arrays(panoptic: np.ndarray, dim: int, rng) -> Dict[str, np.ndarray]:
+    """The bench's synthetic dense-visual-embedding targets of
+    working-resolution panoptic maps (B, H, W): each image's nonzero ids
+    in ascending order are its LUT rows 1..L (unit rows drawn from
+    `rng`, image by image), 'dense_visual_embedding_indices' (B, H, W)
+    int32 each pixel's row (0: void) and 'dense_visual_embedding_lut'
+    (B, L_max+1, dim) f32 the padded LUTs."""
+    luts, indices = [], []
+    for pan in panoptic:
+        ids = np.unique(pan)
+        ids = ids[ids != 0].astype(np.int64)
+        luts.append(_unit_rows(rng, len(ids), dim))
+        indices.append(index_image(pan, ids))
+    return {'dense_visual_embedding_indices': np.stack(indices),
+            'dense_visual_embedding_lut': pad_embedding_luts(luts, dim)}
+
+
 def build_eval_batch(B: int, work_hw: Tuple[int, int],
                      full_hw: Tuple[int, int], n_classes: int,
                      is_thing: Sequence[bool], seed: int = 0,
-                     segment_table_size: int = 128,
-                     device=None) -> EvalBatch:
+                     segment_table_size: int = 128, device=None,
+                     dve_dim: int = None) -> EvalBatch:
     """A synthetic eval batch of B samples on `device` (default
     `cuda`): normalised random RGB-D inputs at `work_hw`, ground truth
     and targets as `eval_arrays` makes them, scene labels in
-    1..10, and the Resize provenance of a full valid region."""
+    1..10, and the Resize provenance of a full valid region. With
+    `dve_dim`, also the bench's dense-visual-embedding targets of that
+    width (`dve_arrays` on the working-resolution panoptic maps, the
+    LUTs drawn after `dve_tables(n_classes, dve_dim)`)."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     samples = [synthetic_ground_truth(rng, full_hw, n_classes, is_thing)
                for _ in range(B)]
     arrays, overflow = eval_arrays(samples, work_hw, is_thing,
                                    segment_table_size)
+    if dve_dim is not None:
+        is_thing_v = (False,) + tuple(bool(t) for t in is_thing)
+        panoptic = np.stack([panoptic_fullres_targets(
+            sem, ins, is_thing_v, {}, segment_table_size).panoptic
+            for sem, ins in zip(arrays['semantic'], arrays['instance'])])
+        arrays.update(dve_arrays(panoptic, dve_dim,
+                                 dve_tables(n_classes, dve_dim)[0]))
     h, w = work_hw
     rgb = rng.integers(0, 256, (B, h, w, 3)).astype(np.float32)
     depth = rng.integers(0, 2 ** 14, (B, h, w, 1)).astype(np.float32)

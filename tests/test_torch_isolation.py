@@ -52,6 +52,8 @@ SWIN_SLICE_MODULES = (
     'nicr_mtsa_tpu_torch.models.decoders.embedding',
     'nicr_mtsa_tpu_torch.ops.cuda.layernorm',
     'nicr_mtsa_tpu_torch.ops.cuda.window_attention',
+    'nicr_mtsa_tpu_torch.postprocessing.dense_visual_embedding',
+    'nicr_mtsa_tpu_torch.tasks.dense_visual_embedding',
 )
 
 
@@ -410,4 +412,24 @@ def test_chip_smoke_training_phases_fail_without_card(phase):
             key='emsanet_train_card_vs_cpu'),
     }
     with pytest.raises(RuntimeError):
+        calls[phase]()
+
+
+@pytest.mark.parametrize('phase', ['eval_swin', 'swin_eval_card_vs_cpu'])
+def test_chip_smoke_swin_eval_phases_fail_without_card(phase):
+    """The Swin eval phases of chip_smoke.py raise on a machine without
+    a card: neither falls back to the CPU."""
+    import argparse
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    try:
+        cs = importlib.import_module('chip_smoke')
+    finally:
+        sys.path.remove(str(ROOT))
+    from nicr_mtsa_tpu_torch.ops import cuda as kernels
+    args = argparse.Namespace(swin_steps=1, profile=False)
+    calls = {'eval_swin': lambda: cs.evaluate_swin(args, kernels, 'no card',
+                                                   {}),
+             'swin_eval_card_vs_cpu': lambda: cs.swin_eval_card_vs_cpu({})}
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[phase]()
