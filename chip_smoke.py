@@ -8,7 +8,9 @@ phases; any failure exits non-zero and prints no result:
 
 1. report the card (nvidia-smi name and power limit), build every CUDA
    kernel from nicr_mtsa_tpu_torch/ops/cuda/csrc (one nvcc per source,
-   in parallel), print the registers, spills and resident blocks an SM
+   in parallel) and the native host-preprocessing library
+   (native/mtsa_preproc.cpp, g++ with native/Makefile's flags; a failed
+   build fails the run), print the registers, spills and resident blocks an SM
    of the window-attention tile kernels (rows 7 and 9's forward tile,
    row 7's bf16 backward, row 8's two bf16 kernels), pin f32 convs and
    matmuls to full precision;
@@ -45,7 +47,14 @@ phases; any failure exits non-zero and prints no result:
    centres interleaved, K = 1 and 254, tied centres; the loc-level one
    at 307200 pixels, no valid centre, a ragged P), ids and min_d2 bit
    for bit, timed (`cuda_ms`, `stream_ms`) with their grids, registers,
-   spills and blocks an SM; check that centre selection and
+   spills and blocks an SM; the calls of the dataset eval path (phase
+   23, 10 classes) in `check_dataset_kernels`: the crop+resize+reduce
+   at (8, 10, 480, 640) bf16 channels-last -> 120 x 160 (a 4x downscale,
+   the generic instance) and on an NCHW f32 copy, the score/argmax
+   reduce at (8, 10, 480, 640) bf16 in both layouts (the strided
+   kernel) with tied classes at 10, the intersection at (8, 19200) slots
+   of 129 x 129 bins, also against torch.bincount, each timed with its
+   plan, registers and blocks an SM; check that centre selection and
    the merge resolve tied inputs on the card exactly as on the CPU;
 3. serve the full-width `emsanet-bench` EMSANet (2x ResNet-34 NBt1D,
    480 x 640, bf16, random weights from a seed) on B=8 uint8/uint16
@@ -196,6 +205,36 @@ phases; any failure exits non-zero and prints no result:
    that GT (nothing resized) and retrieve >= 99 % of the counted pixels
    right against the 512 x 512 GT (its mIoU printed: class borders
    move under the resize).
+
+23. evaluate the repo's dataset fixture as `bench.py --eval --dataset
+   tests/fixtures/mini_dataset` does (the `valid` split cycled to B=8,
+   the bench's eval preprocessing at 480 x 640 on the port's dataset,
+   PNG codec and native library, the EMSANet eval model with the
+   dataset's 10 classes and meta.json's 3 things, bf16): (a) the fused
+   step on one resident batch, states carried, and (b) host-inclusive,
+   DataLoader (2 worker threads) -> prefetch_to_device -> the step; 3
+   timed rounds of N steps each, counters set to 0 just before: exactly
+   DATASET_EVAL_KERNELS' launches a step (1 crop+resize+reduce, 1
+   score/argmax reduce, 2 groupings, 2 intersection histograms, every
+   other wrapper none); the segment tables hold every GT id, every
+   epoch metric (printed as the bench prints them) lies in range, the
+   warm-up step's two slot maps are (8, 19200) pairs of 129 x 129 bins
+   counted as the plain version and torch.bincount count them; the host
+   ms a sample of the file read and of each preprocessing step;
+24. postprocess and update the metric states of the f32 model's raw
+   outputs on the fixture's first two samples on the card and on the
+   CPU: the gates of phase 6;
+25. serve `bench.py --stream`: `emsanet_bench_config()` at B=8 on 4
+   distinct uint8/uint16 host batches through prefetch_to_device(size=
+   2) (pinned staging ring, copy stream), 3 timed rounds of N requests
+   beside phase 3's device-resident frames/s, counters set to 0 just
+   before: exactly 1 finisher and 1 grouping launch a request; with
+   cudnn pinned deterministic, every prefetched request's outputs
+   bit-equal to its frames served through a blocking copy (requests
+   interleaved with the prefetch, and every batch taken first), while
+   a planted staging race (no wait for a slot's event, the copy stream
+   delayed) must break that equality; the copy stream's time for one
+   request's 12.3 MB.
 
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
@@ -1043,6 +1082,133 @@ def check_intersection_eval(it, maps):
             distinct_pairs=int((_bincount(a, b, n_gt, n_pred) > 0).sum()))
     print(json.dumps({'phase': 'intersection_eval_maps', **out}),
           flush=True)
+
+
+def _blocks_from_registers(regs, threads):
+    """Resident blocks an SM that `regs` registers a thread allow at
+    `threads` threads a block (H100: 65536 registers, 2048 threads, 32
+    blocks an SM; no shared memory), where no occupancy entry exists."""
+    if regs is None:
+        return None
+    return int(min(32, 2048 // threads, 65536 // (regs * threads)))
+
+
+def _layout(x):
+    return 'NCHW' if x.is_contiguous() else 'channels-last'
+
+
+def _timed(fn, plain, library=None):
+    return dict(cuda_ms=cuda_ms(fn), stream_ms=stream_ms(fn),
+                plain_ms=cuda_ms(plain),
+                library_ms=None if library is None else cuda_ms(library))
+
+
+def check_dataset_kernels(rr, sr, it, result, build):
+    """The kernel calls of the dataset eval path (phase 23: 10 classes,
+    480 x 640 working and 120 x 160 full resolution) against their plain
+    versions, idx bit for bit and scores within rtol 1e-5, each timed
+    (`cuda_ms`, `stream_ms`) with its plan, registers and blocks an SM:
+    row 5 at (8, 10, 480, 640) bf16 channels-last -> 120 x 160 (a 4x
+    downscale, the generic instance) and on an NCHW f32 copy; row 6 at
+    (8, 10, 480, 640) bf16 channels-last and NCHW (both strided: 10
+    bf16 classes are 20 bytes), tied classes at 10 in both layouts; row
+    11 at (8, 19200) slots of 129 x 129 bins, also against
+    torch.bincount. Each bound counts every input byte the function
+    needs once: row 5's only the rows and columns its two taps touch
+    (`bound_plan_ms`: the whole input, which its plan reads)."""
+    from nicr_mtsa_tpu_torch.models.upsampling import two_tap_params
+    dev = torch.cuda.current_device()
+    g = torch.Generator(device='cuda').manual_seed(23)
+    x = (torch.randn(8, 10, 480, 640, device='cuda', generator=g) * 3).to(
+        torch.bfloat16)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    full, OH, OW = (slice(0, 480), slice(0, 640)), 120, 160
+    P_out, P_in = 8 * OH * OW, 8 * 480 * 640
+    out = {}
+    touched_rows = len(np.unique(np.concatenate(two_tap_params(480, OH)[:2])))
+    touched_cols = len(np.unique(np.concatenate(two_tap_params(640, OW)[:2])))
+    for name, xx in (('resize_reduce_4x_down', x_cl),
+                     ('resize_reduce_4x_down_nchw_f32', x.float())):
+        err = _same(name, rr.crop_resize_argmax_score(xx, full, OH, OW),
+                    rr.crop_resize_argmax_score_reference(xx, full, OH, OW))
+        elt = xx.element_size()
+        plan = rr._plan(8, 10, 480, OH, 640, OW, xx.dtype, dev)
+        piece = ('resize_reduce_kernelI13__nv_bfloat16Li0E'
+                 if xx.dtype == torch.bfloat16 else
+                 'resize_reduce_kernelIfLi0E')
+        regs, st, ld = _ptxas_of(build, 'resize_reduce', piece)
+        _, occ = rr._fn(xx.dtype)
+        ops = _reduce_ops(P_out * 10, P_out, 9)
+        # the function reads only the rows and columns its taps touch
+        b_ms, b_by = bound(
+            8 * touched_rows * touched_cols * 10 * elt + P_out * 8, ops)
+        out[name] = dict(
+            call=f'(8, 10, 480, 640) {xx.dtype} {_layout(xx)} -> {OH} x '
+                 f'{OW}',
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            # the plan issues every crop row and column into its ring
+            bound_plan_ms=bound(xx.numel() * elt + P_out * 8, ops)[0],
+            **_timed(lambda: rr.crop_resize_argmax_score(xx, full, OH, OW),
+                     lambda: rr.crop_resize_argmax_score_reference(
+                         xx, full, OH, OW)),
+            resources=dict(plan=plan._asdict(), registers=regs,
+                           spill_store_bytes=st, spill_load_bytes=ld,
+                           blocks_per_sm=occ(10, plan.smem)))
+    tied = torch.zeros(2, 10, 48, 64, device='cuda', dtype=torch.bfloat16)
+    tied[:, 2] = 1.5
+    tied[:, 5] = 1.5
+    for xt in (tied, tied.contiguous(memory_format=torch.channels_last)):
+        i_k, _ = sr.semantic_argmax_score(xt)
+        torch.cuda.synchronize()
+        if not bool((i_k == 2).all()):
+            fail('semantic_reduce: tied classes at 10 classes did not '
+                 'resolve to the first index')
+    regs, st, ld = _ptxas_of(build, 'semantic_reduce',
+                             'strided_kernelI13__nv_bfloat16Li0E')
+    for name, xx in (('semantic_reduce_10', x_cl),
+                     ('semantic_reduce_10_nchw', x)):
+        err = _same(name, sr.semantic_argmax_score(xx),
+                    sr.semantic_argmax_score_reference(xx))
+        plan = sr.plan_of(xx)
+        if plan.path != 'strided':
+            fail(f'{name}: took the {plan.path} kernel, expected strided')
+        b_ms, b_by = bound(xx.numel() * 2 + P_in * 8,
+                           _reduce_ops(xx.numel(), P_in, 0))
+        out[name] = dict(
+            call=f'(8, 10, 480, 640) bf16 {_layout(xx)}',
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            **_timed(lambda: sr.semantic_argmax_score(xx),
+                     lambda: sr.semantic_argmax_score_reference(xx)),
+            device_launches=device_launches(
+                lambda: sr.semantic_argmax_score(xx)),
+            resources=dict(plan=plan._asdict(), registers=regs,
+                           spill_store_bytes=st, spill_load_bytes=ld,
+                           blocks_per_sm_from_registers=(
+                               _blocks_from_registers(
+                                   regs, sr.STRIDED_THREADS))))
+    gt = torch.randint(0, 129, (8, OH * OW), device='cuda', generator=g,
+                       dtype=torch.int32)
+    pred = torch.randint(0, 129, (8, OH * OW), device='cuda', generator=g,
+                         dtype=torch.int32)
+    plan = _same_counts(it, 'dataset call', gt, pred, 128, 128)
+    regs, st, ld = _ptxas_of(build, 'intersection', 'intersection_kernel')
+    b_ms, b_by = bound(2 * gt.numel() * 4 + 8 * 129 * 129 * 4,
+                       2 * gt.numel())
+    out['intersection_19200'] = dict(
+        call='(8, 19200) int32 slot maps, 129 x 129 bins', max_abs_err=0.0,
+        bound_ms=b_ms, bound_by=b_by,
+        **_timed(lambda: it.intersection_matrix_kernel(gt, pred, 128, 128),
+                 lambda: it.intersection_matrix_reference(gt, pred, 128,
+                                                          128),
+                 lambda: _bincount(gt, pred, 128, 128)),
+        device_launches=device_launches(
+            lambda: it.intersection_matrix_kernel(gt, pred, 128, 128)),
+        resources=dict(plan=plan, registers=regs, spill_store_bytes=st,
+                       spill_load_bytes=ld))
+    result['dataset_kernels'] = out
+    for name, row in out.items():
+        print(json.dumps({'phase': 'kernel_dataset', 'name': name, **row}),
+              flush=True)
 
 
 def check_ties():
@@ -2690,16 +2856,430 @@ def _dve_controls(pipe, batch):
     return out
 
 
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
+                       'fixtures', 'mini_dataset')
+# launches of each kernel in one fused eval step of `bench.py --eval
+# --dataset` on the fixture (phase 23): the full-resolution semantic
+# crop+resize+reduce, the working-resolution score/argmax reduce, the
+# grouping and the intersection histogram for each of the instance and
+# the panoptic helper; every other wrapper none
+DATASET_EVAL_KERNELS = {'resize_reduce': 1, 'semantic_reduce': 1,
+                        'grouping': 2, 'intersection': 2}
+# launches of each kernel in one request of `bench.py --stream` (phase 25)
+STREAM_KERNELS = {'finisher4x': 1, 'grouping': 1}
+# the planted staging race of phase 25: a spin of this many cycles (~20
+# ms) on the copy stream before each batch's copies, and no wait for a
+# slot's event before its refill
+RACE_SLEEP_CYCLES = 40_000_000
+
+
+def _dataset_compose(is_thing_v, H=480, W=640, table=128):
+    """The eval preprocessing of `bench.py --eval` (bench.py:213-232)."""
+    from nicr_mtsa_tpu_torch.data import preprocessing as p
+    return p.Compose([
+        p.InstanceClearStuffIDs(semantic_classes_is_thing=is_thing_v),
+        p.FullResCloner(('rgb', 'depth', 'semantic', 'instance')),
+        p.Resize(height=H, width=W),
+        p.MultiscaleSupervisionGenerator(
+            downscales=(4, 8, 16, 32),
+            keys=('semantic', 'instance', 'orientations')),
+        p.InstanceTargetGenerator(
+            sigma=8, semantic_classes_is_thing=is_thing_v,
+            sigma_for_additional_downscales={4: 2, 8: 2, 16: 1, 32: 1}),
+        p.OrientationTargetGenerator(
+            semantic_classes_estimate_orientation=is_thing_v),
+        p.PanopticTargetGenerator(semantic_classes_is_thing=is_thing_v,
+                                  segment_table_size=table),
+        p.NormalizeRGB(),
+        p.NormalizeDepth(depth_mean=8000.0, depth_std=4000.0,
+                         raw_depth=True),
+        p.ToDeviceArrays(),
+    ])
+
+
+class _Cycled:
+    """`n` samples of a split, cycled (`bench.py:241-243`)."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.ds[i % len(self.ds)]
+
+
+def _fixture(split='valid'):
+    """The fixture's split with the bench's eval preprocessing attached,
+    and its thing classes (meta.json, without void)."""
+    from nicr_mtsa_tpu_torch.data import get_dataset
+    ds = get_dataset(FIXTURE, split=split)
+    is_thing = ds.config.semantic_label_list_without_void.classes_is_thing
+    ds.preprocessor = _dataset_compose((False,) + is_thing)
+    return ds, is_thing
+
+
+def _compose_step_ms(ds):
+    """Host ms a sample of the file read and of each Compose step, over
+    the split (the native library does the resizes and the RGB
+    normalisation)."""
+    compose, ds.preprocessor = ds.preprocessor, None
+    ms = {'read': 0.0}
+    try:
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            sample = ds[i]
+            ms['read'] += time.perf_counter() - t0
+            for t in compose.transforms:
+                t0 = time.perf_counter()
+                sample = t(sample)
+                name = type(t).__name__
+                ms[name] = ms.get(name, 0.0) + time.perf_counter() - t0
+    finally:
+        ds.preprocessor = compose
+    return {k: v * 1e3 / len(ds) for k, v in ms.items()}
+
+
+def _metrics_in_range(logs, key):
+    for k, v in logs.items():
+        if k.endswith('num_categories'):
+            continue
+        if '_mae_' in k:
+            top = 180.0 if k.endswith('deg') else np.pi
+            if not (np.isnan(v) or 0.0 <= v <= top):
+                fail(f'{key}: {k} = {v} out of range')
+        elif not (np.isfinite(v) and 0.0 <= v <= 1.0):
+            fail(f'{key}: metric {k} = {v} not in [0, 1]')
+
+
+def _check_launches(kernels, want, n, key):
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    for k, c in launches.items():
+        if c != want.get(k, 0) * n:
+            fail(f'{key}: kernel {k}: {c} launches in {n} steps, expected '
+                 f'{want.get(k, 0)} a step')
+    return launches
+
+
+def _same_batch(a, b, where):
+    """a and b hold the same containers of the same types, tensors of
+    one dtype, shape and value, and the same objects where the batch
+    passes one through."""
+    if type(a) is not type(b):
+        fail(f'{where}: {type(a).__name__} against {type(b).__name__}')
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or not torch.equal(a, b):
+            fail(f'{where}: {a.dtype} {tuple(a.shape)} against {b.dtype} '
+                 f'{tuple(b.shape)}, or the values differ')
+    elif isinstance(a, dict):
+        if list(a) != list(b):
+            fail(f'{where}: keys {list(a)} against {list(b)}')
+        for k in a:
+            _same_batch(a[k], b[k], f'{where}[{k!r}]')
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            fail(f'{where}: {len(a)} items against {len(b)}')
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_batch(x, y, f'{where}[{i}]')
+    elif a is not b:
+        fail(f'{where}: a passed-through entry was replaced')
+
+
+def evaluate_dataset(args, kernels, card, result):
+    """`bench.py --eval --dataset tests/fixtures/mini_dataset` (phase 23):
+    the full-width EMSANet of the eval step with the dataset's 10
+    classes (meta.json's things) at B=8, bf16, on the `valid` split
+    through the bench's eval preprocessing, cycled. (a) the fused step
+    on one resident batch with the states carried, (b) host-inclusive:
+    DataLoader (2 workers) -> prefetch_to_device -> the step; each 3
+    timed rounds of N steps, the counters set to 0 just before, exactly
+    DATASET_EVAL_KERNELS' launches a step (others none). The segment
+    tables must hold every GT id, every epoch metric lie in range, the
+    host path's states equal the resident ones' (scaled), and one batch
+    through the prefetcher equal the blocking copy leaf by leaf; the
+    slot maps the warm-up step passed row 11 are checked as phase 5's."""
+    from nicr_mtsa_tpu_torch.data import (DataLoader, move_batch_to_device,
+                                          mt_collate, prefetch_to_device)
+    from nicr_mtsa_tpu_torch.data.preprocessing import (
+        APPLIED_PREPROCESSING_KEY, segment_table_overflow)
+    from nicr_mtsa_tpu_torch.ops.cuda import intersection as it
+    from nicr_mtsa_tpu_torch.pipeline import (build_eval_pipeline,
+                                              emsanet_bench_config,
+                                              strip_non_arrays)
+    B = 8
+    ds, is_thing = _fixture()
+    pipe = build_eval_pipeline(
+        emsanet_bench_config(defer=False, n_classes=len(is_thing)),
+        device='cuda', seed=0, is_thing=is_thing)
+    step_ms = _compose_step_ms(ds)
+    host = mt_collate([_Cycled(ds, B)[i] for i in range(B)])
+    overflow = segment_table_overflow(host)
+    if overflow:
+        fail(f'eval_dataset: {overflow} GT ids did not fit into the '
+             f'segment tables')
+    static = {APPLIED_PREPROCESSING_KEY: host[APPLIED_PREPROCESSING_KEY]}
+    batch = strip_non_arrays(move_batch_to_device(host))
+    step = pipe.make_fused_eval_step(static)
+    torch.cuda.reset_peak_memory_stats()
+    with _captured_slot_maps() as maps:
+        _, losses, states = step(batch, pipe.empty_metric_states())
+    torch.cuda.synchronize()
+    got = [(tuple(a.shape), n_gt, n_pred) for a, _, n_gt, n_pred in maps]
+    if got != [((B, 120 * 160), 128, 128)] * 2:
+        fail(f'eval_dataset: the step passed row 11 {got}, expected two '
+             f'(8, 19200) map pairs of 129 x 129 bins')
+    for i, (a, b, n_gt, n_pred) in enumerate(maps):
+        _same_counts(it, f'eval_dataset map {i}', a, b, n_gt, n_pred)
+    del maps
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    resident = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            _, losses, states = step(batch, states)
+        int(states['semantic'][0, 0])
+        resident.append(B * args.steps / (time.perf_counter() - t0))
+    n_steps = 3 * args.steps
+    launches = _check_launches(kernels, DATASET_EVAL_KERNELS, n_steps,
+                               'eval_dataset')
+    bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
+    if bad:
+        fail(f'eval_dataset: losses not finite: {bad}')
+
+    def host_path(n_batches, states_h):
+        loader = DataLoader(_Cycled(ds, B * n_batches), batch_size=B,
+                            num_workers=2, to_device=False)
+        for hb in prefetch_to_device(loader, size=2):
+            _, _, states_h = step(strip_non_arrays(hb), states_h)
+        return states_h
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    hosted, states_h = [], pipe.empty_metric_states()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        states_h = host_path(args.steps, states_h)
+        int(states_h['semantic'][0, 0])
+        hosted.append(B * args.steps / (time.perf_counter() - t0))
+    _check_launches(kernels, DATASET_EVAL_KERNELS, n_steps,
+                    'eval_dataset host path')
+    # every batch holds the same 8 samples: the host path's states are
+    # the resident ones' scaled by the steps taken (1 + 3N against 3N)
+    if not torch.equal(states_h['semantic'] * (1 + n_steps),
+                       states['semantic'] * n_steps):
+        fail('eval_dataset: host-path states differ from the resident ones')
+    # one dict batch through the pinned staging ring, leaf by leaf
+    # against the blocking copy (the NCHW transpose, the int32 casts, the
+    # `_down_<k>` dicts)
+    (staged,) = prefetch_to_device([host], size=1)
+    _same_batch(staged, move_batch_to_device(host), 'eval_dataset prefetch')
+    del staged
+
+    pipe.load_metric_states(states)
+    _, _, logs = pipe.validation_epoch_end()
+    logs = {k: float(v) for k, v in logs.items()}
+    _metrics_in_range(logs, 'eval_dataset')
+    for k, v in sorted(logs.items()):
+        print(f'# {k}: {v:.4f}', file=sys.stderr, flush=True)
+    result['eval_dataset'] = dict(
+        batch=B, steps_per_round=args.steps, card=card,
+        resident_rounds_frames_per_s=resident,
+        resident_frames_per_s=float(np.median(resident)),
+        host_rounds_frames_per_s=hosted,
+        host_frames_per_s=float(np.median(hosted)),
+        host_ms_a_sample=step_ms, segment_table_overflow=overflow,
+        host_path_semantic_states_equal=True, prefetched_batch_equal=True,
+        launches_per_step={n: c / n_steps for n, c in launches.items()},
+        metrics=logs, losses={k: float(v) for k, v in losses.items()},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps({'phase': 'eval_dataset', **{
+        k: v for k, v in result['eval_dataset'].items()
+        if k not in ('metrics', 'losses')}}), flush=True)
+    if args.profile:
+        profile(lambda: step(batch, states), result, 'eval_dataset')
+        profile(lambda: host_path(1, pipe.empty_metric_states()), result,
+                'eval_dataset_host')
+    return launches
+
+
+def _tree_to_cpu(t):
+    if isinstance(t, dict):
+        return {k: _tree_to_cpu(v) for k, v in t.items()}
+    return _to_cpu(t)
+
+
+def eval_dataset_card_vs_cpu(result):
+    """Phase 24: the fixture's first two `valid` samples through the
+    bench's eval preprocessing (B=2), the f32 model of phase 23's
+    weights on the card; its raw outputs postprocessed with the metric
+    states updated on the card and, copied, on the CPU: phase 6's
+    gates."""
+    from nicr_mtsa_tpu_torch.data import move_batch_to_device, mt_collate
+    from nicr_mtsa_tpu_torch.data.preprocessing import (
+        APPLIED_PREPROCESSING_KEY)
+    from nicr_mtsa_tpu_torch.pipeline import (build_eval_pipeline,
+                                              emsanet_bench_config,
+                                              strip_non_arrays)
+    ds, is_thing = _fixture()
+    pipe = build_eval_pipeline(
+        emsanet_bench_config(dtype='float32', defer=False,
+                             n_classes=len(is_thing)),
+        device='cuda', seed=0, is_thing=is_thing)
+    host = mt_collate([ds[0], ds[1]])
+    batch = dict(strip_non_arrays(move_batch_to_device(host)),
+                 **{APPLIED_PREPROCESSING_KEY:
+                    host[APPLIED_PREPROCESSING_KEY]})
+    with torch.inference_mode():
+        raw = pipe.model(pipe.model_inputs(batch))
+        _, _, on_card = pipe.evaluate_outputs(raw, batch,
+                                              pipe.empty_metric_states())
+        _, _, on_cpu = pipe.evaluate_outputs(
+            _tree_to_cpu(raw), _tree_to_cpu(batch),
+            pipe.empty_metric_states('cpu'))
+    _states_equal(on_card, on_cpu)
+    counts = {'semantic_pixels': int(on_cpu['semantic'].sum()),
+              'panoptic_fn': float(on_cpu['panoptic']['pq'][
+                  'fn_per_class'].sum()),
+              'panoptic_tp': float(on_cpu['panoptic']['pq'][
+                  'tp_per_class'].sum())}
+    result['eval_dataset_card_vs_cpu'] = dict(states='equal', **counts)
+    print(json.dumps({'phase': 'eval_dataset_card_vs_cpu',
+                      'states': 'equal', **counts}), flush=True)
+
+
+def _outputs_equal(a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in b)
+
+
+def _stream_requests(pipe, host_batches, n, collect_first=False):
+    """n requests of `host_batches` (cycled) through prefetch_to_device
+    (size 2): each request's outputs, cloned. `collect_first` takes every
+    batch from the prefetcher before serving any (the host runs ahead of
+    the card: no request syncs it)."""
+    from nicr_mtsa_tpu_torch.data import prefetch_to_device
+    gen = (host_batches[i % len(host_batches)] for i in range(n))
+    batches = prefetch_to_device(gen, size=2)
+    if collect_first:
+        batches = list(batches)
+    return [{k: v.clone() for k, v in pipe(rgb, depth).items()}
+            for rgb, depth in batches]
+
+
+def serve_stream(args, kernels, card, result):
+    """`bench.py --stream` (phase 25): `emsanet_bench_config()` serving
+    at B=8 on 4 pre-drawn distinct uint8/uint16 host batches at 480 x
+    640 through prefetch_to_device(size=2), 3 timed rounds of N
+    requests, counters set to 0 just before: exactly STREAM_KERNELS'
+    launches a request (others none). With cudnn pinned deterministic,
+    every prefetched request's outputs must be bit-equal to its frames
+    served through a blocking `.to('cuda')`, interleaved and with every
+    batch taken before the first request; a planted staging race (no
+    wait for a slot's event, the copy stream delayed) must break that."""
+    from nicr_mtsa_tpu_torch.data import feeder
+    from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
+    B = 8
+    pipe = build_serving_pipeline(device='cuda', seed=0)
+    host_batches = [frames(B, seed=s) for s in range(4)]
+    h2d_bytes = sum(a.nbytes for a in host_batches[0])
+    pipe(*(torch.from_numpy(a).cuda() for a in host_batches[0]))
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = _stream_requests(pipe, host_batches, args.requests)[-1]
+        int(out['panoptic'][0, 0, 0])
+        rounds.append(B * args.requests / (time.perf_counter() - t0))
+    n = 3 * args.requests
+    launches = _check_launches(kernels, STREAM_KERNELS, n, 'serve_stream')
+    check_outputs(out, B, 480, 640, 40)
+
+    # the copy stream's time for one request's frames (pinned -> card)
+    pinned = [torch.from_numpy(a).pin_memory() for a in host_batches[0]]
+    copy_stream = torch.cuda.Stream()
+
+    def copy():
+        with torch.cuda.stream(copy_stream):
+            for p in pinned:
+                p.to('cuda', non_blocking=True)
+    copies = []
+    for _ in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(copy_stream)
+        copy()
+        b.record(copy_stream)
+        b.synchronize()
+        copies.append(a.elapsed_time(b))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = [{k: v.clone() for k, v in pipe(*(
+            torch.from_numpy(a).to('cuda') for a in hb)).items()}
+            for hb in host_batches]
+        checked = {}
+        for name, collect in (('interleaved', False), ('collected', True)):
+            got = _stream_requests(pipe, host_batches, 8, collect)
+            bad = [i for i, o in enumerate(got)
+                   if not _outputs_equal(o, want[i % 4])]
+            if bad:
+                fail(f'serve_stream: prefetched requests {bad} ({name}) '
+                     f'differ from the blocking copies')
+            checked[name] = len(got)
+        waits = feeder._Feeder._acquire
+
+        def racing_acquire(self, slot):
+            with torch.cuda.stream(self.copy_stream):
+                torch.cuda._sleep(RACE_SLEEP_CYCLES)
+        feeder._Feeder._acquire = racing_acquire
+        try:
+            got = _stream_requests(pipe, host_batches, 8, True)
+        finally:
+            feeder._Feeder._acquire = waits
+        caught = [i for i, o in enumerate(got)
+                  if not _outputs_equal(o, want[i % 4])]
+        if not caught:
+            fail('serve_stream: the planted staging race went unnoticed')
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    fps = float(np.median(rounds))
+    resident = result['serving']['frames_per_s']
+    result['serve_stream'] = dict(
+        batch=B, requests_per_round=args.requests, rounds_frames_per_s=rounds,
+        frames_per_s=fps, device_resident_frames_per_s=resident,
+        h2d_bytes_a_request=h2d_bytes,
+        copy_ms_a_request=float(np.median(copies)),
+        launches_per_request={k: c / n for k, c in launches.items()},
+        bit_equal_requests=checked, planted_race_caught=caught, card=card)
+    print(json.dumps({'phase': 'serve_stream', **result['serve_stream']}),
+          flush=True)
+    if args.profile:
+        profile(lambda: _stream_requests(pipe, host_batches[:1], 1), result,
+                'serve_stream')
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=10,
                     help='EMSANet requests per timed round (3 rounds), '
-                         'for each of its two serving variants')
+                         'for each of its two serving variants and the '
+                         'stream of host frames')
     ap.add_argument('--swin-requests', type=int, default=5,
                     help='Swin requests per timed round (3 rounds), for '
                          'each of its two serving variants')
     ap.add_argument('--steps', type=int, default=5,
-                    help='eval steps per timed round (3 rounds)')
+                    help='eval steps per timed round (3 rounds), for '
+                         'the synthetic and the dataset batch, and '
+                         'batches per round of the dataset host path')
     ap.add_argument('--swin-steps', type=int, default=3,
                     help='Swin eval steps per timed round (3 rounds)')
     ap.add_argument('--train-steps', type=int, default=3,
@@ -2708,7 +3288,8 @@ def main():
     ap.add_argument('--profile', action='store_true',
                     help='also trace 3 requests of each serving path, '
                          '3 eval steps and 3 training steps of each '
-                         'family with torch.profiler')
+                         'family, 3 dataset batches through the host path '
+                         'and 3 streamed requests with torch.profiler')
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2730,12 +3311,23 @@ def main():
                                               emsanet_train_config)
     build_s = kernels.build_all()
     print(json.dumps({'phase': 'build', 'seconds': build_s}), flush=True)
+    from nicr_mtsa_tpu_torch import native
+    t0 = time.perf_counter()
+    try:
+        native_lib = str(native.build())
+        native.load()
+    except RuntimeError as e:
+        fail(f'the native preprocessing library did not build: {e}')
+    native_s = time.perf_counter() - t0
+    print(json.dumps({'phase': 'build_native', 'seconds': native_s,
+                      'library': os.path.basename(native_lib)}), flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     report = {}
     result = {'card': card, 'torch': torch.__version__,
               'cuda': torch.version.cuda, 'build_s': build_s,
+              'build_native_s': native_s,
               'ptxas': dict(_build.BUILD_LOGS)}
     kernel_resources(_build, result)
     check_finisher(finisher4x, report, _build)
@@ -2744,6 +3336,11 @@ def main():
     check_resize_reduce(resize_reduce, report, _build)
     result['resize_reduce_f32'] = report['resize_reduce_f32']
     check_intersection(intersection, report, _build)
+    data_s = {'build_native': native_s}
+    t0 = time.perf_counter()
+    check_dataset_kernels(resize_reduce, semantic_reduce, intersection,
+                          result, _build)
+    data_s['kernel_dataset'] = time.perf_counter() - t0
     check_ties()
     launches = serve(args, kernels, card, result)
     card_vs_cpu(result, emsanet_bench_config(dtype='float32'),
@@ -2787,6 +3384,20 @@ def main():
                       f32_cfg=emsanet_train_config(TRAIN_CPU_HW, 'float32'))
     evaluate_swin(args, kernels, card, result)
     swin_eval_card_vs_cpu(result)
+    t0 = time.perf_counter()
+    path_launches = {
+        'eval_dataset': evaluate_dataset(args, kernels, card, result)}
+    data_s['eval_dataset'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eval_dataset_card_vs_cpu(result)
+    data_s['eval_dataset_card_vs_cpu'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches['serve_stream'] = serve_stream(args, kernels, card, result)
+    data_s['serve_stream'] = time.perf_counter() - t0
+    # the seconds the host data path's phases add to the script
+    result['data_path_seconds'] = dict(data_s, total=sum(data_s.values()))
+    print(json.dumps({'phase': 'data_path_seconds',
+                      **result['data_path_seconds']}), flush=True)
 
     # each kernel's launches from the run of its own path (the grouping
     # from the EMSANet serving run)
@@ -2803,8 +3414,9 @@ def main():
     if sorted(names) != sorted(kernels.KERNELS):
         fail(f'the kernels line lists {sorted(names)}, the port has '
              f'{sorted(kernels.KERNELS)}')
-    line = {'kernels': [dict(report[n], launches=launches[n])
-                        for n in names]}
+    # and the launches each kernel made in the runs of the data paths
+    line = {'kernels': [dict(report[n], launches=launches[n], paths={
+        p: c[n] for p, c in path_launches.items()}) for n in names]}
     result['kernels'] = line['kernels']
     result['seconds'] = time.perf_counter() - t_start
     os.makedirs('chiprun_out', exist_ok=True)

@@ -2,7 +2,11 @@
 1), the metric-inclusive fused eval step (slice 2), EMSAFormer
 (SwinV2-T-128 RGB-D) serving (slice 3), its training step (slice 4),
 and the two opt-in serving variants, EMSANet with the single 2x
-finisher and EMSAFormer with attention over the packed qkv (slice 5).
+finisher and EMSAFormer with attention over the packed qkv (slice 5),
+EMSANet training (slice 13), the EMSAFormer/DVE eval step (slice 14)
+and the host data path (slice 15: `data/`, `native.py`): the
+directory dataset, the eval preprocessing on the native host library,
+the loader and the pinned prefetcher that feeds the card.
 
 The JAX package `nicr_mtsa_tpu` stays the reference; this package is
 held against it on the same weights and inputs (tests/test_torch_*.py).

@@ -1,12 +1,14 @@
-"""Full-resolution keys and the Resize provenance of a batch (own copy
-of the readers in nicr_mtsa_tpu/data/preprocessing/resize.py:29-71).
+"""Full-resolution keys and the Resize provenance of samples and
+batches (own copy of the readers in
+nicr_mtsa_tpu/data/preprocessing/resize.py:29-71).
 
 The eval path compares predictions with ground truth at the original
 resolution: `<key>_fullres` entries hold it, and the provenance meta
 `_applied_preprocessing` records the valid region that the Resize
 step kept, which postprocessing crops before resizing to full
-resolution. The port's batches are batched tensors: maps are
-(B, H, W) and dense images (B, C, H, W)."""
+resolution. Host samples and batches hold numpy arrays, channels last
+((H, W), (H, W, C), (B, H, W), (B, H, W, C)); the port's device
+batches hold tensors: maps (B, H, W) and dense images (B, C, H, W)."""
 from typing import Any, Tuple
 
 import numpy as np
@@ -27,8 +29,16 @@ def get_fullres_shape(batch: dict, key: str) -> Tuple[int, int]:
     """(H, W) of the full-resolution `key` (else of rgb or depth)."""
     for k in (key, 'rgb', 'depth'):
         t = get_fullres(batch, k)
-        if t is not None:
+        if t is None:
+            continue
+        if not isinstance(t, np.ndarray):
             return tuple(t.shape[1:3] if t.ndim == 3 else t.shape[2:4])
+        if t.ndim == 2:
+            return tuple(t.shape)
+        if t.ndim == 3:
+            # HWC or NHW: channels are few (<= 4)
+            return tuple(t.shape[:2] if t.shape[-1] <= 4 else t.shape[1:3])
+        return tuple(t.shape[1:3])
     raise ValueError(f'Unable to get fullres shape for `{key}`.')
 
 

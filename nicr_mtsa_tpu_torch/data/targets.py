@@ -1,7 +1,7 @@
-"""Host-side (numpy) target generation of the eval batch: own copies of
-the JAX package's generators, so that the port needs no JAX to build
-an eval batch. Counterparts, at the main scale only (the eval forward
-pass has no side outputs):
+"""Host-side (numpy) target generation: own copies of the JAX package's
+generators, the arithmetic behind the preprocessing steps of
+data/preprocessing/ and the synthetic eval batch of testing/batch.py.
+Counterparts:
 
 - `instance_targets`: data/preprocessing/instance.py
   `InstanceTargetGenerator` (Gaussian centre heatmap, offsets to the
@@ -17,7 +17,7 @@ pass has no side outputs):
 - `index_image`: data/preprocessing/dense_visual_embedding.py
   `_index_image` (the dense-visual-embedding target's index map)."""
 from collections import Counter
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -32,27 +32,40 @@ def _gaussian_patch(sigma: int) -> np.ndarray:
     return np.exp((dy * dy + dx * dx) / (-2.0 * sigma * sigma))
 
 
-def instance_targets(instance: np.ndarray, semantic: np.ndarray,
+class InstanceTargets(NamedTuple):
+    arrays: Dict[str, np.ndarray]  # the four target images
+    encoded: List[int]             # instance ids with targets
+    skipped: List[int]             # instance ids skipped as stuff
+
+
+def instance_targets(instance: np.ndarray, semantic: Optional[np.ndarray],
                      is_thing_with_void, sigma: int = 8,
-                     normalized_offset: bool = True) -> dict:
+                     normalized_offset: bool = True) -> InstanceTargets:
     """{'instance_center' (H, W) f32, 'instance_offset' (H, W, 2),
     'instance_foreground', 'instance_center_mask' (H, W) bool} of one
-    sample; instances whose majority class is stuff are skipped."""
-    is_thing = np.asarray(is_thing_with_void, dtype=bool)
-    thing_ids = np.flatnonzero(is_thing)
-    stuff_ids = np.flatnonzero(~is_thing)[1:]          # without void
+    sample; instances whose majority class is stuff are skipped. With
+    `is_thing_with_void` None every instance is a thing and the centre
+    mask is the foreground."""
     height, width = instance.shape
     ids, inverse = np.unique(instance, return_inverse=True)
     inverse = inverse.reshape(height, width)
     n_seg = len(ids)
     counts = np.bincount(inverse.ravel(), minlength=n_seg)
 
-    sem = np.asarray(semantic)
-    n_classes = int(sem.max()) + 1
-    hist = np.bincount(
-        inverse.ravel() * n_classes + sem.ravel().astype(np.int64),
-        minlength=n_seg * n_classes).reshape(n_seg, n_classes)
-    is_instance_seg = (ids != 0) & np.isin(hist.argmax(axis=1), thing_ids)
+    stuff_ids = None
+    is_thing_seg = np.ones(n_seg, dtype=bool)
+    if is_thing_with_void is not None:
+        is_thing = np.asarray(is_thing_with_void, dtype=bool)
+        stuff_ids = np.flatnonzero(~is_thing)[1:]          # without void
+        if semantic is not None:
+            sem = np.asarray(semantic)
+            n_classes = int(sem.max()) + 1
+            hist = np.bincount(
+                inverse.ravel() * n_classes + sem.ravel().astype(np.int64),
+                minlength=n_seg * n_classes).reshape(n_seg, n_classes)
+            is_thing_seg = np.isin(hist.argmax(axis=1),
+                                   np.flatnonzero(is_thing))
+    is_instance_seg = (ids != 0) & is_thing_seg
 
     # centre = int(mean(y)), int(mean(x)) per segment
     yy, xx = np.meshgrid(np.arange(height), np.arange(width),
@@ -85,23 +98,34 @@ def instance_targets(instance: np.ndarray, semantic: np.ndarray,
         offset = offset.astype('float32')
         offset[..., 0] /= height
         offset[..., 1] /= width
-    return {'instance_center': center, 'instance_offset': offset,
-            'instance_foreground': foreground,
-            'instance_center_mask': foreground | np.isin(semantic,
-                                                         stuff_ids)}
+    center_mask = foreground.copy()
+    if stuff_ids is not None and semantic is not None:
+        center_mask |= np.isin(semantic, stuff_ids)
+    arrays = {'instance_center': center, 'instance_offset': offset,
+              'instance_foreground': foreground,
+              'instance_center_mask': center_mask}
+    return InstanceTargets(
+        arrays, [int(i) for i in ids[(ids != 0) & is_thing_seg]],
+        [int(i) for i in ids[(ids != 0) & ~is_thing_seg]])
+
+
+class OrientationTargets(NamedTuple):
+    arrays: Dict[str, np.ndarray]  # 'orientation', 'orientation_foreground'
+    present: Dict[int, float]      # the encoded instances' orientations
 
 
 def orientation_targets(instance: np.ndarray, semantic: np.ndarray,
                         orientations: Dict[int, float],
-                        estimate_orientation_with_void) -> dict:
+                        estimate_orientation_with_void) -> OrientationTargets:
     """{'orientation' (H, W, 2) f32 (cos, sin), 'orientation_foreground'
     (H, W) bool} of one sample: annotated instances whose majority
-    class estimates an orientation."""
+    class estimates an orientation (any class where
+    `estimate_orientation_with_void` is None)."""
     ids, inverse = np.unique(instance, return_inverse=True)
     slot_img = inverse.reshape(instance.shape)
     eligible = np.array([bool(i) and i in orientations for i in ids],
                         dtype=bool)
-    if eligible.any():
+    if estimate_orientation_with_void is not None and eligible.any():
         n_classes = int(semantic.max()) + 1 if semantic.size else 1
         joint = np.bincount(
             slot_img.ravel().astype(np.int64) * n_classes
@@ -114,8 +138,10 @@ def orientation_targets(instance: np.ndarray, semantic: np.ndarray,
     lut = np.stack([np.cos(angles), np.sin(angles)],
                    axis=-1).astype(np.float32)
     lut[~eligible] = 0.0
-    return {'orientation': lut[slot_img],
-            'orientation_foreground': eligible[slot_img]}
+    return OrientationTargets(
+        {'orientation': lut[slot_img],
+         'orientation_foreground': eligible[slot_img]},
+        {i: orientations[i] for i, keep in zip(ids, eligible) if keep})
 
 
 def naive_merge_semantic_and_instance_np(sem_seg, ins_seg,
@@ -127,7 +153,8 @@ def naive_merge_semantic_and_instance_np(sem_seg, ins_seg,
     pan_seg = np.zeros_like(sem_seg, dtype=np.uint32) + void_label
     tracker: Counter = Counter()
     id_dict: Dict[int, int] = {}
-    thing_id_set = set(int(t) for t in thing_ids)
+    thing_id_set = (set(int(t) for t in thing_ids)
+                    if thing_ids is not None else set())
     for ins_id in np.unique(ins_seg):
         if ins_id == 0:
             continue
@@ -158,26 +185,47 @@ class PanopticTargets(NamedTuple):
     overflow: int                  # ids the table could not hold
 
 
-def panoptic_fullres_targets(semantic: np.ndarray, instance: np.ndarray,
-                             is_thing_with_void,
-                             orientations: Dict[int, float],
-                             table_size: int) -> PanopticTargets:
-    """Full-resolution panoptic targets of one sample."""
-    pan, id_dict = naive_merge_semantic_and_instance_np(
-        semantic, instance.astype(np.uint16), MAX_INSTANCES_PER_CATEGORY,
-        np.flatnonzero(np.asarray(is_thing_with_void)))
-    ids = np.unique(pan).astype(np.int64)
+def segment_table(panoptic: np.ndarray, table_size: int):
+    """(table, overflow): the sorted ids of a panoptic map in a
+    (table_size,) int64 table padded with SEGMENT_TABLE_PAD, and how
+    many ids it could not hold."""
+    ids = np.unique(panoptic).astype(np.int64)
     table = np.full((table_size,), SEGMENT_TABLE_PAD, dtype=np.int64)
     table[:min(len(ids), table_size)] = ids[:table_size]
-    angles = np.zeros((table_size,), np.float32)
-    valid = np.zeros((table_size,), bool)
+    return table, max(0, len(ids) - table_size)
+
+
+def merge_targets(semantic: np.ndarray, instance: np.ndarray, thing_ids):
+    """(panoptic uint32, {panoptic id: instance id}) of one sample."""
+    return naive_merge_semantic_and_instance_np(
+        semantic, instance.astype(np.uint16), MAX_INSTANCES_PER_CATEGORY,
+        thing_ids)
+
+
+def angle_tables(table: np.ndarray, id_dict: Dict[int, int],
+                 orientations: Dict[int, float]):
+    """(angles f32, valid bool): the GT angle of each table slot whose
+    panoptic id is an instance with an orientation."""
+    angles = np.zeros(table.shape, np.float32)
+    valid = np.zeros(table.shape, bool)
     for slot, pan_id in enumerate(table):
         ins_id = id_dict.get(int(pan_id))
         if ins_id is not None and ins_id in orientations:
             angles[slot] = float(orientations[ins_id])
             valid[slot] = True
-    return PanopticTargets(pan, table, angles, valid,
-                           max(0, len(ids) - table_size))
+    return angles, valid
+
+
+def panoptic_fullres_targets(semantic: np.ndarray, instance: np.ndarray,
+                             is_thing_with_void,
+                             orientations: Dict[int, float],
+                             table_size: int) -> PanopticTargets:
+    """Full-resolution panoptic targets of one sample."""
+    pan, id_dict = merge_targets(
+        semantic, instance, np.flatnonzero(np.asarray(is_thing_with_void)))
+    table, overflow = segment_table(pan, table_size)
+    angles, valid = angle_tables(table, id_dict, orientations)
+    return PanopticTargets(pan, table, angles, valid, overflow)
 
 
 def index_image(panoptic: np.ndarray, segment_ids: np.ndarray) -> np.ndarray:

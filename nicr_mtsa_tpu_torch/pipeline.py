@@ -39,6 +39,7 @@ import torch
 
 from .configs import emsaformer_dve_v2
 from .data.fullres import get_fullres
+from .data.preprocessing.normalize import RGB_MEAN, RGB_STD
 from .models.encoder import Encoder
 from .models.multi_task import (MultiTaskModel, MultiTaskModelConfig,
                                 build_model)
@@ -51,12 +52,6 @@ from .postprocessing import (DenseVisualEmbeddingPostprocessing,
                              ScenePostprocessing, SemanticPostprocessing)
 from .tasks import (DenseVisualEmbeddingTaskHelper, InstanceTaskHelper,
                     PanopticTaskHelper, SceneTaskHelper, SemanticTaskHelper)
-
-# ImageNet statistics scaled to [0, 255] (the JAX package's
-# data/preprocessing/normalize.py RGB_MEAN / RGB_STD)
-RGB_MEAN = np.float32(255) * np.array((0.485, 0.456, 0.406), 'float32')
-RGB_STD = np.float32(255) * np.array((0.229, 0.224, 0.225), 'float32')
-
 
 def _as_tensor(a, device) -> torch.Tensor:
     if isinstance(a, np.ndarray):
@@ -574,13 +569,28 @@ def emsaformer_eval_config(input_size: Tuple[int, int] = (480, 640),
         defer_semantic_prediction_upsampling=False)
 
 
+def _thing_classes(n_classes: int, n_thing: int,
+                   is_thing: Optional[Sequence[bool]]) -> Tuple[bool, ...]:
+    """`is_thing` (one flag a class, without void), else the first
+    `n_thing` of `n_classes` classes as things."""
+    if is_thing is None:
+        return tuple(i < n_thing for i in range(n_classes))
+    if len(is_thing) != n_classes:
+        raise ValueError(f'is_thing has {len(is_thing)} flags for '
+                         f'{n_classes} classes')
+    return tuple(bool(t) for t in is_thing)
+
+
 def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,
                       top_k: int = 64, scene_n_classes: int = 10,
-                      dense_visual_embedding: bool = False) -> dict:
+                      dense_visual_embedding: bool = False,
+                      is_thing: Optional[Sequence[bool]] = None) -> dict:
     """The task helpers of the JAX package's `bench.py --eval`: the
-    first `n_thing` classes are things; with `dense_visual_embedding`
-    also the embedding's (cosine loss, retrieval mIoU)."""
-    is_thing_v = (False,) + tuple(i < n_thing for i in range(n_classes))
+    thing classes are `is_thing` (without void; a dataset's
+    `semantic_label_list_without_void.classes_is_thing`), else the first
+    `n_thing` classes; with `dense_visual_embedding` also the
+    embedding's (cosine loss, retrieval mIoU)."""
+    is_thing_v = (False,) + _thing_classes(n_classes, n_thing, is_thing)
     helpers = {
         'semantic': SemanticTaskHelper(n_classes=n_classes),
         'instance': InstanceTaskHelper(
@@ -599,15 +609,20 @@ def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,
 
 def build_eval_pipeline(config: MultiTaskModelConfig = None, device=None,
                         seed: int = 0, n_thing: int = 8, top_k: int = 64,
-                        dve_tables=None) -> MultiTaskPipeline:
+                        dve_tables=None,
+                        is_thing: Optional[Sequence[bool]] = None
+                        ) -> MultiTaskPipeline:
     """The eval pipeline of `bench.py --eval` on `device` (default
     `cuda`): the model of `config` (default `emsanet-bench` with the
     semantic prediction upsampling in the head; `emsaformer_eval_config()`
     is `--model emsaformer_dve_v2`; random weights from `seed`), the
     tasks' postprocessors plus the panoptic helper, top-k `top_k`,
-    computing in the config's dtype. A config with the
-    dense-visual-embedding task needs `dve_tables`, the (text,
-    visual-mean) class embedding tables, (C, D) each."""
+    computing in the config's dtype. The thing classes (also the
+    classes with an orientation) are `is_thing` (without void; `bench.py
+    --eval --dataset` takes them from the dataset's meta.json), else the
+    first `n_thing`. A config with the dense-visual-embedding task
+    needs `dve_tables`, the (text, visual-mean) class embedding tables,
+    (C, D) each."""
     config = config or emsanet_bench_config(defer=False)
     with_dve = 'dense_visual_embedding' in config.tasks
     if with_dve and dve_tables is None:
@@ -623,11 +638,13 @@ def build_eval_pipeline(config: MultiTaskModelConfig = None, device=None,
             mean_visual_embedding_per_class=visual_mean)
     model = build_model(config, device=device, seed=seed)
     n = config.semantic_n_classes
+    is_thing = _thing_classes(n, n_thing, is_thing)
     post = default_postprocessors(
         tuple(config.tasks) + ('panoptic',),
-        semantic_classes_is_thing=tuple(i < n_thing for i in range(n)),
-        top_k_instances=top_k, **dve_kwargs)
+        semantic_classes_is_thing=is_thing, top_k_instances=top_k,
+        **dve_kwargs)
     return MultiTaskPipeline(
         model, post, eval_task_helpers(n, n_thing, top_k,
-                                       config.scene_n_classes, with_dve),
+                                       config.scene_n_classes, with_dve,
+                                       is_thing),
         compute_dtype=config.torch_dtype)

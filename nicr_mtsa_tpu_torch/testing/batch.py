@@ -15,6 +15,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..data._utils import move_batch_to_device
 from ..data.fullres import nearest_indices, resize_provenance
 from ..data.targets import (index_image, instance_targets,
                             orientation_targets, panoptic_fullres_targets)
@@ -85,9 +86,10 @@ def eval_arrays(samples: List[GroundTruth], work_hw: Tuple[int, int],
                   'panoptic_segment_table_fullres': pan.segment_table,
                   'panoptic_gt_angle_table': pan.angle_table,
                   'panoptic_gt_angle_table_valid': pan.angle_table_valid}
-        sample.update(instance_targets(ins, sem, is_thing_v, sigma=sigma))
+        sample.update(instance_targets(ins, sem, is_thing_v,
+                                       sigma=sigma).arrays)
         sample.update(orientation_targets(ins, sem, gt.orientations,
-                                          is_thing_v))
+                                          is_thing_v).arrays)
         for k, v in sample.items():
             out.setdefault(k, []).append(v)
     return {k: np.stack(v) for k, v in out.items()}, overflow
@@ -130,16 +132,8 @@ def build_train_batch(B: int, H: int, W: int, seed: int = 0, device=None,
     images NCHW ('rgbd' or 'rgb' and 'depth', 'instance_offset',
     'orientation'), maps (B, H, W) int32 or bool, 'scene' (B,) int32."""
     device = resolve_device(device)
-    return {k: _to_device(v, device) for k, v in
-            train_arrays(B, H, W, seed, n_classes, rgbd).items()}
-
-
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    if a.ndim == 4:                              # (B, H, W, C) -> NCHW
-        a = a.transpose(0, 3, 1, 2)
-    if a.dtype in (np.uint8, np.uint16, np.uint32, np.int64):
-        a = a.astype(np.int32)                   # maps, ids and tables
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return move_batch_to_device(train_arrays(B, H, W, seed, n_classes, rgbd),
+                                device)
 
 
 def _unit_rows(rng, n: int, dim: int) -> np.ndarray:
@@ -207,5 +201,5 @@ def build_eval_batch(B: int, work_hw: Tuple[int, int],
     arrays['depth'] = np.where(depth == 0, 0.0, (depth - DEPTH_MEAN)
                                / DEPTH_STD).astype(np.float32)
     arrays['scene'] = rng.integers(1, 11, (B,)).astype(np.int32)
-    batch = {k: _to_device(v, device) for k, v in arrays.items()}
-    return EvalBatch(batch, resize_provenance(h, w), overflow)
+    return EvalBatch(move_batch_to_device(arrays, device),
+                     resize_provenance(h, w), overflow)

@@ -1,7 +1,8 @@
 """Shared helpers of the tests/test_torch_*.py files: one small
 EMSANet-style configuration built in both packages, flax variables
-with randomised BatchNorm statistics and scales (so no norm is the
-identity), and layout converters. Everything runs on the CPU in f32.
+(from a compiled JAX init, or shaped without one) with randomised
+BatchNorm statistics and scales (so no norm is the identity), and
+layout converters. Everything runs on the CPU in f32.
 
 Config: resnet18 layout with nonbottleneck1d blocks, context 64,
 decoders (64, 48, 32) with one block, 40 classes, 96 x 128 input."""
@@ -33,13 +34,13 @@ def jax_model(defer='all'):
         defer_semantic_prediction_upsampling=defer, **CONFIG_KWARGS))
 
 
-def torch_model(defer='all'):
+def torch_model(defer='all', seed=0):
     from nicr_mtsa_tpu_torch.models.multi_task import (
         MultiTaskModelConfig, build_model,
     )
     return build_model(MultiTaskModelConfig(
         defer_semantic_prediction_upsampling=defer, **CONFIG_KWARGS),
-        device='cpu')
+        device='cpu', seed=seed)
 
 
 def _randomise(tree, rng):
@@ -60,6 +61,22 @@ def jax_variables(model, seed=0):
     v = jax.jit(lambda k: model.init({'params': k}, x, train=False))(
         jax.random.PRNGKey(seed))
     v = jax.tree_util.tree_map(lambda a: np.array(a), v)
+    v = {k: dict(c) for k, c in v.items()}
+    _randomise(v, np.random.default_rng(seed))
+    return v
+
+
+def shaped_variables(model, seed=0):
+    """Flax variables of `model` (the small config, any deferral) as
+    nested numpy dicts without a compiled JAX init (~20 s on the CPU):
+    the tree shaped by `jax.eval_shape`, filled from the port's model
+    initialised from `seed`, then the norms and 1-D biases randomised
+    as in `jax_variables`."""
+    from nicr_mtsa_tpu_torch.utils.flax_weights import torch_to_flax_variables
+    x = {'rgb': jnp.zeros((1, H, W, 3)), 'depth': jnp.zeros((1, H, W, 1))}
+    template = jax.eval_shape(lambda: model.init(
+        {'params': jax.random.PRNGKey(seed)}, x, train=False))
+    v = torch_to_flax_variables(torch_model(seed=seed), template)
     v = {k: dict(c) for k, c in v.items()}
     _randomise(v, np.random.default_rng(seed))
     return v

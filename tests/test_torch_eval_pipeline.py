@@ -119,7 +119,7 @@ def runs():
     """Both pipelines on the same weights and batch; the JAX step run
     twice, its raw outputs returned (one compile)."""
     jm = hp.jax_model(False)
-    v = hp.jax_variables(jm, seed=1)
+    v = hp.shaped_variables(jm, seed=1)
     jpipe = JPipeline(
         model=jm,
         postprocessors=j_post(tasks=('semantic', 'instance', 'orientation',

@@ -433,3 +433,93 @@ def test_chip_smoke_swin_eval_phases_fail_without_card(phase):
              'swin_eval_card_vs_cpu': lambda: cs.swin_eval_card_vs_cpu({})}
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[phase]()
+
+
+DATA_SLICE_MODULES = (
+    'nicr_mtsa_tpu_torch.native',
+    'nicr_mtsa_tpu_torch.data',
+    'nicr_mtsa_tpu_torch.data.png',
+    'nicr_mtsa_tpu_torch.data.dataset',
+    'nicr_mtsa_tpu_torch.data.loader',
+    'nicr_mtsa_tpu_torch.data.feeder',
+    'nicr_mtsa_tpu_torch.data.preprocessing',
+)
+
+
+def test_data_path_runs_with_jax_and_pil_blocked():
+    """The host data path's modules import, and read and preprocess a
+    fixture sample, with jax, flax, the JAX package and PIL made
+    unimportable."""
+    code = (
+        'import sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        '        if name.split(".")[0] in ("jax", "flax", "optax", '
+        '"jaxlib", "nicr_mtsa_tpu", "PIL"):\n'
+        '            raise ImportError("blocked: " + name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import importlib\n'
+        f'for m in {DATA_SLICE_MODULES!r}:\n'
+        '    importlib.import_module(m)\n'
+        'from nicr_mtsa_tpu_torch.data import get_dataset, preprocessing '
+        'as p\n'
+        'ds = get_dataset("tests/fixtures/mini_dataset", split="valid")\n'
+        's = p.Compose([p.Resize(48, 64), p.NormalizeRGB()])(ds[0])\n'
+        'print(s["rgb"].shape, s["depth"].dtype)\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == '(48, 64, 3) uint16'
+
+
+@pytest.mark.parametrize('fault', ['source_missing', 'compiler_fails'])
+def test_native_library_raises_without_fallback(monkeypatch, tmp_path,
+                                                fault):
+    """No build, no library: every entry point raises (the JAX package's
+    wrapper returns None there and drops to numpy)."""
+    import numpy as np
+    from nicr_mtsa_tpu_torch import native
+    monkeypatch.setattr(native, '_LIB', None)
+    monkeypatch.setattr(native, 'BUILD_DIR', tmp_path / 'build')
+    if fault == 'source_missing':
+        monkeypatch.setattr(native, 'SOURCE', tmp_path / 'missing.cpp')
+        match = 'source missing'
+    else:
+        monkeypatch.setattr(shutil, 'which', lambda name: '/bin/false')
+        match = 'failed'
+    img = np.zeros((4, 6, 3), np.uint8)
+    calls = (lambda: native.nearest_resize(img, 2, 3),
+             lambda: native.bilinear_resize_u8(img, 2, 3),
+             lambda: native.normalize_u8(img, [0, 0, 0], [1, 1, 1]),
+             lambda: native.hsv_jitter_u8(img, 1, 1, 1))
+    for call in calls:
+        with pytest.raises(RuntimeError, match=match):
+            call()
+    assert native._LIB is None and not list(tmp_path.glob('build/*.so'))
+
+
+@pytest.mark.parametrize('phase', ['eval_dataset', 'eval_dataset_card_vs_cpu',
+                                   'serve_stream'])
+def test_chip_smoke_data_path_phases_fail_without_card(phase):
+    """The data-path phases of chip_smoke.py raise on a machine without
+    a card: none falls back to the CPU."""
+    import argparse
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    try:
+        cs = importlib.import_module('chip_smoke')
+    finally:
+        sys.path.remove(str(ROOT))
+    from nicr_mtsa_tpu_torch.ops import cuda as kernels
+    args = argparse.Namespace(steps=1, requests=1, profile=False)
+    calls = {'eval_dataset': lambda: cs.evaluate_dataset(args, kernels,
+                                                         'no card', {}),
+             'eval_dataset_card_vs_cpu': lambda: cs.eval_dataset_card_vs_cpu(
+                 {}),
+             'serve_stream': lambda: cs.serve_stream(
+                 args, kernels, 'no card', {'serving': {
+                     'frames_per_s': 1.0}})}
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[phase]()

@@ -1,6 +1,7 @@
 """Model parity of the PyTorch port (nicr_mtsa_tpu_torch) against the
 JAX package on the CPU, f32, on the same randomly initialised flax
-weights carried across with `load_flax_variables`.
+weights (`_torch_port_helpers.shaped_variables`) carried across with
+`load_flax_variables`.
 
 Tolerance rtol/atol 1e-3, as tests/test_full_model_parity.py uses
 across the two frameworks: the same f32 sums taken in another order
@@ -25,7 +26,7 @@ TOL = dict(rtol=1e-3, atol=1e-3)
 @pytest.fixture(scope='module')
 def models():
     jm = hp.jax_model('all')
-    v = hp.jax_variables(jm)
+    v = hp.shaped_variables(jm)
     tm = hp.torch_model('all')
     load_flax_variables(tm, v)
     return jm, v, tm

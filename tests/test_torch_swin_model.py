@@ -1,8 +1,10 @@
 """Model parity of the EMSAFormer family in the PyTorch/CUDA port
 (nicr_mtsa_tpu_torch) with the JAX package, on the CPU in f32.
 
-Weights are the JAX model's flax variables (randomised norms and
-biases) carried across with the strict `load_flax_variables`:
+Weights are flax variables with randomised norms and biases (the JAX
+init's for the backbones; for the presets the port's seeded init in
+the tree `jax.eval_shape` shapes, with no compiled JAX init) carried
+across with the strict `load_flax_variables`:
 - a small Swin backbone built directly on both sides (embed 32, depths
   (2, 2, 2, 2), head width 32), v2 multimodal RGB-D and v1 RGB: every
   stage output within 1e-3;
@@ -29,7 +31,8 @@ from nicr_mtsa_tpu_torch.models.backbones.swin import (
 )
 from nicr_mtsa_tpu_torch.models.common import FusedLayerNorm
 from nicr_mtsa_tpu_torch.models.multi_task import build_model as torch_build
-from nicr_mtsa_tpu_torch.utils.flax_weights import load_flax_variables
+from nicr_mtsa_tpu_torch.utils.flax_weights import (load_flax_variables,
+                                                  torch_to_flax_variables)
 
 torch.set_num_threads(4)
 H, W = 64, 96
@@ -104,9 +107,11 @@ def _models(name):
 def preset_outputs(request):
     jm, tm = _models(request.param)
     x = np.random.default_rng(5).normal(size=(2, H, W, 4)).astype(np.float32)
-    v = _np_tree(jax.jit(lambda k: jm.init(
-        {'params': k}, {'rgbd': jnp.zeros((1, H, W, 4))}, train=False))(
-            jax.random.PRNGKey(0)), 2)
+    # the tree shaped without a compiled init, filled from the port's
+    # seeded model
+    v = _np_tree(torch_to_flax_variables(tm, jax.eval_shape(
+        lambda: jm.init({'params': jax.random.PRNGKey(0)},
+                        {'rgbd': jnp.zeros((1, H, W, 4))}, train=False))), 2)
     with jax.default_matmul_precision('highest'):
         want = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
             v, {'rgbd': jnp.asarray(x)})

@@ -29,7 +29,8 @@ from nicr_mtsa_tpu_torch.pipeline import (
     PanopticInferencePipeline, build_serving_pipeline,
     emsaformer_bench_config, serving_postprocessing,
 )
-from nicr_mtsa_tpu_torch.utils.flax_weights import load_flax_variables
+from nicr_mtsa_tpu_torch.utils.flax_weights import (load_flax_variables,
+                                                  torch_to_flax_variables)
 
 torch.set_num_threads(4)
 H, W = 64, 96
@@ -63,11 +64,15 @@ def pipelines():
     jm = jax_build(dataclasses.replace(
         emsaformer_dve_v2(input_size=(H, W), dtype=jnp.float32),
         defer_semantic_prediction_upsampling='all'))
-    v = jax.jit(lambda k: jm.init(
-        {'params': k}, {'rgbd': jnp.zeros((1, H, W, 4))}, train=False))(
-            jax.random.PRNGKey(0))
-    v = {k: dict(c) for k, c in jax.tree_util.tree_map(
-        lambda a: np.array(a), v).items()}
+    # the tree shaped without a compiled init, filled from the port's
+    # seeded model
+    template = jax.eval_shape(lambda: jm.init(
+        {'params': jax.random.PRNGKey(0)}, {'rgbd': jnp.zeros((1, H, W, 4))},
+        train=False))
+    v = torch_to_flax_variables(build_serving_pipeline(
+        emsaformer_bench_config((H, W), 'float32'), device='cpu',
+        seed=0).model, template)
+    v = {k: dict(c) for k, c in v.items()}
     _randomise(v, np.random.default_rng(1))
     jpost = PanopticPostprocessing(
         semantic_postprocessing=SemanticPostprocessing(),
