@@ -59,7 +59,7 @@ phases; any failure exits non-zero and prints no result:
 3. serve the full-width `emsanet-bench` EMSANet (2x ResNet-34 NBt1D,
    480 x 640, bf16, random weights from a seed) on B=8 uint8/uint16
    requests, with the launch counters set to 0 just before and read
-   just after: the finisher and the grouping must have run;
+   just after: exactly 1 finisher and 1 grouping launch a request;
 4. run the same pipeline in f32 on one frame on the card and on the
    CPU with identical weights: semantic_idx must agree on >= 99.9 %,
    and the panoptic segments must match: the share of segment pixels
@@ -121,11 +121,12 @@ phases; any failure exits non-zero and prints no result:
    plain versions at stage 1;
 11. train `emsaformer_dve_v2` (`bench.py --train`: 480 x 640, bf16,
    AdamW 1e-4, the random batch at B=8, stochastic depth and dropout
-   from a CUDA generator): a warm-up step, then three timed rounds of N
-   steps, each ending in a sync on the loss, counters set to 0 just
-   before: exactly 12 forward, 12 backward and 12 dbias launches of the
-   core a step and none of the serving kernels (the window-attention
-   sub-block, the LayerNorm); every loss finite, the total loss of the
+   from a CUDA generator): a first step (deterministic cuDNN and
+   algorithms), then three timed rounds of N steps, each ending in a
+   sync on the loss, counters set to 0 just before: exactly 12
+   forward, 12 backward and 12 dbias launches of the core a step and
+   none of the serving kernels (the window-attention sub-block, the
+   LayerNorm); every loss finite, the total loss of the
    last step below the first's;
 12. take one f32 training step with drop rates 0 on the card and on the
    CPU from the same weights and batch (B=8 at 256 x 320, the
@@ -236,11 +237,64 @@ phases; any failure exits non-zero and prints no result:
    delayed) must break that equality; the copy stream's time for one
    request's 12.3 MB.
 
+At the bench's own batch sizes (`bench.py`'s defaults; their seconds
+are printed as `bench_size_seconds`):
+
+26. `bench.py --latency`: each family's default serving path
+   (`emsanet_bench_config()`, `--defer4x`; `emsaformer_bench_config()`,
+   'auto') at B=1 and B=8, 30 requests (LATENCY_STEPS) each fenced by
+   a device-to-host fetch of out['panoptic'][0, 0, 0]: the median ms a
+   request;
+27. serving at bench size: EMSANet at B=256, `--stream` at B=256 (4
+   distinct host batches through prefetch_to_device), EMSAFormer at
+   B=128, and at B=8 `emsaformer_dve` (Swin v1, 7 x 7 windows) and
+   `--quick` (`emsanet_bench_config(quick=True)`, 128 x 160): three
+   timed rounds of BENCH_REQUESTS requests (the B=8 paths as phase
+   8), counters set to 0 just before and exact launches a
+   request, frames/s (the median round) and peak memory
+   (torch.cuda.max_memory_allocated after reset_peak_memory_stats);
+28. eval at bench size: EMSANet's fused step at B=128 with the segment
+   table at 128 (three rounds of BENCH_EVAL_STEPS steps, exact launches,
+   metrics in [0, 1]), then the Swin/DVE step down the ladder 128, 64,
+   32, 16, catching only torch.cuda.OutOfMemoryError (each failed size
+   printed with the allocation it asked for, the cache emptied after
+   each); B=16 must fit; frames/s and peak memory of the largest size
+   that fits;
+29. training at B=48, both families, without and with remat (`remat=
+   True`: every block recomputes its activations in the backward pass):
+   as phase 11 (the Swin core's forward 24 times a step with remat),
+   three timed rounds of BENCH_TRAIN_STEPS steps, frames/s and peak
+   memory from before the first step. An out-of-memory error is caught
+   only without remat, and printed; with remat B=48 must run, below
+   the other run's peak (or below 80 GB where that run is out of
+   memory). The remat run's first step against the other's from the
+   same weights, batch and generator seed, both in bf16 under
+   deterministic cuDNN and torch's deterministic algorithms (at B=16
+   where B=48 does not fit without remat): losses, BatchNorm
+   statistics and the generator's state equal, each gradient within
+   1e-3 of its tensor's max |grad|; printed beside it, the spread of
+   two plain first steps with torch's default algorithms (some sum
+   gradients in an order that changes from run to run);
+30. attention chunking: EMSAFormer serving at B=128 with `attn_chunk=
+   32` (48 sub-block launches a request): its outputs under
+   deterministic cuDNN bit-equal to the unchunked run's, frames/s and
+   peak memory beside the unchunked run's;
+31. the kernels at bench shapes: every call of rows 1, 2, 3, 5, 6, 8, 10
+   and 11 that phases 27 and 28 captured at their bench sizes (rows 8
+   and 10 one call a stage shape, shift and dtype; row 5 the bf16 and
+   the f32 call) run on the whole batch, on images 0-7 and on the last
+   8 images alone: the outputs for those images equal (integers bit for
+   bit, floats within the row's rule of phase 2 or 7), and the last 8
+   images against the plain version; row 7's stage-1 call of the Swin
+   remat step (forward and backward) likewise, dbias against its plain
+   version.
+
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
 chiprun_out/chip_smoke.json. Needs no network and no JAX."""
 import argparse
 import contextlib
+import gc
 import json
 import os
 import re
@@ -1933,50 +1987,6 @@ def check_outputs(out, B, H, W, n_classes):
         fail('scene logits not finite (B, 10)')
 
 
-def serve(args, kernels, card, result):
-    from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
-    B = 8
-    pipe = build_serving_pipeline(device='cuda', seed=0)
-    rgb, depth = frames(B)
-    rgb_t = torch.from_numpy(rgb).cuda()
-    depth_t = torch.from_numpy(depth).cuda()
-    out = pipe(rgb_t, depth_t)                # warm-up request
-    torch.cuda.synchronize()
-    check_outputs(out, B, 480, 640, 40)
-
-    # the main path: three timed rounds of N requests, each ending in a
-    # device sync on its last output; frames/s is the median round
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    rounds = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(args.requests):
-            out = pipe(rgb_t, depth_t)
-        int(out['panoptic'][0, 0, 0])
-        rounds.append(B * args.requests / (time.perf_counter() - t0))
-    launches = {n: kernels.KERNELS[n].launches for n in SERVING_KERNELS}
-    check_outputs(out, B, 480, 640, 40)
-    for n, c in launches.items():
-        if c == 0:
-            fail(f'kernel {n} was not launched on the serving path')
-    fps = float(np.median(rounds))
-    result['serving'] = dict(
-        batch=B, requests_per_round=args.requests,
-        rounds_frames_per_s=rounds,
-        frames_per_s=fps, launches=launches, card=card,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        n_instances=[int(v) for v in out['panoptic_instance'].amax(
-            dim=(1, 2))])
-    print(json.dumps({'phase': 'serve', 'frames_per_s': fps,
-                      'rounds_frames_per_s': rounds, 'batch': B,
-                      'requests': 3 * args.requests,
-                      'launches': launches, 'card': card}), flush=True)
-    if args.profile:
-        profile(lambda: pipe(rgb_t, depth_t), result, 'serving')
-    return launches
-
-
 def profile(fn, result, key):
     """Device time by kernel over 3 calls of fn (torch.profiler), the
     host wall time of the same calls, and the device's idle share.
@@ -2208,120 +2218,135 @@ def card_vs_cpu(result, cfg, key, frame_seed):
 
 
 def serve_exact(cfg, n_requests, want, kernels, card, result, key,
-                profile_it=False):
-    """Serving of `cfg` at B=8: a warm-up request, then three timed rounds
-    of `n_requests` requests with the counters set to 0 just before;
-    each kernel of `want` must have launched exactly its count a request;
-    frames/s is the median round."""
+                profile_it=False, B=8, targets=None, reference_of=None,
+                keep_reference=False):
+    """Serving of `cfg` at B on frames of its input size: a warm-up
+    request (the kernels' inputs captured by `targets`), then three
+    timed rounds of `n_requests` requests with the counters set to 0
+    just before; each wrapper must have launched exactly its `want`
+    count a request (others none); frames/s is the median round, peak
+    memory from before the warm-up. With `reference_of`, one more request
+    under deterministic cuDNN must give `reference_of`'s outputs bit for
+    bit; with `keep_reference`, that request's outputs are returned for
+    such a comparison. Returns (the launches of `want`, the captured
+    calls, those outputs or None)."""
     from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
-    B = 8
+    H, W = cfg.input_size
     pipe = build_serving_pipeline(cfg, device='cuda', seed=0)
-    rgb, depth = frames(B)
-    rgb_t = torch.from_numpy(rgb).cuda()
-    depth_t = torch.from_numpy(depth).cuda()
-    out = pipe(rgb_t, depth_t)
+    rgb, depth = (torch.from_numpy(a).cuda() for a in frames(B, H, W))
+    _fresh()
+    with _capture(targets or {}) as calls:
+        out = pipe(rgb, depth)
     torch.cuda.synchronize()
-    check_outputs(out, B, 480, 640, 40)
+    check_outputs(out, B, H, W, 40)
 
-    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     rounds = []
     for _ in range(3):
         t0 = time.perf_counter()
         for _ in range(n_requests):
-            out = pipe(rgb_t, depth_t)
+            out = pipe(rgb, depth)
         int(out['panoptic'][0, 0, 0])
         rounds.append(B * n_requests / (time.perf_counter() - t0))
     n = 3 * n_requests
-    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
-    check_outputs(out, B, 480, 640, 40)
-    per_request = {k: launches[k] / n for k in want}
-    for k, w in want.items():
-        if per_request[k] != w:
-            fail(f'{key}: kernel {k}: {per_request[k]} launches a request, '
-                 f'expected {w}')
+    launches = _check_launches(kernels, want, n, key)
+    check_outputs(out, B, H, W, 40)
     fps = float(np.median(rounds))
+    peak = _peak_gb()
+    ref = bit_equal = None
+    if reference_of is not None or keep_reference:
+        with _deterministic():
+            ref = {k: v.clone() for k, v in pipe(rgb, depth).items()}
+    if reference_of is not None:
+        bit_equal = {k: bool(torch.equal(ref[k], reference_of[k]))
+                     for k in reference_of}
+        if not all(bit_equal.values()):
+            fail(f'{key}: outputs {[k for k, v in bit_equal.items() if not v]}'
+                 f' differ from the reference run')
+        ref = None
     result[key] = dict(
         batch=B, requests_per_round=n_requests,
         rounds_frames_per_s=rounds, frames_per_s=fps, card=card,
-        launches_per_request=per_request,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches_per_request={k: c / n for k, c in launches.items() if c},
+        peak_mem_gb=peak, bit_equal_to_reference=bit_equal,
         n_instances=[int(v) for v in out['panoptic_instance'].amax(
             dim=(1, 2))])
     print(json.dumps({'phase': key, 'frames_per_s': fps,
                       'rounds_frames_per_s': rounds, 'batch': B,
-                      'requests': n, 'launches_per_request': per_request,
-                      'peak_mem_gb': result[key]['peak_mem_gb'],
+                      'requests': n, 'launches_per_request':
+                          result[key]['launches_per_request'],
+                      'peak_mem_gb': peak,
+                      'bit_equal_to_reference': bit_equal,
                       'card': card}), flush=True)
     if profile_it:
-        profile(lambda: pipe(rgb_t, depth_t), result, key)
-    return {k: launches[k] for k in want}
+        profile(lambda: pipe(rgb, depth), result, key)
+    return {k: launches[k] for k in want}, calls, ref
 
 
-def train(args, kernels, card, result, key, cfg=None, want=TRAIN_KERNELS):
-    """Training of `cfg` (default `emsaformer_dve_v2`'s) at B=8, 480 x
-    640, bf16: a warm-up step, then three timed rounds of N steps, each
-    round ending in a sync on the total loss, the counters set to 0
-    just before; each kernel of `want` must make its number of launches
-    a step, every loss be finite and the last step's total loss below
-    the first's. frames/s is the median round."""
-    from nicr_mtsa_tpu_torch.pipeline import build_train_pipeline
+def train(args, kernels, card, result, key, cfg=None, want=TRAIN_KERNELS,
+          B=8, steps=None, batch=None, targets=None, profile_it=True):
+    """Training of `cfg` (default `emsaformer_dve_v2`'s) at B, 480 x 640,
+    bf16, on `batch` (default the synthetic training batch): a first step
+    (`_first_step`, the kernels' inputs captured by `targets`), then
+    three timed rounds of `steps` steps (default `args.train_steps`),
+    each round ending in a sync on the total loss, the counters set to 0
+    just before; each wrapper must make exactly its `want` launches a
+    step (others none), every loss be finite and the last step's total
+    loss below the first's. frames/s is the median round, peak memory
+    from before the first step. With `args.profile` and `profile_it`, 3
+    steps are traced. Returns (the launches of `want`, the first step's
+    record, the captured calls)."""
     from nicr_mtsa_tpu_torch.testing import build_train_batch
-    B = 8
-    pipe = build_train_pipeline(cfg, device='cuda', seed=0)
-    batch = build_train_batch(
-        B, 480, 640, seed=0, device='cuda',
-        rgbd=cfg is None or cfg.backbone_rgbd is not None)
-    gen = torch.Generator(device='cuda').manual_seed(1)
-    state = pipe.create_train_state()
-    state, losses = pipe.train_step(state, batch, gen)
-    first = float(losses['total_loss'])
-    history = [torch.stack(list(losses.values()))]
+    steps = steps or args.train_steps
+    if batch is None:
+        batch = build_train_batch(
+            B, 480, 640, seed=0, device='cuda',
+            rgbd=cfg is None or cfg.backbone_rgbd is not None)
+    _fresh()
+    with _capture(targets or {}) as calls:
+        pipe, state, gen, first = _first_step(cfg, batch)
+    history = [torch.tensor(list(first['losses'].values()), device='cuda')]
 
-    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     rounds = []
     for _ in range(3):
         t0 = time.perf_counter()
-        for _ in range(args.train_steps):
+        for _ in range(steps):
             state, losses = pipe.train_step(state, batch, gen)
-            history.append(torch.stack(list(losses.values())))
+            history.append(torch.stack(list(losses.values())).float())
         float(losses['total_loss'])
-        rounds.append(B * args.train_steps / (time.perf_counter() - t0))
-    n = 3 * args.train_steps
-    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
-    per_step = {k: launches[k] / n for k in want}
-    for k, n_want in want.items():
-        if per_step[k] != n_want:
-            fail(f'{key}: kernel {k}: {per_step[k]} launches a training '
-                 f'step, expected {n_want}')
-    history = torch.stack(history).float().cpu()
+        rounds.append(B * steps / (time.perf_counter() - t0))
+    n = 3 * steps
+    launches = _check_launches(kernels, want, n, key)
+    history = torch.stack(history).cpu()
     if not bool(torch.isfinite(history).all()):
         fail(f'{key}: a loss is not finite')
+    first_loss = first['losses']['total_loss']
     last = float(losses['total_loss'])
-    if not last < first:
+    if not last < first_loss:
         fail(f'{key}: total loss {last} at the last step is not below '
-             f'{first} at the first')
+             f'{first_loss} at the first')
     fps = float(np.median(rounds))
     result[key] = dict(
-        batch=B, steps_per_round=args.train_steps,
+        batch=B, steps_per_round=steps,
         rounds_frames_per_s=rounds, frames_per_s=fps, card=card,
-        launches_per_step=per_step, first_total_loss=first,
-        last_total_loss=last,
+        launches_per_step={k: c / n for k, c in launches.items() if c},
+        first_total_loss=first_loss, last_total_loss=last,
         total_loss_per_step=[float(v) for v in history[:, -1]],
         losses={k: float(v) for k, v in losses.items()},
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        peak_mem_gb=_peak_gb())
     print(json.dumps({'phase': key, 'frames_per_s': fps,
                       'rounds_frames_per_s': rounds, 'batch': B,
-                      'steps': n, 'launches_per_step': per_step,
-                      'first_total_loss': first, 'last_total_loss': last,
+                      'steps': n, 'launches_per_step':
+                          result[key]['launches_per_step'],
+                      'first_total_loss': first_loss, 'last_total_loss': last,
                       'peak_mem_gb': result[key]['peak_mem_gb'],
                       'card': card}), flush=True)
-    if args.profile:
+    if args.profile and profile_it:
         profile(lambda: pipe.train_step(state, batch, gen), result, key)
-    return {k: launches[k] for k in want}
+    return {k: launches[k] for k in want}, first, calls
 
 
 @contextlib.contextmanager
@@ -3169,22 +3194,27 @@ def _stream_requests(pipe, host_batches, n, collect_first=False):
             for rgb, depth in batches]
 
 
-def serve_stream(args, kernels, card, result):
-    """`bench.py --stream` (phase 25): `emsanet_bench_config()` serving
-    at B=8 on 4 pre-drawn distinct uint8/uint16 host batches at 480 x
-    640 through prefetch_to_device(size=2), 3 timed rounds of N
-    requests, counters set to 0 just before: exactly STREAM_KERNELS'
-    launches a request (others none). With cudnn pinned deterministic,
-    every prefetched request's outputs must be bit-equal to its frames
-    served through a blocking `.to('cuda')`, interleaved and with every
-    batch taken before the first request; a planted staging race (no
-    wait for a slot's event, the copy stream delayed) must break that."""
+def serve_stream(args, kernels, card, result, key='serve_stream', B=8,
+                 n_requests=None, checks=True):
+    """`bench.py --stream` (phase 25; at the bench's B=256 in phase 27,
+    `checks` off): `emsanet_bench_config()` serving at B on 4 pre-drawn
+    distinct uint8/uint16 host batches at 480 x 640 through
+    prefetch_to_device(size=2), 3 timed rounds of `n_requests` requests
+    (default `args.requests`), counters set to 0 just before: exactly
+    STREAM_KERNELS' launches a request (others none); peak memory from
+    before the warm-up. With `checks`: the copy stream's time for a
+    request's frames, and, with cudnn pinned deterministic, every
+    prefetched request's outputs must be bit-equal to its frames served
+    through a blocking `.to('cuda')`, interleaved and with every batch
+    taken before the first request; a planted staging race (no wait for
+    a slot's event, the copy stream delayed) must break that."""
     from nicr_mtsa_tpu_torch.data import feeder
     from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
-    B = 8
+    n_requests = n_requests or args.requests
     pipe = build_serving_pipeline(device='cuda', seed=0)
     host_batches = [frames(B, seed=s) for s in range(4)]
     h2d_bytes = sum(a.nbytes for a in host_batches[0])
+    _fresh()
     pipe(*(torch.from_numpy(a).cuda() for a in host_batches[0]))
     torch.cuda.synchronize()
 
@@ -3193,12 +3223,22 @@ def serve_stream(args, kernels, card, result):
     rounds = []
     for _ in range(3):
         t0 = time.perf_counter()
-        out = _stream_requests(pipe, host_batches, args.requests)[-1]
+        out = _stream_requests(pipe, host_batches, n_requests)[-1]
         int(out['panoptic'][0, 0, 0])
-        rounds.append(B * args.requests / (time.perf_counter() - t0))
-    n = 3 * args.requests
-    launches = _check_launches(kernels, STREAM_KERNELS, n, 'serve_stream')
+        rounds.append(B * n_requests / (time.perf_counter() - t0))
+    n = 3 * n_requests
+    launches = _check_launches(kernels, STREAM_KERNELS, n, key)
     check_outputs(out, B, 480, 640, 40)
+    fps = float(np.median(rounds))
+    result[key] = dict(
+        batch=B, requests_per_round=n_requests, rounds_frames_per_s=rounds,
+        frames_per_s=fps, peak_mem_gb=_peak_gb(),
+        h2d_bytes_a_request=h2d_bytes,
+        launches_per_request={k: c / n for k, c in launches.items()},
+        card=card)
+    if not checks:
+        print(json.dumps({'phase': key, **result[key]}), flush=True)
+        return launches
 
     # the copy stream's time for one request's frames (pinned -> card)
     pinned = [torch.from_numpy(a).pin_memory() for a in host_batches[0]]
@@ -3250,21 +3290,726 @@ def serve_stream(args, kernels, card, result):
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
-    fps = float(np.median(rounds))
-    resident = result['serving']['frames_per_s']
-    result['serve_stream'] = dict(
-        batch=B, requests_per_round=args.requests, rounds_frames_per_s=rounds,
-        frames_per_s=fps, device_resident_frames_per_s=resident,
-        h2d_bytes_a_request=h2d_bytes,
+    result[key].update(
+        device_resident_frames_per_s=result['serving']['frames_per_s'],
         copy_ms_a_request=float(np.median(copies)),
-        launches_per_request={k: c / n for k, c in launches.items()},
-        bit_equal_requests=checked, planted_race_caught=caught, card=card)
-    print(json.dumps({'phase': 'serve_stream', **result['serve_stream']}),
-          flush=True)
+        bit_equal_requests=checked, planted_race_caught=caught)
+    print(json.dumps({'phase': key, **result[key]}), flush=True)
     if args.profile:
         profile(lambda: _stream_requests(pipe, host_batches[:1], 1), result,
-                'serve_stream')
+                key)
     return launches
+
+
+# --- the bench's own batch sizes (phases 26-31) -----------------------------
+
+# `bench.py`'s batch sizes: serving 256 for EMSANet and 128 for the Swin
+# family (bench.py:677-688), eval 128 (:237), `--stream` 256 (:353),
+# training 48 (:69); `--latency` at B=1 and 8 (:394-432)
+BENCH_SERVE_B = {'emsanet': 256, 'swin': 128}
+BENCH_EVAL_B = 128
+BENCH_STREAM_B = 256
+BENCH_TRAIN_B = 48
+LATENCY_B = (1, 8)
+# fenced requests a batch size and family of the latency phase (as
+# bench.py --latency, 30); requests (serving), steps (eval, training)
+# per timed round (3 rounds) at the bench sizes
+LATENCY_STEPS = 30
+BENCH_REQUESTS = 2
+BENCH_EVAL_STEPS = 1
+BENCH_TRAIN_STEPS = 1
+# the Swin eval ladder: the bench's 128, then halves down to 16 (the
+# JAX package's own supported point for this path); only B=16 must fit
+SWIN_EVAL_LADDER = (128, 64, 32, 16)
+# `--attn-chunk` of phase 30: images per window-attention chunk
+ATTN_CHUNK = 32
+# launches of each kernel in a request of `--quick` serving (EMSANet at
+# 128 x 160, both upsamplings deferred); `emsaformer_dve` (Swin v1, 7 x
+# 7 windows) serves with SWIN_KERNELS
+QUICK_KERNELS = {'finisher4x': 1, 'grouping': 1}
+# a Swin training step with remat: the recompute runs each block's
+# attention core forward once more
+REMAT_TRAIN_KERNELS = dict(TRAIN_KERNELS, window_attention_core_fwd=24)
+# the card's memory: the remat run's peak must stay below it where the
+# run without remat is out of memory (else below that run's peak)
+CARD_MEMORY = 80e9
+# the batch at which the first steps of remat and plain training are
+# compared where B=48 does not fit without remat
+COMPARE_B = 16
+
+
+def _fresh():
+    """Drop what the last phase left cached, reset the peak counter."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb():
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _asked(e) -> str:
+    """The allocation an out-of-memory error names ('12.00 GiB')."""
+    m = re.search(r'Tried to allocate ([0-9.]+ [KMGT]?i?B)', str(e))
+    return m.group(1) if m else str(e).split('\n')[0][:160]
+
+
+@contextlib.contextmanager
+def _deterministic(algorithms: bool = False):
+    """Deterministic cuDNN and, with `algorithms`, torch's deterministic
+    algorithms (an op without one warns and runs as it is)."""
+    saved = torch.backends.cudnn.deterministic
+    saved_algorithms = torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(algorithms, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        torch.use_deterministic_algorithms(saved_algorithms)
+
+
+class _Hook:
+    """A callable in place of `inner` that keeps the (args, kwargs) of
+    the first call under each key `key_of(*args, **kwargs)` returns
+    (None: not kept), tensors detached, in `into`, then calls `inner`.
+    Other attributes are `inner`'s: a wrapper that counts its launches
+    on its own module-level name (`fn.launches += 1`) counts on the
+    wrapped function."""
+
+    def __init__(self, inner, into, key_of):
+        object.__setattr__(self, '_hook', (inner, into, key_of))
+
+    def __call__(self, *a, **k):
+        inner, into, key_of = self._hook
+        key = key_of(*a, **k)
+        if key is not None and key not in into:
+            into[key] = (tuple(t.detach() if torch.is_tensor(t) else t
+                               for t in a), dict(k))
+        return inner(*a, **k)
+
+    def __getattr__(self, name):
+        return getattr(self._hook[0], name)
+
+    def __setattr__(self, name, value):
+        setattr(self._hook[0], name, value)
+
+
+@contextlib.contextmanager
+def _capture(targets):
+    """Within: for each `name: (module, attribute, key_of)` of
+    `targets`, `module.attribute` is a `_Hook` keeping its calls in
+    `calls[name]`; it runs as before (its launch counter included)."""
+    calls = {name: {} for name in targets}
+    saved = []
+    for name, (mod, attr, key_of) in targets.items():
+        inner = getattr(mod, attr)
+        setattr(mod, attr, _Hook(inner, calls[name], key_of))
+        saved.append((mod, attr, inner))
+    try:
+        yield calls
+    finally:
+        for mod, attr, inner in saved:
+            setattr(mod, attr, inner)
+
+
+def _first_calls(n: int = 1):
+    """A capture key: the call's number, for the first `n` calls."""
+    seen = []
+
+    def key_of(*a, **k):
+        if len(seen) < n:
+            seen.append(None)
+            return len(seen) - 1
+        return None
+    return key_of
+
+
+def _by_shape(*a, **k):
+    return tuple(a[0].shape[1:]) + (str(a[0].dtype),)
+
+
+def _by_shape_shift(*a, **k):
+    # window_attention_image(x, ..., n_heads, ws, shift, v2_scale)
+    return tuple(a[0].shape[1:]) + (a[8],)
+
+
+def _serving_targets(swin: bool):
+    from nicr_mtsa_tpu_torch.models.backbones import swin as swin_mod
+    from nicr_mtsa_tpu_torch.ops import grouping as grouping_mod
+    from nicr_mtsa_tpu_torch.ops.cuda import finisher4x as fin, layernorm
+    targets = {'grouping': (grouping_mod, 'group_pixels_offsets',
+                            _first_calls())}
+    if not swin:
+        targets['finisher4x'] = (fin, 'upsample4x_argmax_score',
+                                 _first_calls())
+        return targets
+    targets['finisher4x_bilinear'] = (
+        fin, 'upsample4x_bilinear_argmax_score', _first_calls())
+    targets['window_attention_block'] = (
+        swin_mod, 'window_attention_image', _by_shape_shift)
+    targets['layernorm'] = (layernorm, 'fused_layer_norm', _by_shape)
+    return targets
+
+
+def _eval_targets():
+    from nicr_mtsa_tpu_torch.ops import grouping as grouping_mod, segments
+    from nicr_mtsa_tpu_torch.postprocessing import semantic as sem_post
+    return {'grouping': (grouping_mod, 'group_pixels_offsets',
+                         _first_calls()),
+            # the bf16 semantic call, and the f32 retrievals' (Swin)
+            'resize_reduce': (sem_post, 'crop_resize_argmax_score',
+                              _by_shape),
+            'semantic_reduce': (sem_post, 'semantic_argmax_score',
+                                _first_calls()),
+            # both PQ helpers' calls
+            'intersection': (segments, 'intersection_matrix_kernel',
+                             _first_calls(2))}
+
+
+def _agree_grouping(what, got, want):
+    _same_grouping(what, got, want)
+    return 0.0
+
+
+def _agree_exact(what, got, want):
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f'{what}: counts differ')
+    return 0.0
+
+
+def _agree_ln(what, got, want):
+    (got,), (want,) = got, want
+    if got.dtype == torch.bfloat16:
+        _, n_bad = _ulp_check(got, want)
+        if n_bad:
+            fail(f'{what}: {n_bad} values more than 1 ulp and 1e-6 x max '
+                 f'|out| apart')
+        return float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    return float((got - want).abs().max())
+
+
+def _agree_attention(what, got, want):
+    (got,), (want,) = got, want
+    tol = 2e-2 if got.dtype == torch.bfloat16 else 1e-4
+    err = _rel_err(got, want)
+    if not err <= tol:
+        fail(f'{what}: max error {err} x max |out| > {tol}')
+    return err
+
+
+def _plain_grouping(offset, centers_yx, centers_valid, foreground,
+                    threshold=None, return_min_d2=True):
+    from nicr_mtsa_tpu_torch.ops.cuda import grouping
+    return grouping.group_pixels_offsets_reference(
+        offset, centers_yx, centers_valid, foreground, threshold)
+
+
+def _bench_rows():
+    """Row name -> (kernel wrapper, plain version, batched positional
+    arguments, agreement rule, kwargs forced for the check)."""
+    from nicr_mtsa_tpu_torch.ops import cuda as k
+    from nicr_mtsa_tpu_torch.ops.cuda import window_attention as wa
+    return {
+        'finisher4x': (k.upsample4x_argmax_score,
+                       k.upsample4x_argmax_score_reference, (0,),
+                       _same, {}),
+        'finisher4x_bilinear': (
+            k.upsample4x_bilinear_argmax_score,
+            k.upsample4x_bilinear_argmax_score_reference, (0,),
+            _same, {}),
+        'grouping': (k.group_pixels_offsets, _plain_grouping, (0, 1, 2, 3),
+                     _agree_grouping, {'return_min_d2': True}),
+        'resize_reduce': (k.crop_resize_argmax_score,
+                          k.crop_resize_argmax_score_reference, (0,),
+                          _same, {}),
+        'semantic_reduce': (k.semantic_argmax_score,
+                            k.semantic_argmax_score_reference, (0,),
+                            _same, {}),
+        'intersection': (k.intersection_matrix_kernel,
+                         k.intersection_matrix_reference, (0, 1),
+                         _agree_exact, {}),
+        'layernorm': (k.fused_layer_norm, k.layer_norm_reference, (0,),
+                      _agree_ln, {}),
+        'window_attention_block': (wa.window_attention_image,
+                                   wa.window_attention_image_reference,
+                                   (0,), _agree_attention, {}),
+    }
+
+
+def _outputs(out):
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def check_bench_shapes(path, calls, result):
+    """Each captured call of a path at its bench size: the kernel on the
+    whole batch, on images 0-7 and on the last 8 images alone (outputs
+    for those images equal: integers bit for bit, floats within the
+    row's rule), and its plain version on the last 8 images."""
+    rows = _bench_rows()
+    report = {}
+    for name, by_key in calls.items():
+        fn, plain, batched, agree, forced = rows[name]
+        for key, (args, kwargs) in by_key.items():
+            kwargs = dict(kwargs, **forced)
+            B = args[batched[0]].shape[0]
+            full = _outputs(fn(*args, **kwargs))
+            errs = {}
+            for label, sl in (('first8', slice(0, 8)),
+                              ('last8', slice(B - 8, B))):
+                sub = tuple(a[sl] if i in batched else a
+                            for i, a in enumerate(args))
+                got = _outputs(fn(*sub, **kwargs))
+                torch.cuda.synchronize()
+                errs[label] = agree(
+                    f'{path} {name} {key}: images {label} of {B}', got,
+                    tuple(o[sl] for o in full))
+            want = _outputs(plain(*sub, **kwargs))
+            errs['plain_last8'] = agree(
+                f'{path} {name} {key}: the last 8 of {B} against the plain '
+                f'version', got, want)
+            report[f'{name} {key}'] = dict(batch=B, max_err=errs)
+    result.setdefault('bench_shapes', {})[path] = report
+    print(json.dumps({'phase': f'bench_shapes_{path}', 'checked': {
+        k: v['max_err'] for k, v in report.items()}}), flush=True)
+    return report
+
+
+def check_bench_core(q, k, v, bias, grid_hw, shift, result):
+    """Row 7 at the training step's bench shape (its stage-1 call): the
+    forward (out, lse) and the backward (dq, dk, dv) for images 0-7 and
+    the last 8 of the whole batch equal the kernels' calls on those 8
+    images alone; forward and backward (dbias included) of the last 8
+    against the plain versions (CORE_TOL of max |.|; lse 1e-4)."""
+    from nicr_mtsa_tpu_torch.ops.cuda import window_attention_core as wac
+    nW = grid_hw[0] * grid_hw[1]
+    B = q.shape[0] // nW
+    g = torch.Generator(device='cuda').manual_seed(7)
+    dout = torch.randn(q.shape, device='cuda', generator=g).to(q.dtype)
+    out, lse = wac.window_attention_core_forward(q, k, v, bias, grid_hw,
+                                                 shift)
+    dq, dk, dv, _ = wac.window_attention_core_backward(
+        q, k, v, bias, dout, lse, grid_hw, shift)
+    full = (out, lse, dq, dk, dv)
+    names = ('out', 'lse', 'dq', 'dk', 'dv')
+    errs = {}
+    tol = CORE_TOL[q.dtype]
+    for label, lo in (('first8', 0), ('last8', B - 8)):
+        sl = slice(lo * nW, (lo + 8) * nW)
+        sub = (q[sl], k[sl], v[sl])
+        o8, l8 = wac.window_attention_core_forward(*sub, bias, grid_hw, shift)
+        got = (o8, l8) + wac.window_attention_core_backward(
+            *sub, bias, dout[sl], l8, grid_hw, shift)
+        torch.cuda.synchronize()
+        for n, a, b in zip(names, got, full):
+            err = _rel_err(a, b[sl])
+            errs[f'{label}_{n}'] = err
+            if not err <= (1e-4 if n == 'lse' else tol):
+                fail(f'bench core: {n} of images {label} of {B}: {err} x '
+                     f'max |.| against the whole batch')
+    want = wac.window_attention_core_reference(*sub, bias, grid_hw, shift)
+    want += wac.window_attention_core_backward_reference(
+        *sub, bias, dout[sl], want[1], grid_hw, shift)
+    for n, a, b in zip(names + ('dbias',), got, want):
+        err = _rel_err(a, b)
+        errs[f'plain_last8_{n}'] = err
+        if not err <= (1e-4 if n == 'lse' else tol):
+            fail(f'bench core: {n} of the last 8 of {B}: {err} x max |.| '
+                 f'from the plain version')
+    result.setdefault('bench_shapes', {})['train_swin'] = {
+        'window_attention_core': dict(batch=B, windows=q.shape[0],
+                                      max_err=errs)}
+    print(json.dumps({'phase': 'bench_shapes_train_swin',
+                      'window_attention_core': errs, 'batch': B}),
+          flush=True)
+
+
+def latency(card, result):
+    """`bench.py --latency` (phase 26): each family's default serving
+    path (`emsanet-bench` with `--defer4x`, `emsaformer_dve_v2` 'auto')
+    at B=1 and B=8, a warm-up request, then LATENCY_STEPS requests each
+    fenced by a device-to-host fetch of out['panoptic'][0, 0, 0]; the
+    median ms."""
+    from nicr_mtsa_tpu_torch.pipeline import (build_serving_pipeline,
+                                              emsaformer_bench_config,
+                                              emsanet_bench_config)
+    rows = {}
+    for fam, cfg in (('emsanet', emsanet_bench_config()),
+                     ('emsaformer', emsaformer_bench_config())):
+        pipe = build_serving_pipeline(cfg, device='cuda', seed=0)
+        rows[fam] = {}
+        for B in LATENCY_B:
+            rgb, depth = (torch.from_numpy(a).cuda() for a in frames(B))
+            int(pipe(rgb, depth)['panoptic'][0, 0, 0])
+            times = []
+            for _ in range(LATENCY_STEPS):
+                t0 = time.perf_counter()
+                out = pipe(rgb, depth)
+                int(out['panoptic'][0, 0, 0])
+                times.append((time.perf_counter() - t0) * 1e3)
+            check_outputs(out, B, 480, 640, 40)
+            ms = float(np.median(times))
+            rows[fam][f'b{B}'] = dict(
+                median_ms=ms, frames_per_s=1e3 * B / ms, steps=len(times),
+                min_ms=float(min(times)), max_ms=float(max(times)))
+        del pipe, out
+        _fresh()
+    result['latency'] = dict(rows, card=card)
+    print(json.dumps({'phase': 'latency', **{
+        f'{fam}_b{B}_median_ms': rows[fam][f'b{B}']['median_ms']
+        for fam in rows for B in LATENCY_B}, 'steps': LATENCY_STEPS,
+        'card': card}), flush=True)
+
+
+def _eval_rounds(step, batch, states, n):
+    B, rounds = next(iter(batch.values())).shape[0], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _, losses, states = step(batch, states)
+        int(states['semantic'][0, 0])
+        rounds.append(B * n / (time.perf_counter() - t0))
+    return rounds, losses, states
+
+
+def _eval_result(pipe, key, losses, states, log_keys):
+    bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
+    if bad:
+        fail(f'{key}: losses not finite: {bad}')
+    pipe.load_metric_states(states)
+    _, _, logs = pipe.validation_epoch_end()
+    metrics = {k: float(logs[k]) for k in log_keys}
+    for k, v in metrics.items():
+        if not (np.isfinite(v) and 0.0 <= v <= 1.0):
+            fail(f'{key}: metric {k} = {v} not in [0, 1]')
+    return metrics
+
+
+def eval_bench(kernels, card, result):
+    """Eval at the bench's size (phase 28): EMSANet's fused step at
+    B=128 with the segment table at 128 (its kernels' inputs captured,
+    then checked at that shape), then the Swin/DVE step down the ladder
+    128, 64, 32, 16: a size that runs out of memory is printed with the
+    allocation it asked for (only torch.cuda.OutOfMemoryError is caught,
+    the cache emptied after each), and B=16 must fit. Each size that
+    runs: a warm-up step, three timed rounds of N steps with the states
+    carried, the counters set to 0 just before, exact launches a step,
+    finite losses, metrics in [0, 1], frames/s and peak memory."""
+    from nicr_mtsa_tpu_torch.pipeline import build_eval_pipeline
+    from nicr_mtsa_tpu_torch.testing import build_eval_batch
+    B = BENCH_EVAL_B
+    eb = build_eval_batch(B, (480, 640), (512, 512), 40, IS_THING, seed=0,
+                          segment_table_size=128, device='cuda', dve_dim=512)
+    if eb.segment_table_overflow:
+        fail(f'bench eval batch: {eb.segment_table_overflow} GT segments '
+             f'did not fit into the segment tables')
+    pipe = build_eval_pipeline(device='cuda', seed=0)
+    batch = {k: v for k, v in eb.batch.items() if not k.startswith(DVE)}
+    step = pipe.make_fused_eval_step(eb.static_batch)
+    _fresh()
+    with _capture(_eval_targets()) as calls:
+        _, losses, states = step(batch, pipe.empty_metric_states())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    rounds, losses, states = _eval_rounds(step, batch, states,
+                                          BENCH_EVAL_STEPS)
+    n = 3 * BENCH_EVAL_STEPS
+    # EMSANet's eval step launches the dataset eval path's kernels
+    launches = _check_launches(kernels, DATASET_EVAL_KERNELS, n,
+                               'eval_bench')
+    metrics = _eval_result(pipe, 'eval_bench', losses, states,
+                           EVAL_LOG_KEYS)
+    fps = float(np.median(rounds))
+    result['eval_bench'] = dict(
+        batch=B, segment_table_size=128, steps_per_round=BENCH_EVAL_STEPS,
+        rounds_frames_per_s=rounds, frames_per_s=fps, peak_mem_gb=_peak_gb(),
+        launches_per_step={k: c / n for k, c in launches.items() if c},
+        metrics=metrics, card=card)
+    print(json.dumps({'phase': 'eval_bench', **result['eval_bench']}),
+          flush=True)
+    del pipe, step, losses, states
+    _fresh()
+    check_bench_shapes('eval_emsanet', calls, result)
+    del calls
+    _fresh()
+
+    pipe = _swin_eval_pipeline()
+    step = pipe.make_fused_eval_step(eb.static_batch)
+    failed, fitted = [], None
+    for b in SWIN_EVAL_LADDER:
+        sub = {k: v[:b] for k, v in eb.batch.items()}
+        asked = None
+        _fresh()
+        # a size fits where its warm-up and its timed rounds run
+        try:
+            _, losses, states = step(sub, pipe.empty_metric_states())
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            rounds, losses, states = _eval_rounds(step, sub, states,
+                                                  BENCH_EVAL_STEPS)
+        except torch.cuda.OutOfMemoryError as e:
+            asked = _asked(e)
+        if asked is not None:
+            losses = states = None
+            _fresh()
+            failed.append({'batch': b, 'asked': asked})
+            print(json.dumps({'phase': 'eval_swin_bench_oom', 'batch': b,
+                              'asked': asked, 'card': card}), flush=True)
+            continue
+        launches = _check_launches(kernels, SWIN_EVAL_KERNELS, n,
+                                   'eval_swin_bench')
+        metrics = _eval_result(pipe, 'eval_swin_bench', losses, states,
+                               SWIN_EVAL_LOG_KEYS)
+        fitted = dict(batch=b, steps_per_round=BENCH_EVAL_STEPS,
+                      rounds_frames_per_s=rounds,
+                      frames_per_s=float(np.median(rounds)),
+                      peak_mem_gb=_peak_gb(), metrics=metrics,
+                      launches_per_step={k: c / n for k, c in
+                                         launches.items() if c})
+        # one more step from empty states, its kernels' inputs captured
+        # for phase 31 (held only after the step has freed the rest)
+        losses = states = None
+        _fresh()
+        with _capture(_eval_targets()) as calls:
+            step(sub, pipe.empty_metric_states())
+        break
+    if fitted is None:
+        fail(f'eval_swin_bench: not even B={SWIN_EVAL_LADDER[-1]} fits: '
+             f'{failed}')
+    result['eval_swin_bench'] = dict(fitted, out_of_memory=failed,
+                                     largest_batch=fitted['batch'], card=card)
+    print(json.dumps({'phase': 'eval_swin_bench',
+                      **result['eval_swin_bench']}), flush=True)
+    del pipe, step, eb, batch, sub
+    _fresh()
+    check_bench_shapes('eval_swin', calls, result)
+    del calls
+    _fresh()
+
+
+def _first_step(cfg, batch, algorithms: bool = True):
+    """One training step of `cfg` from seed 0's weights with a CUDA
+    generator seeded 1, under deterministic cuDNN and, with
+    `algorithms`, torch's deterministic algorithms (`_deterministic`):
+    (pipeline, state, generator, the step's losses, gradients,
+    BatchNorm statistics and the generator's state after it)."""
+    from nicr_mtsa_tpu_torch.pipeline import build_train_pipeline
+    pipe = build_train_pipeline(cfg, device='cuda', seed=0)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    state = pipe.create_train_state()
+    with _deterministic(algorithms):
+        state, losses = pipe.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+    first = dict(
+        losses={k: float(v) for k, v in losses.items()},
+        grads={n: p.grad.detach().clone() for n, p in
+               pipe.model.named_parameters() if p.grad is not None},
+        stats={n: b.detach().clone() for n, b in
+               pipe.model.named_buffers()},
+        generator=gen.get_state())
+    return pipe, state, gen, first
+
+
+def _grad_errors(want, got):
+    """{tensor: the largest difference of its gradients as a share of
+    its max |grad| in `want`, or of 1e-5 x the step's largest |grad|
+    where the tensor's is below that (a gradient that is 0 but for
+    rounding, such as the bias of a LayerNorm a BatchNorm follows)}."""
+    largest = max(float(g.float().abs().max()) for g in want.values())
+    return {n: float((got[n].float() - g.float()).abs().max())
+            / max(float(g.float().abs().max()), 1e-5 * largest, 1e-30)
+            for n, g in want.items()}
+
+
+def _compare_first_steps(key, plain, remat):
+    """The remat step against the one without, both under torch's
+    deterministic algorithms: losses, BatchNorm statistics and the
+    generator's state equal, and each gradient within 1e-3 of its
+    tensor's max |grad| (phase 12's rule, `_grad_errors`). Returns (the
+    largest share, its tensor, the tensors not bit-equal)."""
+    if plain['losses'] != remat['losses']:
+        fail(f'{key}: remat losses {remat["losses"]} differ from '
+             f'{plain["losses"]}')
+    bad = [n for n, t in plain['stats'].items()
+           if not torch.equal(t, remat['stats'][n])]
+    if bad:
+        fail(f'{key}: BatchNorm statistics differ under remat: {bad[:5]}')
+    if not torch.equal(plain['generator'], remat['generator']):
+        fail(f'{key}: the generator state after the remat step differs')
+    if set(plain['grads']) != set(remat['grads']):
+        fail(f'{key}: the remat step gives other gradients')
+    errs = _grad_errors(plain['grads'], remat['grads'])
+    for n, err in errs.items():
+        if not err <= 1e-3:
+            fail(f'{key}: gradient {n} under remat off by {err} of its max')
+    return (*max((e, n) for n, e in errs.items()),
+            sum(e > 0 for e in errs.values()))
+
+
+def train_bench(args, kernels, card, result, family, capture=False):
+    """Training at the bench's B=48 (phase 29), `family` 'emsanet' or
+    'swin', without and with remat, each through `train`
+    (BENCH_TRAIN_STEPS steps a round). An out-of-memory error is caught
+    only in the run without remat, and printed; with remat B=48 must
+    run, below the other run's peak (or the card's 80 GB). The two runs'
+    first steps (torch's deterministic algorithms) must agree
+    (`_compare_first_steps`; at COMPARE_B where B=48 does not fit
+    without remat). Also printed: the run-to-run spread of two plain
+    first steps with torch's default algorithms, which sum some
+    gradients in an order that changes from run to run. `capture`:
+    check row 7's stage-1 call at this shape (`check_bench_core`)."""
+    from nicr_mtsa_tpu_torch.models.backbones import swin as swin_mod
+    from nicr_mtsa_tpu_torch.pipeline import (emsaformer_train_config,
+                                              emsanet_train_config)
+    from nicr_mtsa_tpu_torch.testing import build_train_batch
+    swin = family == 'swin'
+    cfg_of = emsaformer_train_config if swin else emsanet_train_config
+    want = {False: TRAIN_KERNELS if swin else {},
+            True: REMAT_TRAIN_KERNELS if swin else {}}
+    B = BENCH_TRAIN_B
+    batch = build_train_batch(B, 480, 640, seed=0, device='cuda', rgbd=swin)
+    firsts = {}
+    for remat in (False, True):
+        key = f'train_{family}_bench{"_remat" if remat else ""}'
+        asked = None
+        targets = ({'core': (swin_mod, 'window_attention_core',
+                             _first_calls())} if capture and remat else {})
+        try:
+            _, firsts[remat], calls = train(
+                args, kernels, card, result, key, cfg_of(remat=remat),
+                want[remat], B=B, steps=BENCH_TRAIN_STEPS, batch=batch,
+                targets=targets, profile_it=False)
+        except torch.cuda.OutOfMemoryError as e:
+            if remat:
+                raise
+            asked = _asked(e)
+        if asked is not None:
+            _fresh()
+            result[key] = dict(batch=B, out_of_memory=asked)
+            print(json.dumps({'phase': key, 'batch': B,
+                              'out_of_memory': asked, 'card': card}),
+                  flush=True)
+            continue
+        _fresh()
+        if calls:
+            check_bench_core(*calls['core'][0][0], result)
+        del calls
+        _fresh()
+    runs = {rm: result[f'train_{family}_bench{"_remat" if rm else ""}']
+            for rm in (False, True)}
+    compared_at = B
+    if 'out_of_memory' in runs[False]:
+        compared_at = COMPARE_B
+        batch = {k: v[:compared_at] for k, v in batch.items()}
+        for remat in (False, True):
+            firsts[remat] = _first_step(cfg_of(remat=remat), batch)[3]
+            _fresh()
+    worst, worst_at, n_differ = _compare_first_steps(
+        f'train_{family}_bench', firsts[False], firsts[True])
+    del firsts
+    plain = []
+    for _ in range(2):
+        plain.append(_first_step(cfg_of(), batch, algorithms=False)[3])
+        _fresh()
+    spread = _grad_errors(plain[0]['grads'], plain[1]['grads'])
+    del plain
+    limit = runs[False].get('peak_mem_gb', CARD_MEMORY / 1e9)
+    if not runs[True]['peak_mem_gb'] < limit:
+        fail(f'train_{family}_bench: remat peak {runs[True]["peak_mem_gb"]}'
+             f' GB is not below {limit} GB')
+    result[f'train_{family}_bench'] = dict(
+        first_steps_compared_at=compared_at,
+        remat_grad_max_rel_err=[worst, worst_at],
+        remat_grads_not_bit_equal=n_differ,
+        default_algorithms_spread_max_rel_err=max(
+            (e, n) for n, e in spread.items()),
+        default_algorithms_spread_n_differ=sum(
+            e > 0 for e in spread.values()),
+        n_grads=len(spread), card=card)
+    print(json.dumps({'phase': f'train_{family}_bench_remat_vs_plain',
+                      **result[f'train_{family}_bench'],
+                      'losses_equal': True, 'batch_stats_equal': True,
+                      'generator_state_equal': True,
+                      'peak_mem_gb': {'plain': runs[False].get('peak_mem_gb'),
+                                      'remat': runs[True]['peak_mem_gb']}}),
+          flush=True)
+    del batch
+    _fresh()
+
+
+def bench_sizes(args, kernels, card, result):
+    """Phases 26-31 (the bench's own batch sizes); returns their
+    seconds."""
+    from nicr_mtsa_tpu_torch.pipeline import (emsaformer_bench_config,
+                                              emsanet_bench_config)
+    secs = {}
+    _fresh()
+    t0 = time.perf_counter()
+    latency(card, result)
+    secs['latency'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, calls, _ = serve_exact(
+        emsanet_bench_config(), BENCH_REQUESTS,
+        dict.fromkeys(SERVING_KERNELS, 1), kernels, card, result,
+        'serve_emsanet_bench', B=BENCH_SERVE_B['emsanet'],
+        targets=_serving_targets(False))
+    _fresh()
+    check_bench_shapes('serve_emsanet', calls, result)
+    del calls
+    _fresh()
+    serve_stream(args, kernels, card, result, 'stream_bench',
+                 B=BENCH_STREAM_B, n_requests=BENCH_REQUESTS, checks=False)
+    _fresh()
+    _, calls, unchunked = serve_exact(
+        emsaformer_bench_config(), BENCH_REQUESTS, SWIN_KERNELS, kernels,
+        card, result, 'serve_swin_bench', B=BENCH_SERVE_B['swin'],
+        targets=_serving_targets(True), keep_reference=True)
+    _fresh()
+    check_bench_shapes('serve_swin', calls, result)
+    del calls
+    _fresh()
+    serve_exact(emsaformer_bench_config(model='emsaformer_dve'),
+                args.swin_requests, SWIN_KERNELS, kernels, card, result,
+                'serving_swin_v1')
+    _fresh()
+    serve_exact(emsanet_bench_config(quick=True), args.requests,
+                QUICK_KERNELS, kernels, card, result, 'serving_quick')
+    _fresh()
+    secs['serve'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    chunks = BENCH_SERVE_B['swin'] // ATTN_CHUNK
+    serve_exact(emsaformer_bench_config(attn_chunk=ATTN_CHUNK),
+                BENCH_REQUESTS,
+                dict(SWIN_KERNELS, window_attention_block=12 * chunks),
+                kernels, card, result, 'serve_swin_bench_chunked',
+                B=BENCH_SERVE_B['swin'], reference_of=unchunked)
+    del unchunked
+    _fresh()
+    result['serve_swin_bench_chunked']['unchunked_peak_mem_gb'] = \
+        result['serve_swin_bench']['peak_mem_gb']
+    print(json.dumps({'phase': 'attn_chunk', 'chunk': ATTN_CHUNK,
+                      'peak_mem_gb': {
+                          'chunked': result['serve_swin_bench_chunked'][
+                              'peak_mem_gb'],
+                          'unchunked': result['serve_swin_bench'][
+                              'peak_mem_gb']}}), flush=True)
+    secs['attn_chunk'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    eval_bench(kernels, card, result)
+    secs['eval'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    train_bench(args, kernels, card, result, 'emsanet')
+    train_bench(args, kernels, card, result, 'swin', capture=True)
+    secs['train'] = time.perf_counter() - t0
+    return secs
 
 
 def main():
@@ -3342,7 +4087,10 @@ def main():
                           result, _build)
     data_s['kernel_dataset'] = time.perf_counter() - t0
     check_ties()
-    launches = serve(args, kernels, card, result)
+    launches = serve_exact(
+        emsanet_bench_config(), args.requests,
+        dict.fromkeys(SERVING_KERNELS, 1), kernels, card, result, 'serving',
+        args.profile)[0]
     card_vs_cpu(result, emsanet_bench_config(dtype='float32'),
                 'card_vs_cpu', frame_seed=3)
     eval_launches, pipe, eval_maps = evaluate(args, kernels, card, result)
@@ -3355,22 +4103,22 @@ def main():
     check_finisher_bilinear(finisher4x, report, _build)
     swin_launches = serve_exact(
         emsaformer_bench_config(), args.swin_requests, SWIN_KERNELS, kernels,
-        card, result, 'serving_swin', args.profile)
+        card, result, 'serving_swin', args.profile)[0]
     card_vs_cpu(result, emsaformer_bench_config(dtype='float32'),
                 'swin_card_vs_cpu', frame_seed=4)
     check_window_attention_core(window_attention_core, report)
-    train_launches = train(args, kernels, card, result, 'train_swin')
+    train_launches = train(args, kernels, card, result, 'train_swin')[0]
     train_card_vs_cpu(result)
     check_finisher2x(finisher2x, report, _build)
     defer2x_launches = serve_exact(
         emsanet_bench_config(defer=True), args.requests, DEFER2X_KERNELS,
-        kernels, card, result, 'serving_defer2x', args.profile)
+        kernels, card, result, 'serving_defer2x', args.profile)[0]
     card_vs_cpu(result, emsanet_bench_config(dtype='float32', defer=True),
                 'defer2x_card_vs_cpu', frame_seed=5)
     check_window_attention_qkv(window_attention_qkv, report)
     qkv_launches = serve_exact(
         emsaformer_bench_config(attn_backend='qkv'), args.swin_requests,
-        QKV_KERNELS, kernels, card, result, 'serving_qkv', args.profile)
+        QKV_KERNELS, kernels, card, result, 'serving_qkv', args.profile)[0]
     card_vs_cpu(result, emsaformer_bench_config(dtype='float32',
                                                 attn_backend='qkv'),
                 'qkv_card_vs_cpu', frame_seed=6)
@@ -3398,6 +4146,13 @@ def main():
     result['data_path_seconds'] = dict(data_s, total=sum(data_s.values()))
     print(json.dumps({'phase': 'data_path_seconds',
                       **result['data_path_seconds']}), flush=True)
+    bench_s = bench_sizes(args, kernels, card, result)
+    # the seconds the phases at the bench's batch sizes add to the script
+    result['bench_size_seconds'] = dict(bench_s, total=sum(bench_s.values()))
+    print(json.dumps({'phase': 'bench_size_seconds',
+                      **result['bench_size_seconds'],
+                      'data_path_seconds': result['data_path_seconds'][
+                          'total']}), flush=True)
 
     # each kernel's launches from the run of its own path (the grouping
     # from the EMSANet serving run)

@@ -19,10 +19,15 @@ KNOWN_BACKBONES = (
 def get_backbone(name: str, resnet_block=None, n_input_channels: int = 3,
                  normalization: str = 'batchnorm', activation: str = 'relu',
                  stochastic_depth=None, attn_backend: str = 'auto',
+                 remat: bool = False, attn_chunk_size: int = 0,
                  generator=None) -> Backbone:
     """`stochastic_depth` (Swin only): the last block's rate, None for
     the variant's default; `attn_backend` (Swin only; a ResNet takes
-    'auto'): one of ATTN_BACKENDS."""
+    'auto'): one of ATTN_BACKENDS; `remat` (both families): every block
+    recomputes its activations in the backward pass; `attn_chunk_size`
+    (Swin only; a ResNet ignores it, as the JAX package's
+    `build_model` passes it to Swin backbones only): images per
+    window-attention chunk, 0 for the whole batch."""
     name = name.lower()
     if name not in KNOWN_BACKBONES:
         raise ValueError(f"Unsupported backbone in this port: '{name}'")
@@ -34,11 +39,13 @@ def get_backbone(name: str, resnet_block=None, n_input_channels: int = 3,
         return get_resnet_backbone(name, block=resnet_block,
                                    n_input_channels=n_input_channels,
                                    normalization=normalization,
-                                   activation=activation,
+                                   activation=activation, remat=remat,
                                    generator=generator)
     return get_swin_backbone(name, n_input_channels=n_input_channels,
                              stochastic_depth=stochastic_depth,
-                             attn_backend=attn_backend, generator=generator)
+                             attn_backend=attn_backend, remat=remat,
+                             attn_chunk_size=attn_chunk_size,
+                             generator=generator)
 
 
 __all__ = ['ATTN_BACKENDS', 'Backbone', 'ResNetBackbone', 'SwinBackbone',

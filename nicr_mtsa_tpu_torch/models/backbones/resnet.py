@@ -18,7 +18,7 @@ class ResNetBackbone(Backbone):
     def __init__(self, block: str = 'basicblock',
                  layers: Tuple[int, ...] = (2, 2, 2, 2),
                  n_input_channels: int = 3, norm: str = 'batchnorm',
-                 act: str = 'relu', generator=None):
+                 act: str = 'relu', remat: bool = False, generator=None):
         super().__init__()
         self.block = get_block_name(block)
         self.n_input_channels = n_input_channels
@@ -39,7 +39,7 @@ class ResNetBackbone(Backbone):
                 self.add_module(name, make_block(
                     self.block, n_in=in_ch, planes=planes, stride=s,
                     use_downsample=(b == 0 and (s != 1 or in_ch != planes)),
-                    norm=norm, act=act, generator=generator))
+                    norm=norm, act=act, remat=remat, generator=generator))
                 names.append(name)
                 in_ch = planes
             self._layer_names.append(names)
@@ -65,8 +65,10 @@ class ResNetBackbone(Backbone):
 
 def get_resnet_backbone(name: str, block=None, n_input_channels: int = 3,
                         normalization: str = 'batchnorm',
-                        activation: str = 'relu',
+                        activation: str = 'relu', remat: bool = False,
                         generator=None) -> ResNetBackbone:
+    """resnet18 / resnet34 with `block` blocks; `remat`: each block
+    recomputes its activations in the backward pass."""
     name = name.lower()
     layers = {'resnet18': (2, 2, 2, 2), 'resnet34': (3, 4, 6, 3)}.get(name)
     if layers is None:
@@ -74,4 +76,4 @@ def get_resnet_backbone(name: str, block=None, n_input_channels: int = 3,
     return ResNetBackbone(block=get_block_name(block), layers=layers,
                           n_input_channels=n_input_channels,
                           norm=normalization, act=activation,
-                          generator=generator)
+                          remat=remat, generator=generator)

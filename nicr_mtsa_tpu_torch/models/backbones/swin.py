@@ -51,6 +51,7 @@ from ...ops.cuda.window_attention_qkv import window_attention_qkv
 from ...utils.dtypes import upcast
 from ..common import (Conv2d, FusedLayerNorm, Linear, bernoulli_keep,
                       cached_weight, trunc_normal_)
+from ..remat import Recomputed
 from .base import Backbone
 
 # window-attention backends at inference: the whole-sub-block kernel,
@@ -284,13 +285,22 @@ class WindowAttention(nn.Module):
         return y[:, :H, :W] if pad_h or pad_w else y
 
 
-class SwinBlock(nn.Module):
+class SwinBlock(Recomputed):
+    """A Swin block on (B, H, W, C); `attn_chunk_size` (cs): where B > cs
+    and cs divides B, the attention part runs cs images at a time (the
+    JAX package's `attn_chunk_size`: it bounds the attention's live
+    intermediates at large batches; a window never spans two images, so
+    the output is that of the whole batch at once). With `remat` set
+    (`SwinBackbone(remat=True)`) the block recomputes its activations in
+    the backward pass (models/remat.py)."""
+
     def __init__(self, dim: int, n_heads: int, window_size: int,
                  shift: int = 0, mlp_ratio: float = 4.0, v2: bool = False,
                  drop_path: float = 0.0, generator=None,
-                 attn_backend: str = 'auto'):
+                 attn_backend: str = 'auto', attn_chunk_size: int = 0):
         super().__init__()
         self.window_size, self.shift, self.v2 = window_size, shift, v2
+        self.attn_chunk_size = int(attn_chunk_size)
         self.drop_path = DropPath(drop_path)
         self.attn = WindowAttention(dim, n_heads, window_size, v2,
                                     generator, attn_backend)
@@ -301,13 +311,17 @@ class SwinBlock(nn.Module):
         self.mlp_fc2 = Linear(hidden, dim, generator=generator)
 
     def _attention_part(self, y):
+        B, cs = y.shape[0], self.attn_chunk_size
+        if cs and B > cs and B % cs == 0:
+            return torch.cat([self.attn.forward_image(y[i:i + cs], self.shift)
+                              for i in range(0, B, cs)])
         return self.attn.forward_image(y, self.shift)
 
     def _mlp_part(self, y):
         # exact (erf) GELU, as the JAX package's
         return self.mlp_fc2(F.gelu(self.mlp_fc1(y)))
 
-    def forward(self, x, generator=None):
+    def block_forward(self, x, generator=None):
         """x: (B, H, W, C); `generator` feeds DropPath in training."""
         dp = lambda y: self.drop_path(y, generator)
         if self.v2:                    # post-norm
@@ -378,7 +392,8 @@ class SwinBackbone(Backbone):
                  v2: bool = False, n_input_channels: int = 3,
                  multimodal: bool = False, embed_dim_depth: int = 32,
                  stochastic_depth: float = 0.2, generator=None,
-                 attn_backend: str = 'auto'):
+                 attn_backend: str = 'auto', remat: bool = False,
+                 attn_chunk_size: int = 0):
         super().__init__()
         self.embed_dim = embed_dim
         self.n_input_channels = n_input_channels
@@ -396,12 +411,15 @@ class SwinBackbone(Backbone):
             names = []
             for b in range(depth):
                 name = f'layer{i + 1}_block{b}'
-                self.add_module(name, SwinBlock(
+                block = SwinBlock(
                     embed_dim * 2 ** i, heads, window_size,
                     shift=0 if b % 2 == 0 else window_size // 2,
                     mlp_ratio=mlp_ratio, v2=v2,
                     drop_path=float(dp_rates[sum(depths[:i]) + b]),
-                    generator=generator, attn_backend=attn_backend))
+                    generator=generator, attn_backend=attn_backend,
+                    attn_chunk_size=attn_chunk_size)
+                block.remat = remat
+                self.add_module(name, block)
                 names.append(name)
             self._layer_names.append(names)
         for i in range(1, 4):
@@ -435,11 +453,15 @@ class SwinBackbone(Backbone):
 
 def get_swin_backbone(name: str, n_input_channels: int = 3,
                       stochastic_depth=None, generator=None,
-                      attn_backend: str = 'auto') -> SwinBackbone:
+                      attn_backend: str = 'auto', remat: bool = False,
+                      attn_chunk_size: int = 0) -> SwinBackbone:
     """swin-{t,s,b}[-v2], swin-t[-v2]-128, and the swin-multi-*
     variants with the merged rgb + depth patch embedder; stochastic
     depth (the last block's rate) defaults to the variant's (0.2, 0.3,
-    0.5 for t, s, b); `attn_backend`: one of ATTN_BACKENDS."""
+    0.5 for t, s, b); `attn_backend`: one of ATTN_BACKENDS; `remat`:
+    every block recomputes its activations in the backward pass;
+    `attn_chunk_size`: images per attention chunk (0: the whole
+    batch)."""
     name = name.lower()
     v2 = '-v2' in name
     multimodal = name.startswith('swin-multi')
@@ -462,4 +484,5 @@ def get_swin_backbone(name: str, n_input_channels: int = 3,
                         multimodal=multimodal,
                         stochastic_depth=(sd if stochastic_depth is None
                                           else stochastic_depth),
-                        generator=generator, attn_backend=attn_backend)
+                        generator=generator, attn_backend=attn_backend,
+                        remat=remat, attn_chunk_size=attn_chunk_size)

@@ -3,13 +3,16 @@ factorised 3x1/1x3 with channel dropout before the residual add),
 counterparts of nicr_mtsa_tpu/models/blocks.py. `forward(x, generator)`
 takes the generator of training mode's random parts (NonBottleneck1D's
 dropout, rate `dropout_p`, one draw per (sample, channel)); BasicBlock
-has none and does not read it."""
+has none and does not read it. `make_block(..., remat=True)` gives a
+block that recomputes its activations in the backward pass
+(models/remat.py), the parameters unchanged."""
 from typing import Optional
 
 import torch.nn as nn
 
 from .common import (BatchNorm, Conv2d, ConvNormAct, Dropout,
                      get_activation)
+from .remat import Recomputed
 
 KNOWN_BLOCKS = ('basicblock', 'nonbottleneck1d')
 
@@ -21,7 +24,7 @@ def get_block_name(name: Optional[str] = None) -> str:
     return name
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Recomputed):
     def __init__(self, n_in: int, planes: int, stride: int = 1,
                  use_downsample: bool = False, dilation: int = 1,
                  norm: str = 'batchnorm', act: str = 'relu',
@@ -37,14 +40,14 @@ class BasicBlock(nn.Module):
             if use_downsample else None)
         self.act = get_activation(act)
 
-    def forward(self, x, generator=None):
+    def block_forward(self, x, generator=None):
         out = self.act(self.norm1(self.conv1(x)))
         out = self.norm2(self.conv2(out))
         identity = x if self.downsample is None else self.downsample(x)
         return self.act(out + identity)
 
 
-class NonBottleneck1D(nn.Module):
+class NonBottleneck1D(Recomputed):
     def __init__(self, n_in: int, planes: int, stride: int = 1,
                  use_downsample: bool = False, dilation: int = 1,
                  norm: str = 'batchnorm', act: str = 'relu',
@@ -69,7 +72,7 @@ class NonBottleneck1D(nn.Module):
             if use_downsample else None)
         self.act = get_activation(act)
 
-    def forward(self, x, generator=None):
+    def block_forward(self, x, generator=None):
         act = self.act
         out = act(self.conv1_1(x))
         out = act(self.norm1(self.conv1_2(out)))
@@ -79,12 +82,14 @@ class NonBottleneck1D(nn.Module):
         return act(out + identity)
 
 
-def make_block(block_type: str, **kwargs) -> nn.Module:
+def make_block(block_type: str, remat: bool = False, **kwargs) -> nn.Module:
     """The block of `block_type`; `dropout_p` reaches NonBottleneck1D
-    only."""
+    only; `remat`: recompute its activations in the backward pass."""
     block_type = get_block_name(block_type)
     if block_type != 'nonbottleneck1d':
         kwargs.pop('dropout_p', None)
     cls = {'basicblock': BasicBlock,
            'nonbottleneck1d': NonBottleneck1D}[block_type]
-    return cls(**kwargs)
+    block = cls(**kwargs)
+    block.remat = remat
+    return block

@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.dtypes import upcast
+from .remat import recomputing
 
 KNOWN_NORMALIZATIONS = ('bn', 'batchnorm')
 KNOWN_ACTIVATIONS = ('relu', 'silu', 'swish')
@@ -111,7 +112,7 @@ class BatchNorm(nn.Module):
     y = (x - mean) * (rsqrt(var + eps) * weight) + bias in f32, one cast
     to x's dtype; the running statistics move by ra = 0.9 ra + 0.1 batch
     with the biased variance (`F.batch_norm` would use the unbiased
-    one)."""
+    one), once a step: not in a block's recompute (models/remat.py)."""
     momentum = 0.9
 
     def __init__(self, n_channels: int, eps: float = 1e-5):
@@ -139,6 +140,8 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
             + self.bias.view(1, -1, 1, 1)
+        if recomputing():
+            return y.to(x.dtype)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean

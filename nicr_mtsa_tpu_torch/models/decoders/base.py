@@ -3,13 +3,14 @@ both return `(main, side_outputs)`.
 
 - `DenseDecoderBase`: the dense ladder; each step is ConvNormAct 3x3 +
   n residual blocks (NonBottleneck1D's channel dropout in training,
-  drawn from the generator passed to `forward`) + 2x upsampling,
-  followed by skip fusion. In training mode every step that upsamples
-  also gives its features before the upsampling to a side head
-  (`side_head{i}`), and those predictions are the side outputs; the
-  side heads exist where the decoder is built with `side_heads=True`
-  (the parameters of the JAX package's `init(..., train=True)`). In
-  eval mode there are no side outputs.
+  drawn from the generator passed to `forward`; with `remat` they
+  recompute their activations in the backward pass, models/remat.py)
+  + 2x upsampling, followed by skip fusion. In training mode every
+  step that upsamples also gives its features before the upsampling
+  to a side head (`side_head{i}`), and those predictions are the side
+  outputs; the side heads exist where the decoder is built with
+  `side_heads=True` (the parameters of the JAX package's `init(...,
+  train=True)`). In eval mode there are no side outputs.
 - `MLPDecoderBase`: SegFormer-style; a 1x1 embedding of the context
   features and of each (selected, LayerNormed) skip, all upsampled to
   `downsampling_in_heads`, concatenated, fused by a 1x1 ConvNormAct,
@@ -52,7 +53,7 @@ class DenseDecoderModule(nn.Module):
     def __init__(self, n_in: int, n_channels: int,
                  block: str = 'nonbottleneck1d', n_blocks: int = 3,
                  norm: str = 'batchnorm', act: str = 'relu',
-                 upsampling=None, generator=None):
+                 upsampling=None, remat: bool = False, generator=None):
         super().__init__()
         self.conv = ConvNormAct(n_in, n_channels, 3, norm=norm, act=act,
                                 generator=generator)
@@ -60,7 +61,7 @@ class DenseDecoderModule(nn.Module):
         for i in range(n_blocks):
             self.add_module(f'block{i}', make_block(
                 block, n_in=n_channels, planes=n_channels, stride=1,
-                use_downsample=False, norm=norm, act=act,
+                use_downsample=False, norm=norm, act=act, remat=remat,
                 generator=generator))
         self.upsample = (Upsampling(upsampling, n_channels)
                          if upsampling is not None else None)
@@ -88,7 +89,8 @@ class DenseDecoderBase(nn.Module):
                  norm: str = 'batchnorm', act: str = 'relu',
                  upsampling: str = 'learned-3x3-zeropad',
                  prediction_upsampling: str = 'learned-3x3-zeropad',
-                 side_heads: bool = False, generator=None):
+                 side_heads: bool = False, remat: bool = False,
+                 generator=None):
         super().__init__()
         assert len(fusion_n_channels) == len(fusion_downsamplings)
         self.downsamplings = tuple(downsamplings)
@@ -109,7 +111,7 @@ class DenseDecoderBase(nn.Module):
                 n_prev, n_out, block=block, n_blocks=n_blocks, norm=norm,
                 act=act,
                 upsampling=upsampling if p['do_upsampling'] else None,
-                generator=generator))
+                remat=remat, generator=generator))
             fds = p['fusion_ds']
             if fds != -1:
                 self.add_module(f'fusion{fusion_idx}', EncoderDecoderFusion(
@@ -122,6 +124,12 @@ class DenseDecoderBase(nn.Module):
 
     def apply_task_head(self, x):
         raise NotImplementedError
+
+    def batch_statistics(self, x, skips, generator=None):
+        """In training, where nothing reads the decoder's output: the
+        part of the forward that moves BatchNorm statistics (the whole
+        ladder and the heads)."""
+        self(x, skips, generator)
 
     def forward(self, x, skips, generator=None):
         """x: (context_features, context_branches); skips:
@@ -195,15 +203,24 @@ class MLPDecoderBase(nn.Module):
     def apply_task_head(self, x):
         raise NotImplementedError
 
-    def forward(self, x, skips, generator=None):
-        """x: (context_features, context_branches); skips:
-        {str(ds): {modality: tensor}}; `generator` feeds the dropout in
-        training. Returns (main, ())."""
+    def _fused(self, x, skips):
         x, _ = x
         features = [self.main_upsample(self.main_embedding(x))]
         for i, ds in enumerate(self.fusion_downsamplings):
             sel = getattr(self, f'skip_fusion{i}')(skips[str(ds)], None)
             sel = getattr(self, f'skip_embedding{i}')(sel)
             features.append(getattr(self, f'skip_upsample{i}')(sel))
+        return self.fuse(features)
+
+    def forward(self, x, skips, generator=None):
+        """x: (context_features, context_branches); skips:
+        {str(ds): {modality: tensor}}; `generator` feeds the dropout in
+        training. Returns (main, ())."""
         return self.apply_task_head(
-            self.dropout(self.fuse(features), generator)), ()
+            self.dropout(self._fused(x, skips), generator)), ()
+
+    def batch_statistics(self, x, skips, generator=None):
+        """In training, where nothing reads the decoder's output: the
+        part of the forward that moves BatchNorm statistics (up to the
+        fuse's BatchNorm; the task head has none)."""
+        self._fused(x, skips)

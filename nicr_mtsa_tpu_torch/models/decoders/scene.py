@@ -21,6 +21,9 @@ class SceneClassificationDecoder(nn.Module):
                 0.0, 1.0 / math.sqrt(n_features), generator=generator)
             self.task_head.bias.zero_()
 
+    def batch_statistics(self, x, skips=None, generator=None):
+        """Nothing: the decoder has no BatchNorm."""
+
     def forward(self, x, skips=None, generator=None):
         cm_output, cm_context_features = x
         if cm_context_features:

@@ -1,7 +1,8 @@
 """Multi-task model composition: encoder -> context module -> one
 decoder per enabled task (counterpart of nicr_mtsa_tpu/models/
 multi_task.py `MultiTaskModelConfig` and `build_model`): the dense
-family (fused dual-backbone RGB-D encoder, dense decoders) and the MLP
+family (fused dual-backbone RGB-D encoder, or a single rgb or depth
+backbone; dense decoders) and the MLP
 family (a single 4-channel rgbd backbone such as the multimodal Swin,
 SegFormer-style MLP decoders, the dense-visual-embedding decoder).
 
@@ -75,6 +76,16 @@ class MultiTaskModelConfig:
     # core) or 'qkv' (the qkv product in torch, then attention over the
     # packed qkv; inference only), see backbones.ATTN_BACKENDS
     backbone_attn_backend: str = 'auto'
+    # activation recompute in training (models/remat.py; `bench.py
+    # --remat`): backbone_remat recomputes the encoder blocks of both
+    # families (ResNet/NBt1D residual blocks, Swin blocks),
+    # decoder_remat the dense decoders' residual blocks; the parameters
+    # are unchanged and weights interchange
+    backbone_remat: bool = False
+    decoder_remat: bool = False
+    # images per window-attention chunk in Swin blocks (0: the whole
+    # batch; `bench.py --attn-chunk`)
+    backbone_attn_chunk_size: int = 0
     dtype: str = 'float32'
 
     @property
@@ -83,7 +94,8 @@ class MultiTaskModelConfig:
 
 
 class MultiTaskModel(nn.Module):
-    """Composed network; `forward({'rgb', 'depth'})` (or `{'rgbd'}`)
+    """Composed network; `forward({'rgb', 'depth'})` (or `{'rgbd'}`, or
+    the one modality of a single rgb or depth backbone)
     returns {task: (main, side_outputs)} with NCHW tensors. Training
     mode is `train()`: every module that runs then trains (BatchNorm
     statistics, dropout, stochastic depth), and the dense decoders give
@@ -105,10 +117,13 @@ class MultiTaskModel(nn.Module):
     def forward(self, inputs: dict,
                 outputs: Optional[Sequence[str]] = None,
                 generator: Optional[torch.Generator] = None) -> dict:
-        """`outputs`: the task outputs to compute (None: all, as in
-        training); a decoder nobody reads does not run. `generator`
-        feeds the random parts of training mode (on the model's device,
-        or drawn on its own device and moved)."""
+        """`outputs`: the task outputs to compute (None: all); a decoder
+        nobody reads does not run, except in training mode, where it
+        moves its BatchNorm statistics (`batch_statistics`, no
+        gradient): the JAX package's training step returns them, and
+        XLA drops the rest of the branch. `generator` feeds the random
+        parts of training mode (on the model's device, or drawn on its
+        own device and moved)."""
         enc_out, skips = self.encoder(inputs, generator)
         # the context module consumes the (fused) primary modality
         x = self.context_module(enc_out['rgb'] if 'rgb' in enc_out
@@ -119,12 +134,20 @@ class MultiTaskModel(nn.Module):
                           ('scene', self.scene_decoder),
                           ('dense_visual_embedding',
                            self.embedding_decoder)):
-            if dec is not None and (outputs is None or task in outputs):
+            if dec is None:
+                continue
+            if outputs is None or task in outputs:
                 result[task] = dec(x, skips, generator)
+            elif self.training:
+                with torch.no_grad():
+                    dec.batch_statistics(x, skips, generator)
         return result
 
 
 def _build_encoder(c: MultiTaskModelConfig, g, rgbd_backbone=None):
+    """The fused rgb + depth encoder, or one backbone's (rgbd, or the
+    one of rgb and depth that the config names), as the JAX package's
+    `get_encoder`."""
     def backbone(name, n_in):
         return get_backbone(name, resnet_block=c.resnet_block,
                             n_input_channels=n_in,
@@ -132,13 +155,20 @@ def _build_encoder(c: MultiTaskModelConfig, g, rgbd_backbone=None):
                             activation=c.activation,
                             stochastic_depth=c.stochastic_depth,
                             attn_backend=c.backbone_attn_backend,
+                            remat=c.backbone_remat,
+                            attn_chunk_size=c.backbone_attn_chunk_size,
                             generator=g)
     if rgbd_backbone is not None:
         return Encoder(rgbd_backbone, c.skip_downsamplings)
     if c.backbone_rgbd is not None:
         return Encoder(backbone(c.backbone_rgbd, 4), c.skip_downsamplings)
-    if c.backbone_rgb is None or c.backbone_depth is None:
-        raise ValueError('this port builds rgb + depth or rgbd encoders')
+    if c.backbone_rgb is None and c.backbone_depth is None:
+        raise ValueError('Either `backbone_rgb` and/or `backbone_depth` or '
+                         '`backbone_rgbd` must be given.')
+    if c.backbone_depth is None:
+        return Encoder(backbone(c.backbone_rgb, 3), c.skip_downsamplings)
+    if c.backbone_rgb is None:
+        return Encoder(backbone(c.backbone_depth, 1), c.skip_downsamplings)
     return FusedRGBDEncoder(
         backbone(c.backbone_rgb, 3), backbone(c.backbone_depth, 1),
         fusion=c.encoder_fusion, act=c.activation,
@@ -193,7 +223,7 @@ def build_model(config: MultiTaskModelConfig, device=None,
         common.update(n_channels=c.decoder_n_channels,
                       downsamplings=c.decoder_downsamplings,
                       block=c.decoder_block, n_blocks=c.decoder_n_blocks,
-                      side_heads=train)
+                      side_heads=train, remat=c.decoder_remat)
     tasks = set(c.tasks)
     semantic = instance = scene = embedding = None
     if tasks & {'semantic', 'panoptic'}:

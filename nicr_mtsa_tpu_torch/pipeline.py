@@ -37,7 +37,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .configs import emsaformer_dve_v2
+from .configs import BENCH_CONFIGS, emsaformer_dve_v2
 from .data.fullres import get_fullres
 from .data.preprocessing.normalize import RGB_MEAN, RGB_STD
 from .models.encoder import Encoder
@@ -71,6 +71,17 @@ def _set_layout(model, device, channels_last=None) -> bool:
     if channels_last:
         model.to(memory_format=torch.channels_last)
     return channels_last
+
+
+def _input_key(model) -> Optional[str]:
+    """The one input of a single-backbone encoder ('rgbd', 'rgb' or
+    'depth' by its input channels), None for the fused rgb + depth
+    encoder."""
+    encoder = model.encoder
+    if not isinstance(encoder, Encoder):
+        return None
+    return {4: 'rgbd', 1: 'depth'}.get(encoder.backbone.n_input_channels,
+                                       'rgb')
 
 
 def depth_to_int32(depth) -> torch.Tensor:
@@ -113,10 +124,7 @@ class PanopticInferencePipeline:
         self._extra_output_tasks = tuple(extra_output_tasks)
         self._outputs = ('semantic', 'instance', 'scene') \
             + self._extra_output_tasks
-        encoder = model.encoder
-        self._input_key = (None if not isinstance(encoder, Encoder) else
-                           {4: 'rgbd', 1: 'depth'}.get(
-                               encoder.backbone.n_input_channels, 'rgb'))
+        self._input_key = _input_key(model)
 
     def preprocess(self, rgb_u8, depth_u16) -> dict:
         """NCHW {'rgb', 'depth'} in the compute dtype for a fused
@@ -166,45 +174,64 @@ class PanopticInferencePipeline:
         return outputs
 
 
-def emsanet_bench_config(input_size: Tuple[int, int] = (480, 640),
+def emsanet_bench_config(input_size: Optional[Tuple[int, int]] = None,
                          dtype: str = 'bfloat16', n_classes: int = 40,
-                         defer='all') -> MultiTaskModelConfig:
+                         defer='all', remat: bool = False,
+                         quick: bool = False) -> MultiTaskModelConfig:
     """The `emsanet-bench` configuration of the JAX package's bench.py:
     2x ResNet-34 NBt1D, context 512, decoders (512, 256, 128) x 3
-    blocks, learned-3x3-zeropad upsampling. Serving defers both
+    blocks, learned-3x3-zeropad upsampling, 480 x 640 unless
+    `input_size` says otherwise. Serving defers both
     semantic prediction upsamplings to the fused 4x finisher
     (`defer='all'`, `bench.py`'s default `--defer4x`); `defer=True` is
     `bench.py --no-defer4x`, the head applying the first upsampling
     and deferring the last to the fused 2x finisher; eval runs both in
-    the head (`defer=False`)."""
+    the head (`defer=False`). `remat` is `bench.py --remat`: the
+    encoder's and the dense decoders' residual blocks recompute their
+    activations in training. `quick` is `bench.py --quick`
+    (`bench.py:558-568`): 128 x 160, 2x ResNet-18 with basic blocks,
+    context 128, decoders (64, 48, 32) x 1 block."""
+    if input_size is None:
+        input_size = (128, 160) if quick else (480, 640)
     return MultiTaskModelConfig(
         tasks=('semantic', 'instance', 'orientation', 'scene'),
-        backbone_rgb='resnet34', backbone_depth='resnet34',
-        resnet_block='nonbottleneck1d', context_n_channels=512,
-        decoder_n_channels=(512, 256, 128), decoder_n_blocks=3,
+        backbone_rgb='resnet18' if quick else 'resnet34',
+        backbone_depth='resnet18' if quick else 'resnet34',
+        resnet_block='basicblock' if quick else 'nonbottleneck1d',
+        context_n_channels=128 if quick else 512,
+        decoder_n_channels=(64, 48, 32) if quick else (512, 256, 128),
+        decoder_n_blocks=1 if quick else 3,
         input_size=tuple(input_size), semantic_n_classes=n_classes,
         scene_n_classes=10, upsampling='learned-3x3-zeropad',
         prediction_upsampling='learned-3x3-zeropad',
-        defer_semantic_prediction_upsampling=defer, dtype=dtype)
+        defer_semantic_prediction_upsampling=defer,
+        backbone_remat=remat, decoder_remat=remat, dtype=dtype)
 
 
 def emsaformer_bench_config(input_size: Tuple[int, int] = (480, 640),
                             dtype: str = 'bfloat16',
-                            attn_backend: str = 'auto'
+                            attn_backend: str = 'auto',
+                            remat: bool = False, attn_chunk: int = 0,
+                            model: str = 'emsaformer_dve_v2'
                             ) -> MultiTaskModelConfig:
-    """The `emsaformer_dve_v2` preset (40 classes) as the JAX package's
-    `bench.py --model emsaformer_dve_v2` serves it: multimodal
+    """The `emsaformer_dve_v2` preset (40 classes; `model=
+    'emsaformer_dve'`: the Swin v1 preset with 7 x 7 windows) as the JAX
+    package's `bench.py --model emsaformer_dve_v2` serves it: multimodal
     SwinV2-T-128 RGB-D, MLP decoders, bilinear upsampling, both semantic
     prediction upsamplings deferred to the fused bilinear 4x finisher.
     `attn_backend='qkv'` is `bench.py --attn-qkv`: each Swin block's
     qkv product in torch and attention over the packed qkv
     (ops/cuda/window_attention_qkv.py) in place of the whole-sub-block
-    kernel."""
+    kernel. `remat` is `bench.py --remat` (the Swin blocks recompute
+    their activations in training; the MLP decoders have no residual
+    blocks), `attn_chunk` is `--attn-chunk` (images per window-attention
+    chunk, 0 for the whole batch)."""
     return dataclasses.replace(
-        emsaformer_dve_v2(n_classes=40, input_size=tuple(input_size),
-                          dtype=dtype),
+        BENCH_CONFIGS[model](n_classes=40, input_size=tuple(input_size),
+                             dtype=dtype),
         defer_semantic_prediction_upsampling='all',
-        backbone_attn_backend=attn_backend)
+        backbone_attn_backend=attn_backend, backbone_remat=remat,
+        backbone_attn_chunk_size=attn_chunk)
 
 
 def serving_postprocessing(n_classes: int = 40, n_thing: int = 8,
@@ -321,15 +348,18 @@ class MultiTaskPipeline:
         self.device = next(model.parameters()).device
         self._compute_dtype = compute_dtype
         self._channels_last = _set_layout(model, self.device, channels_last)
-        encoder = model.encoder
-        self._rgbd = (isinstance(encoder, Encoder)
-                      and encoder.backbone.n_input_channels == 4)
+        self._input_key = _input_key(model)
+        self._rgbd = self._input_key == 'rgbd'
+        # the outputs the training losses read (the panoptic helper
+        # computes none)
+        self._loss_tasks = tuple(t for t in task_helpers if t != 'panoptic')
 
     def model_inputs(self, batch: dict) -> dict:
         """The model's NCHW inputs in the compute dtype (channels-last on
         the card): {'rgb', 'depth'}, or {'rgbd'} for a 4-channel
         backbone, concatenated from 'rgb' and 'depth' where the batch
-        carries them apart (as every eval batch does)."""
+        carries them apart (as every eval batch does), or the one
+        modality of a single 3- or 1-channel backbone."""
         fmt = (torch.channels_last if self._channels_last
                else torch.contiguous_format)
         dt = self._compute_dtype
@@ -338,7 +368,8 @@ class MultiTaskPipeline:
             inputs = {'rgbd': torch.cat([batch['rgb'].to(dt),
                                          batch['depth'].to(dt)], dim=1)}
         else:
-            keys = ('rgbd',) if self._rgbd else ('rgb', 'depth')
+            keys = (('rgb', 'depth') if self._input_key is None
+                    else (self._input_key,))
             inputs = {k: batch[k].to(dt) for k in keys if k in batch}
         return {k: v.contiguous(memory_format=fmt) for k, v in inputs.items()}
 
@@ -386,7 +417,8 @@ class MultiTaskPipeline:
     def train_step(self, state: dict, batch: dict,
                    generator: Optional[torch.Generator] = None):
         """One optimizer step: forward in training mode (random parts
-        from `generator`, on the model's device), losses, gradients
+        from `generator`, on the model's device; a head no loss reads
+        moves only its BatchNorm statistics), losses, gradients
         (left in the parameters' `.grad`), the AdamW update and the new
         BatchNorm statistics, in place. Returns (state, losses) with
         losses detached, 'total_loss' included; no host sync."""
@@ -395,6 +427,7 @@ class MultiTaskPipeline:
         for p in params.values():
             p.grad = None
         predictions = self.model(self.model_inputs(batch),
+                                 outputs=self._loss_tasks,
                                  generator=generator)
         losses = self.compute_losses(batch, predictions)
         total = self.total_loss(losses)
@@ -497,25 +530,28 @@ class MultiTaskPipeline:
 
 
 def emsanet_train_config(input_size: Tuple[int, int] = (480, 640),
-                         dtype: str = 'bfloat16',
-                         n_classes: int = 40) -> MultiTaskModelConfig:
+                         dtype: str = 'bfloat16', n_classes: int = 40,
+                         remat: bool = False) -> MultiTaskModelConfig:
     """`emsanet-bench` as `bench.py --train` trains it (the default
     model): `emsanet_bench_config` with the semantic prediction
-    upsampling in the head (`defer=False`), no remat."""
-    return emsanet_bench_config(input_size, dtype, n_classes, defer=False)
+    upsampling in the head (`defer=False`); `remat`: `--remat`."""
+    return emsanet_bench_config(input_size, dtype, n_classes, defer=False,
+                                remat=remat)
 
 
 def emsaformer_train_config(input_size: Tuple[int, int] = (480, 640),
-                            dtype: str = 'bfloat16',
+                            dtype: str = 'bfloat16', remat: bool = False,
                             **overrides) -> MultiTaskModelConfig:
     """The `emsaformer_dve_v2` preset (40 classes) as `bench.py --train
-    --model emsaformer_dve_v2` trains it: no deferred upsampling, no
-    remat; `overrides` replace further fields (for example
+    --model emsaformer_dve_v2` trains it: no deferred upsampling;
+    `remat`: `--remat` (the Swin blocks recompute their activations);
+    `overrides` replace further fields (for example
     `stochastic_depth=0.0, decoder_dropout=0.0`)."""
     return dataclasses.replace(
         emsaformer_dve_v2(n_classes=40, input_size=tuple(input_size),
                           dtype=dtype),
-        defer_semantic_prediction_upsampling=False, **overrides)
+        defer_semantic_prediction_upsampling=False, backbone_remat=remat,
+        **overrides)
 
 
 def train_task_helpers(n_classes: int = 40, n_thing: int = 8,

@@ -24,6 +24,11 @@ takes a gradient tree or an updated parameter tree of the JAX package
 to the port's names (`flax_tree_to_torch`), and its inverse takes the
 port's tensors into a flax tree (`torch_to_flax_variables`).
 
+A model with recompute (`backbone_remat`, `decoder_remat`) or
+attention chunking has the tree of the model without: flax's `nn.remat`
+keeps the blocks' names and the port's `remat` is a plain attribute, so
+the variables of such a JAX model map over unchanged (and back).
+
 Strict: every leaf is consumed and every torch parameter and buffer is
 filled, with matching shapes, or it raises. So a tree and a model must
 come from the same mode: a training init of the JAX package

@@ -54,13 +54,15 @@ QUICK = dict(backbone_rgb='resnet18', backbone_depth='resnet18',
 SIDE = ('semantic_decoder.side_head', 'instance_decoder.side_head')
 
 
-def jax_pipeline(dtype=jnp.float32):
+def jax_pipeline(dtype=jnp.float32, remat: bool = False):
+    """`remat`: `bench.py --remat` (backbone and decoder remat)."""
     cfg = JConfig(
         tasks=('semantic', 'instance', 'orientation', 'scene'),
         input_size=(H, W), semantic_n_classes=40, scene_n_classes=10,
         upsampling='learned-3x3-zeropad',
         prediction_upsampling='learned-3x3-zeropad',
-        defer_semantic_prediction_upsampling=False, dtype=dtype, **QUICK)
+        defer_semantic_prediction_upsampling=False, dtype=dtype,
+        backbone_remat=remat, decoder_remat=remat, **QUICK)
     capture = optax.GradientTransformation(
         lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
         lambda u, s, p=None: (u, u))
@@ -77,10 +79,11 @@ def jax_pipeline(dtype=jnp.float32):
         optimizer=optax.chain(capture, optax.adamw(1e-4)))
 
 
-def port_model(train: bool = True):
-    """The port's model (f32 parameters), dropout rates 0."""
-    cfg = dataclasses.replace(emsanet_train_config((H, W), 'float32'),
-                              **QUICK)
+def port_model(train: bool = True, remat: bool = False):
+    """The port's model (f32 parameters), dropout rates 0; `remat`:
+    `emsanet_train_config(remat=True)`."""
+    cfg = dataclasses.replace(
+        emsanet_train_config((H, W), 'float32', remat=remat), **QUICK)
     model = torch_build(cfg, device='cpu', train=train)
     for m in model.modules():
         if isinstance(m, Dropout):
@@ -122,13 +125,13 @@ def variables(tmpl):
     return v
 
 
-def jax_step(v, dtype=jnp.float32):
+def jax_step(v, dtype=jnp.float32, remat: bool = False):
     """One JAX training step from variables `v`, computing in `dtype`
-    (float64 under `jax.enable_x64`). Returns (losses, gradients, new
-    params, new batch stats), the trees as numpy under the port's
-    names."""
+    (float64 under `jax.enable_x64`), with `remat` as `jax_pipeline`.
+    Returns (losses, gradients, new params, new batch stats), the trees
+    as numpy under the port's names."""
     with jax.enable_x64(dtype == jnp.float64):
-        jp = jax_pipeline(dtype)
+        jp = jax_pipeline(dtype, remat)
         cast = lambda t: jax.tree_util.tree_map(   # noqa: E731
             lambda a: jnp.asarray(a, dtype), t)
         params = cast(v['params'])
@@ -149,12 +152,12 @@ def jax_step(v, dtype=jnp.float32):
                                       'batch_stats'))
 
 
-def port_step(v, dtype: str = 'float32'):
+def port_step(v, dtype: str = 'float32', remat: bool = False):
     """One step of the port from variables `v` on the same batch,
     computing in `dtype` ('float64': parameters and statistics in f64
-    too). Returns (losses, train state, kernel launches of the step);
-    the gradients stay in `.grad`."""
-    model = port_model()
+    too), with `remat` as `port_model`. Returns (losses, train state,
+    kernel launches of the step); the gradients stay in `.grad`."""
+    model = port_model(remat=remat)
     fw.load_flax_variables(model, v)
     if dtype == 'float64':
         model.double()

@@ -276,6 +276,45 @@ def test_train_slice_modules_import_with_jax_blocked():
     assert res.stdout.strip() == 'False'
 
 
+# the modules of the remat / presets slice (activation recompute, the
+# six bench.py presets and --quick)
+REMAT_SLICE_MODULES = (
+    'nicr_mtsa_tpu_torch.configs',
+    'nicr_mtsa_tpu_torch.models.remat',
+    'nicr_mtsa_tpu_torch.models.blocks',
+    'nicr_mtsa_tpu_torch.models.backbones',
+    'nicr_mtsa_tpu_torch.models.decoders.base',
+    'nicr_mtsa_tpu_torch.pipeline',
+)
+
+
+def test_remat_slice_modules_import_with_jax_blocked():
+    """The remat and presets slice's modules import, and build a remat
+    config of every preset, with jax, flax, optax and the JAX package
+    made unimportable."""
+    code = (
+        'import sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        '        if name.split(".")[0] in ("jax", "flax", "optax", '
+        '"jaxlib", "nicr_mtsa_tpu"):\n'
+        '            raise ImportError("blocked: " + name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import importlib\n'
+        f'for m in {REMAT_SLICE_MODULES!r}:\n'
+        '    importlib.import_module(m)\n'
+        'from nicr_mtsa_tpu_torch.configs import BENCH_CONFIGS\n'
+        'from nicr_mtsa_tpu_torch.pipeline import emsanet_bench_config\n'
+        'print(len(BENCH_CONFIGS), emsanet_bench_config(quick=True, '
+        'remat=True).decoder_remat)\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == '6 True'
+
+
 def _core_args(requires_grad=False):
     q = torch.zeros(2, 64, 32, requires_grad=requires_grad)
     return q, torch.zeros(2, 64, 32), torch.zeros(2, 64, 32), \
@@ -521,5 +560,37 @@ def test_chip_smoke_data_path_phases_fail_without_card(phase):
              'serve_stream': lambda: cs.serve_stream(
                  args, kernels, 'no card', {'serving': {
                      'frames_per_s': 1.0}})}
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[phase]()
+
+
+@pytest.mark.parametrize('phase', ['latency', 'serve_bench', 'stream_bench',
+                                   'eval_bench', 'train_bench'])
+def test_chip_smoke_bench_size_phases_fail_without_card(phase):
+    """The phases at the bench's batch sizes (latency, serving, eval,
+    training with and without remat) raise on a machine without a
+    card: none falls back to the CPU."""
+    import argparse
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    try:
+        cs = importlib.import_module('chip_smoke')
+    finally:
+        sys.path.remove(str(ROOT))
+    from nicr_mtsa_tpu_torch.ops import cuda as kernels
+    from nicr_mtsa_tpu_torch.pipeline import emsanet_bench_config
+    args = argparse.Namespace(requests=1, train_steps=1, profile=False)
+    calls = {
+        'latency': lambda: cs.latency('no card', {}),
+        'serve_bench': lambda: cs.serve_exact(
+            emsanet_bench_config(quick=True), 1, cs.QUICK_KERNELS, kernels,
+            'no card', {}, 'serve_bench', B=cs.BENCH_SERVE_B['emsanet']),
+        'stream_bench': lambda: cs.serve_stream(
+            args, kernels, 'no card', {}, 'stream_bench',
+            B=cs.BENCH_STREAM_B, n_requests=1, checks=False),
+        'eval_bench': lambda: cs.eval_bench(kernels, 'no card', {}),
+        'train_bench': lambda: cs.train_bench(args, kernels, 'no card', {},
+                                              'emsanet'),
+    }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[phase]()
