@@ -289,10 +289,53 @@ are printed as `bench_size_seconds`):
    remat step (forward and backward) likewise, dbias against its plain
    version.
 
+And the training loop of examples/train_synthetic.py (its seconds are
+printed as `train_loop_seconds`):
+
+32. write 16 train and 8 valid frames of 960 x 1280 (twice the model's
+   size in each axis, as the JAX example builds its dataset) from the
+   port's SyntheticRGBDDataset (11 classes with void, classes 1-3
+   things with an orientation, 5 scenes) as a directory dataset with
+   the port's PNG writer (the row filters it used printed), then train
+   the full-width `emsanet_train_config` with the example's heads
+   (bf16, AdamW 3e-4, DWA over its five loss keys) 3 epochs of 2 steps
+   at B=8, 480 x 640: the example's training preprocessing with its
+   augmentations (each sample from the loader's RandomState of seed,
+   pass and index) through the threaded loader and prefetch_to_device,
+   an eager validation epoch after each (the bench's eval
+   preprocessing, the 960 x 1280 ground truth kept), the checkpoint
+   policy on the validation mIoU and PQ, a checkpoint with the DWA
+   state when it says so, the CSV log. Gates: losses finite; DWA's
+   weights 1 for steps 1-5 and at step 6 the DWA formula of the two
+   recorded epoch means (summing to 5); each validation epoch launches
+   exactly LOOP_VALID_KERNELS (1 crop+resize+reduce, 1 score/argmax
+   reduce, 2 groupings, 2 intersection histograms; every other wrapper
+   none; the training steps none), and its eager states equal the
+   fused eval step's on the same batches (phase 6's rule, an
+   angular-error sum also within LOOP_ANGLE_ATOL a counted angle); the
+   first validation step's calls at new shapes against their plain
+   versions, timed: row 5's 2x upscale ((8, 10, 480, 640) bf16 -> 960
+   x 1280; idx exact, scores within rtol 1e-5) and row 11's two
+   (8, 1228800) slot-map pairs (exact, also against torch.bincount);
+   the step after each checkpoint taken also by a pipeline loaded from
+   it (another seed's weights overwritten) under deterministic cuDNN
+   and algorithms: losses, parameters, statistics, AdamW moments, the
+   DWA state and the generators bit-equal, the epoch and DWA state
+   back from `extra`; one f32 validation batch (B=2) postprocessed and
+   scored on the card and on the CPU from the card's raw outputs (the
+   rule above, the MAE against the GT instances included), the card's
+   side with one image's orientations opposite to its GT failing it.
+   Printed: host-inclusive train and validation frames/s (all epochs,
+   and the last alone), the host ms a sample of the read and of each
+   transform, peak memory, checkpoint size and save / load ms; with
+   `--profile` one training and one validation step on a resident
+   batch.
+
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
 chiprun_out/chip_smoke.json. Needs no network and no JAX."""
 import argparse
+import atexit
 import contextlib
 import gc
 import json
@@ -2625,19 +2668,39 @@ def evaluate(args, kernels, card, result):
     return launches, pipe, maps
 
 
-def _states_equal(card, cpu, name=''):
-    """Integer states (and the f32 TP/FN/FP counts) exactly, the f32
-    IoU and angular-error sums within rtol 1e-5."""
-    if isinstance(card, dict):
-        for k in card:
-            _states_equal(card[k], cpu[k], f'{name}/{k}')
-        return
-    card = card.cpu()
+def _states_equal(card, cpu, name='', angle_atol=0.0):
+    """None where the metric states `card` equal `cpu`, else where and
+    how they first differ: integer states (and the f32 TP/FN/FP counts)
+    exactly, the f32 IoU and angular-error sums within rtol 1e-5. With
+    `angle_atol` an angular-error sum may also differ by that many rad a
+    counted angle (its state's `n_elements`)."""
+    n = cpu.get('n_elements')
+    atol = 0.0 if n is None else angle_atol * int(n)
+    for k in card:
+        where = f'{name}/{k}'
+        if isinstance(card[k], dict):
+            diff = _states_equal(card[k], cpu[k], where, angle_atol)
+        else:
+            diff = _state_difference(card[k].cpu(), cpu[k].cpu(), where,
+                                     atol)
+        if diff:
+            return diff
+    return None
+
+
+def _state_difference(a, b, name, angle_atol):
+    """One state tensor by `_states_equal`'s rule (`angle_atol` in rad,
+    for an angular-error sum)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return f'{name}: {a.dtype} {tuple(a.shape)} against ' \
+               f'{b.dtype} {tuple(b.shape)}'
     if name.endswith(('iou_per_class', 'sum_angular_error')):
-        torch.testing.assert_close(card, cpu, rtol=1e-5, atol=0,
-                                   msg=lambda m: f'{name}: {m}')
-    elif not torch.equal(card, cpu):
-        fail(f'eval card vs CPU: state {name} differs')
+        atol = angle_atol if name.endswith('sum_angular_error') else 0.0
+        if not torch.allclose(a, b, rtol=1e-5, atol=atol):
+            return f'{name}: {a} against {b}'
+    elif not torch.equal(a, b):
+        return f'{name}: differs'
+    return None
 
 
 def _to_cpu(t):
@@ -2663,7 +2726,9 @@ def eval_card_vs_cpu(pipe, result):
         batch_cpu = {k: _to_cpu(v) for k, v in batch.items()}
         _, _, on_cpu = pipe.evaluate_outputs(
             raw_cpu, batch_cpu, pipe.empty_metric_states('cpu'))
-    _states_equal(on_card, on_cpu)
+    diff = _states_equal(on_card, on_cpu)
+    if diff:
+        fail(f'eval card vs CPU: {diff}')
     counts = {'semantic_pixels': int(on_cpu['semantic'].sum()),
               'panoptic_tp': float(on_cpu['panoptic']['pq'][
                   'tp_per_class'].sum()),
@@ -2802,8 +2867,10 @@ def swin_eval_card_vs_cpu(result):
         del raw
         preds_cpu, losses_cpu, on_cpu = pipe.evaluate_outputs(
             raw_cpu, batch_cpu, pipe.empty_metric_states('cpu'), keys)
-    _states_equal({k: v for k, v in on_card.items() if k != DVE},
-                  {k: v for k, v in on_cpu.items() if k != DVE})
+    diff = _states_equal({k: v for k, v in on_card.items() if k != DVE},
+                         {k: v for k, v in on_cpu.items() if k != DVE})
+    if diff:
+        fail(f'swin eval card vs CPU: {diff}')
     ties = {}
     for state_key, prefix in DVE_PREFIXES.items():
         n, not_tie = _retrieval_near_ties(
@@ -3165,7 +3232,9 @@ def eval_dataset_card_vs_cpu(result):
         _, _, on_cpu = pipe.evaluate_outputs(
             _tree_to_cpu(raw), _tree_to_cpu(batch),
             pipe.empty_metric_states('cpu'))
-    _states_equal(on_card, on_cpu)
+    diff = _states_equal(on_card, on_cpu)
+    if diff:
+        fail(f'eval_dataset card vs CPU: {diff}')
     counts = {'semantic_pixels': int(on_cpu['semantic'].sum()),
               'panoptic_fn': float(on_cpu['panoptic']['pq'][
                   'fn_per_class'].sum()),
@@ -4012,6 +4081,546 @@ def bench_sizes(args, kernels, card, result):
     return secs
 
 
+# --- phase 32: the training loop of examples/train_synthetic.py ----------
+
+LOOP_HW = (480, 640)                  # the model's input size
+LOOP_FRAMES = {'train': 16, 'valid': 8}
+LOOP_B = 8
+LOOP_EPOCHS = 3
+LOOP_CKPT_METRICS = ('valid_semantic_miou', 'valid_panoptic_all_deeplab_pq')
+# a validation step postprocesses and scores as the fused eval step does
+LOOP_VALID_KERNELS = DATASET_EVAL_KERNELS
+# rad a counted angle by which the card's and the CPU's angular-error sums
+# may differ: each term is the angle of an f32 mean of an instance's
+# biternions, summed in another order on the card, and a sum of small
+# terms moves by more than 1e-5 of itself
+LOOP_ANGLE_ATOL = 1e-5
+PNG_FILTERS = ('None', 'Sub', 'Up', 'Average', 'Paeth')
+
+
+def _loop_write_dataset(root):
+    """16 train and 8 valid frames of the port's SyntheticRGBDDataset at
+    twice the model's size in each axis (960 x 1280, as the JAX example
+    builds its dataset), written by the port's `write_directory_dataset`.
+    Returns the seconds each split took."""
+    from nicr_mtsa_tpu_torch.data import (DatasetConfig, SemanticLabel,
+                                          SemanticLabelList,
+                                          write_directory_dataset)
+    from nicr_mtsa_tpu_torch.examples.train_synthetic import IS_THING
+    from nicr_mtsa_tpu_torch.testing import SyntheticRGBDDataset
+    H, W = LOOP_HW
+    synth = SyntheticRGBDDataset(n_samples=sum(LOOP_FRAMES.values()),
+                                 height=2 * H, width=2 * W,
+                                 n_classes_with_void=len(IS_THING))
+    config = DatasetConfig(
+        SemanticLabelList([SemanticLabel('void')] + [
+            SemanticLabel(f'class{i}', is_thing=t, use_orientation=t)
+            for i, t in enumerate(IS_THING) if i]),
+        scene_label_list=tuple(f'scene{i}' for i in range(1, 6)))
+    secs, start = {}, 0
+    for split, n in LOOP_FRAMES.items():
+        t0 = time.perf_counter()
+        write_directory_dataset(root, split, [synth.raw(start + i)
+                                              for i in range(n)], config)
+        secs[split] = time.perf_counter() - t0
+        start += n
+    return secs
+
+
+def _png_row_filters(root):
+    """How many rows of the dataset's PNG files use each row filter."""
+    import struct
+    import zlib
+    counts = dict.fromkeys(PNG_FILTERS, 0)
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith('.png'):
+                continue
+            with open(os.path.join(dirpath, name), 'rb') as f:
+                data = f.read()
+            pos, idat, header = 8, [], None
+            while pos < len(data):
+                n, kind = struct.unpack('>I4s', data[pos:pos + 8])
+                body = data[pos + 8:pos + 8 + n]
+                if kind == b'IHDR':
+                    header = struct.unpack('>IIBB', body[:10])
+                elif kind == b'IDAT':
+                    idat.append(body)
+                pos += 12 + n
+            width, height, depth, colour = header
+            row = 1 + width * (3 if colour == 2 else 1) * depth // 8
+            raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
+            kinds = raw.reshape(height, row)[:, 0]
+            for k, c in zip(*np.unique(kinds, return_counts=True)):
+                counts[PNG_FILTERS[k]] += int(c)
+    return counts
+
+
+def _loop_pipeline(dtype='bfloat16', seed=0, model=None):
+    """The example's pipeline (`make_pipeline`) around the full-width
+    `emsanet_train_config` with the example's heads (10 classes plus
+    void, classes 1-3 things, 5 scenes), the model built on the card from
+    `seed` unless given."""
+    import dataclasses
+    from nicr_mtsa_tpu_torch.examples.train_synthetic import (
+        IS_THING, SCENE_N_CLASSES, make_pipeline)
+    from nicr_mtsa_tpu_torch.models.multi_task import build_model
+    from nicr_mtsa_tpu_torch.pipeline import emsanet_train_config
+    cfg = dataclasses.replace(
+        emsanet_train_config(LOOP_HW, dtype, n_classes=len(IS_THING) - 1),
+        scene_n_classes=SCENE_N_CLASSES)
+    if model is None:
+        model = build_model(cfg, device='cuda', seed=seed, train=True)
+    return make_pipeline(model, cfg)
+
+
+def _eager_states(pipe):
+    """The metric states the helpers' eager steps accumulated, with the
+    instance helper's MAE against the GT instances."""
+    states = {n: h._eager_states for n, h in pipe.task_helpers.items()}
+    states['mae_gt'] = pipe.task_helpers['instance']._mae_gt.state
+    return states
+
+
+def _train_state_equal(a, b, where):
+    for group in ('params', 'batch_stats'):
+        for n, t in a[group].items():
+            if not torch.equal(t, b[group][n]):
+                fail(f'{where}: {group} {n} differs')
+    for moments in ('mu', 'nu'):
+        for n, t in getattr(a['opt_state'], moments).items():
+            if not torch.equal(t, getattr(b['opt_state'], moments)[n]):
+                fail(f'{where}: AdamW {moments} of {n} differs')
+    if int(a['step']) != int(b['step']) \
+            or int(a['opt_state'].count) != int(b['opt_state'].count):
+        fail(f'{where}: step counts differ')
+
+
+def _resumed_step(live, resumed, batch, generator, batch_idx, where):
+    """The next training step of the live pipeline and of the one loaded
+    from its checkpoint, on one batch from generators in one state, under
+    deterministic cuDNN and algorithms: losses, parameters, statistics,
+    AdamW moments, the DWA state and the generators bit-equal."""
+    (pa, sa), (pb, sb) = live, resumed
+    twin = torch.Generator('cuda')
+    twin.set_state(generator.get_state())
+    with _deterministic(algorithms=True):
+        sa, la = pa.train_step(sa, batch, generator, batch_idx=batch_idx)
+        sb, lb = pb.train_step(sb, batch, twin, batch_idx=batch_idx)
+    bad = [k for k in la if not torch.equal(la[k], lb[k])]
+    if bad:
+        fail(f'{where}: losses {bad} differ after the resume')
+    _train_state_equal(sa, sb, where)
+    if pa.loss_weighting.state_dict() != pb.loss_weighting.state_dict():
+        fail(f'{where}: the DWA state differs after the resume')
+    if not torch.equal(generator.get_state(), twin.get_state()):
+        fail(f'{where}: the generators differ after the resume')
+    return sa, la
+
+
+class _LoopWatch:
+    """The pipeline as the example's epoch routines see it in phase 32.
+    Each train step's DWA weights (as they stood before it) and losses
+    are kept; the first step after a checkpoint is also taken by the
+    pipeline loaded from it (`resume`), between syncs, its seconds kept
+    apart; each validation step's batch and losses are kept. Everything
+    else is the pipeline's."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.weights, self.losses, self.batches = [], [], []
+        self.resume, self.resumed_s = None, 0.0
+        self.last_batch = self.valid_losses = None
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def train_step(self, state, batch, generator, batch_idx=0):
+        self.weights.append(dict(self.pipe.loss_weighting.weights))
+        if self.resume is None:
+            state, losses = self.pipe.train_step(state, batch, generator,
+                                                 batch_idx=batch_idx)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses = _resumed_step(
+                (self.pipe, state), self.resume, batch, generator,
+                batch_idx, f'train_loop resume at step {len(self.losses)}')
+            torch.cuda.synchronize()
+            self.resumed_s += time.perf_counter() - t0
+            self.resume = None
+        self.losses.append(losses)
+        self.last_batch = batch
+        return state, losses
+
+    def validation_step(self, batch, batch_idx=0):
+        out = self.pipe.validation_step(batch, batch_idx)
+        self.batches.append(batch)
+        self.valid_losses = out[1]
+        return out
+
+
+def _loop_card_vs_cpu(root, state):
+    """One f32 validation batch (the first 2 valid frames) on the card
+    and, from the card's raw outputs, on the CPU: the eager helpers'
+    states by phase 6's rule, the MAE against the GT instances included
+    (its sums also within LOOP_ANGLE_ATOL a counted angle); the card's
+    side with image 0's orientations opposite to its GT must fail that
+    rule."""
+    from nicr_mtsa_tpu_torch.data import (get_dataset, move_batch_to_device,
+                                          mt_collate)
+    from nicr_mtsa_tpu_torch.examples.train_synthetic import IS_THING
+    from nicr_mtsa_tpu_torch.parallel import load_train_state
+    ds = get_dataset(root, 'valid', preprocessor=_dataset_compose(
+        IS_THING, *LOOP_HW))
+    host = mt_collate([ds[i] for i in range(2)])
+    pipe = _loop_pipeline('float32', seed=0)
+    load_train_state(pipe.create_train_state(), state)
+    batch = move_batch_to_device(host, device='cuda')
+    pipe.model.eval()
+    with torch.inference_mode():
+        raw = pipe.model(pipe.model_inputs(batch))
+
+    def states(raw_outputs, on_batch):
+        """The eager helpers' states of one validation step on given
+        raw outputs, in helpers of their own."""
+        p = _loop_pipeline('float32', model=pipe.model)
+        p.validate_outputs(raw_outputs, on_batch)
+        return _eager_states(p)
+
+    on_card = states(raw, batch)
+    raw_cpu = {k: _to_cpu(v) for k, v in raw.items()}
+    on_cpu = states(raw_cpu, move_batch_to_device(host, device='cpu'))
+    diff = _states_equal(on_card, on_cpu, angle_atol=LOOP_ANGLE_ATOL)
+    if diff:
+        fail(f'train_loop card vs CPU: {diff}')
+    # image 0's orientations opposite to its GT under the GT orientation
+    # foreground: each of its GT instances reads the largest error, pi,
+    # so the MAE's sum can only grow
+    (heat, offset, ori), side = raw['instance']
+    turned = ori.clone()
+    turned[0] = torch.where(batch['orientation_foreground'][0],
+                            -batch['orientation'][0], ori[0])
+    faulty = dict(raw, instance=((heat, offset, turned), side))
+    planted = _states_equal(states(faulty, batch), on_cpu,
+                            angle_atol=LOOP_ANGLE_ATOL)
+    if planted is None:
+        fail('train_loop card vs CPU: the planted orientation fault was '
+             'not caught')
+    n_mae = int(on_cpu['mae_gt']['n_elements'])
+    if n_mae == 0:
+        fail('train_loop card vs CPU: no GT instance was scored by the '
+             'MAE against the GT instances')
+    return dict(states='equal', mae_gt_instances=n_mae,
+                mae_gt_sum_rad=float(on_cpu['mae_gt']['sum_angular_error']),
+                planted_fault_caught=planted)
+
+
+def _loop_host_ms(ds, n=4):
+    """Host ms a sample of the file read and of each preprocessing step,
+    over the first `n` samples (augmentations from RandomState(i))."""
+    compose, ds.preprocessor = ds.preprocessor, None
+    ms = {'read': 0.0}
+    n = min(n, len(ds))
+    try:
+        for i in range(n):
+            t0 = time.perf_counter()
+            sample = ds[i]
+            ms['read'] += time.perf_counter() - t0
+            rng = np.random.RandomState(i)
+            for t in compose.transforms:
+                t0 = time.perf_counter()
+                sample = t(sample, rng=rng)
+                name = type(t).__name__
+                ms[name] = ms.get(name, 0.0) + time.perf_counter() - t0
+    finally:
+        ds.preprocessor = compose
+    return {k: v * 1e3 / n for k, v in ms.items()}
+
+
+def _loop_rates(epochs):
+    """Host-inclusive frames/s of the train and the validation epochs,
+    all and the last alone. A train epoch's steps after a checkpoint
+    (taken twice, under deterministic algorithms) are left out with
+    their seconds."""
+    def rate(eps, kind):
+        frames = sum(e[f'{kind}_steps'] for e in eps) * LOOP_B
+        return frames / sum(e[f'{kind}_s'] for e in eps)
+    return dict(train_frames_per_s=rate(epochs, 'train'),
+                valid_frames_per_s=rate(epochs, 'valid'),
+                train_frames_per_s_last_epoch=rate(epochs[-1:], 'train'),
+                valid_frames_per_s_last_epoch=rate(epochs[-1:], 'valid'))
+
+
+def train_loop(args, kernels, card, result):
+    """Phase 32: the training loop of examples/train_synthetic.py on the
+    card, from recorded frames, through the example's own routines
+    (`train_epoch`, `validate`, `end_epoch`, `save_epoch`) with the
+    phase's checks between them (see the module's docstring). Returns
+    the launches of the last validation epoch."""
+    import tempfile
+    from nicr_mtsa_tpu_torch.data import DataLoader, get_dataset
+    from nicr_mtsa_tpu_torch.data.preprocessing import (
+        APPLIED_PREPROCESSING_KEY)
+    from nicr_mtsa_tpu_torch.examples.train_synthetic import (
+        DWA_KEYS, IS_THING, end_epoch, save_epoch, train_epoch,
+        train_preprocessing, validate)
+    from nicr_mtsa_tpu_torch.ops.cuda import intersection as it
+    from nicr_mtsa_tpu_torch.ops.cuda import resize_reduce as rr
+    from nicr_mtsa_tpu_torch.parallel import (load_checkpoint,
+                                              train_state_dict)
+    from nicr_mtsa_tpu_torch.pipeline import strip_non_arrays
+    from nicr_mtsa_tpu_torch.postprocessing import semantic as sem_post
+    from nicr_mtsa_tpu_torch.utils import CheckpointHelper, CSVLogger
+    from nicr_mtsa_tpu_torch.weighting.dwa import dwa_weights
+    # the model first: without a card this raises before any work
+    pipe = _loop_pipeline()
+    watch = _LoopWatch(pipe)
+    state = pipe.create_train_state()
+    out = {'card': card, 'batch': LOOP_B, 'epochs': LOOP_EPOCHS,
+           'frames': dict(LOOP_FRAMES), 'model_hw': list(LOOP_HW),
+           'frame_hw': [2 * LOOP_HW[0], 2 * LOOP_HW[1]]}
+    _fresh()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, 'synthetic')
+        out['write_s'] = _loop_write_dataset(root)
+        out['png_row_filters'] = _png_row_filters(root)
+        print(json.dumps({'phase': 'train_loop_data', **{
+            k: out[k] for k in ('write_s', 'png_row_filters',
+                                'frame_hw')}}), flush=True)
+        train_ds = get_dataset(root, 'train',
+                               preprocessor=train_preprocessing(*LOOP_HW))
+        valid_ds = get_dataset(root, 'valid', preprocessor=_dataset_compose(
+            IS_THING, *LOOP_HW))
+        out['host_ms_a_sample'] = {'train': _loop_host_ms(train_ds),
+                                   'valid': _loop_host_ms(valid_ds)}
+        train_loader = DataLoader(train_ds, batch_size=LOOP_B,
+                                  num_workers=2, drop_last=True, seed=0)
+        valid_loader = DataLoader(valid_ds, batch_size=LOOP_B,
+                                  num_workers=2)
+        helper = CheckpointHelper(LOOP_CKPT_METRICS, debug=False)
+        logger = CSVLogger(os.path.join(tmp, 'log.csv'))
+        epochs = []
+        for epoch in range(LOOP_EPOCHS):
+            # --- train: loader -> prefetch -> the weighted step --------
+            kernels.reset_launch_counts()
+            n_steps, resumed_s = len(watch.losses), watch.resumed_s
+            resuming = watch.resume is not None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses = train_epoch(watch, state, train_loader, epoch,
+                                        'cuda')
+            torch.cuda.synchronize()
+            resumed_s = watch.resumed_s - resumed_s
+            ep = dict(epoch=epoch,
+                      train_steps=len(watch.losses) - n_steps - resuming,
+                      train_s=time.perf_counter() - t0 - resumed_s,
+                      resumed_step_s=resumed_s)
+            if any(fn.launches for fn in kernels.KERNELS.values()):
+                fail('train_loop: a training step launched a kernel '
+                     'wrapper')
+            # --- eager validation epoch --------------------------------
+            watch.batches = []
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                # the fused step below must see the eager steps' outputs
+                stack.enter_context(_deterministic())
+                calls, maps = {}, []
+                if epoch == 0:     # the kernels' first calls at new shapes
+                    calls = stack.enter_context(_capture({
+                        'resize_reduce': (sem_post,
+                                          'crop_resize_argmax_score',
+                                          _first_calls())}))
+                    maps = stack.enter_context(_captured_slot_maps())
+                validate(watch, valid_loader, 'cuda')
+                torch.cuda.synchronize()
+                batches, watch.batches = watch.batches, []
+                ep.update(valid_steps=len(batches),
+                          valid_s=time.perf_counter() - t0)
+                launches = _check_launches(
+                    kernels, LOOP_VALID_KERNELS, len(batches),
+                    f'train_loop validation epoch {epoch}')
+                eager = _eager_states(pipe)
+                # the fused eval step on the same batches
+                step = pipe.make_fused_eval_step(
+                    {APPLIED_PREPROCESSING_KEY:
+                     batches[0][APPLIED_PREPROCESSING_KEY]})
+                fused = pipe.empty_metric_states()
+                for b in batches:
+                    _, _, fused = step(strip_non_arrays(b), fused)
+            if epoch == 0:
+                out['resize_reduce_2x_up'] = _check_loop_resize(
+                    rr, calls['resize_reduce'][0])
+                # the validation step's two calls (the fused step's
+                # follow within the capture)
+                out['intersection_fullres'] = _check_loop_intersection(
+                    it, maps[:2])
+            del calls, maps
+            diff = _states_equal(
+                {k: v for k, v in eager.items() if k != 'mae_gt'}, fused)
+            if diff:
+                fail(f'train_loop epoch {epoch}: eager validation against '
+                     f'the fused step: {diff}')
+            bad = [k for k, v in watch.valid_losses.items()
+                   if not bool(torch.isfinite(v))]
+            if bad:
+                fail(f'train_loop: validation losses not finite: {bad}')
+            last_valid = batches[-1]
+            del batches, eager, fused
+            logs, to_save = end_epoch(watch, epoch,
+                                      float(losses['total_loss']), helper,
+                                      logger)
+            _metrics_in_range({k[6:]: v for k, v in logs.items()
+                               if k.startswith('valid_')
+                               and not k.endswith('_time')}, 'train_loop')
+            ep.update(to_save=sorted(to_save),
+                      weights=dict(pipe.loss_weighting.weights),
+                      metrics={k: logs[k] for k in (
+                          'valid_semantic_miou',
+                          'valid_panoptic_all_deeplab_pq',
+                          'valid_orientation_mae_gt_deg')})
+            if to_save:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = save_epoch(pipe, state, epoch, tmp)
+                ep['save_ms'] = (time.perf_counter() - t0) * 1e3
+                ep['checkpoint_mb'] = os.path.getsize(path) / 1e6
+                fresh = _loop_pipeline(seed=1)
+                t0 = time.perf_counter()
+                fresh_state, extra = load_checkpoint(
+                    path, fresh.create_train_state())
+                torch.cuda.synchronize()
+                ep['load_ms'] = (time.perf_counter() - t0) * 1e3
+                if extra['epoch'] != epoch:
+                    fail('train_loop: the checkpoint lost its epoch')
+                fresh.loss_weighting.load_state_dict(extra['dwa'])
+                _train_state_equal(state, fresh_state,
+                                   f'train_loop checkpoint {epoch}')
+                watch.resume = (fresh, fresh_state)
+            epochs.append(ep)
+            print(json.dumps({'phase': 'train_loop_epoch', **ep}),
+                  flush=True)
+        if watch.resume is not None:
+            # the last checkpoint: one more step of both
+            state, _ = _resumed_step(
+                (pipe, state), watch.resume, watch.last_batch,
+                torch.Generator('cuda').manual_seed(LOOP_EPOCHS * 1000), 0,
+                'train_loop resume after the loop')
+            watch.resume = None
+        logger.write()
+        atexit.unregister(logger.write)      # its directory goes below
+        with open(os.path.join(tmp, 'log.csv')) as f:
+            out['log_rows'] = len(f.read().strip().splitlines()) - 1
+        out['card_vs_cpu'] = _loop_card_vs_cpu(root, train_state_dict(state))
+    # --- gates on the weighting and the losses -------------------------
+    recorded = [{k: float(v) for k, v in losses.items()}
+                for losses in watch.losses]
+    bad = [(i, k) for i, r in enumerate(recorded) for k, v in r.items()
+           if not np.isfinite(v)]
+    if bad:
+        fail(f'train_loop: losses not finite: {bad[:5]}')
+    steps = len(recorded) // LOOP_EPOCHS
+    used = watch.weights
+    unit = [i for i, w in enumerate(used[:-1])
+            if set(w.values()) != {1.0}]
+    if unit:
+        fail(f'train_loop: DWA weights other than 1 at steps {unit}')
+    means = [{k: float(np.mean([r[k] for r in recorded[e * steps:
+                                                       (e + 1) * steps]]))
+              for k in DWA_KEYS} for e in range(2)]
+    want = dwa_weights(means[1], means[0], DWA_KEYS, 2.0)
+    got = used[-1]
+    if set(got.values()) == {1.0} or abs(sum(got.values()) - 5) > 1e-9 \
+            or any(abs(got[k] - want[k]) > 1e-12 for k in want):
+        fail(f'train_loop: the 6th step used the DWA weights {got}, '
+             f'expected {want}')
+    out.update(
+        epochs=epochs, checkpoints=[e['epoch'] for e in epochs
+                                    if e['to_save']],
+        dwa_weights_step6=got, losses_first=recorded[0],
+        losses_last=recorded[-1], **_loop_rates(epochs),
+        launches_per_validation_step=launches, peak_mem_gb=_peak_gb(),
+        resumed_bit_equal=True, eager_equals_fused=True)
+    result['train_loop'] = out
+    print(json.dumps({'phase': 'train_loop', **{
+        k: v for k, v in out.items()
+        if k not in ('epochs', 'losses_first', 'losses_last')}}),
+        flush=True)
+    last_batch = watch.last_batch
+    if args.profile:
+        profile(lambda: pipe.train_step(
+            state, last_batch, torch.Generator('cuda').manual_seed(0)),
+            result, 'train_loop_step')
+        profile(lambda: pipe.validation_step(last_valid), result,
+                'train_loop_validation_step')
+        pipe.validation_epoch_end()
+    del pipe, watch, state, last_batch, last_valid
+    _fresh()
+    return launches
+
+
+def _check_loop_intersection(it, maps):
+    """Row 11 on the slot maps the loop's first validation step passed it
+    (the instance and the panoptic helper's: two (8, 1228800) pairs at
+    the 960 x 1280 ground truth, 129 x 129 bins): exact against the
+    plain version and torch.bincount, timed with its plan and bound."""
+    H, W = 2 * LOOP_HW[0], 2 * LOOP_HW[1]
+    got = [(tuple(a.shape), n_gt, n_pred) for a, _, n_gt, n_pred in maps]
+    if got != [((LOOP_B, H * W), 128, 128)] * 2:
+        fail(f'train_loop: the validation step passed row 11 {got}, '
+             f'expected two ({LOOP_B}, {H * W}) pairs of 129 x 129 bins')
+    out = {}
+    for i, (a, b, n_gt, n_pred) in enumerate(maps):
+        plan = _same_counts(it, f'train_loop map {i}', a, b, n_gt, n_pred)
+        b_ms, b_by = bound(2 * a.numel() * 4 + LOOP_B * 129 * 129 * 4,
+                           2 * a.numel())
+        out[f'map{i}'] = dict(
+            call=f'({LOOP_B}, {H * W}) int32 slot maps, 129 x 129 bins',
+            max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, plan=plan,
+            **_timed(lambda: it.intersection_matrix_kernel(a, b, n_gt,
+                                                           n_pred),
+                     lambda: it.intersection_matrix_reference(a, b, n_gt,
+                                                              n_pred),
+                     lambda: _bincount(a, b, n_gt, n_pred)))
+        print(json.dumps({'phase': 'kernel_train_loop',
+                          'name': f'intersection_map{i}', **out[f'map{i}']}),
+              flush=True)
+    return out
+
+
+def _check_loop_resize(rr, call):
+    """Row 5's first call of the loop's validation (the 2x upscale of
+    (8, 10, 480, 640) bf16 to the 960 x 1280 ground truth, a plan no
+    other phase makes) against its plain version: idx exact, scores
+    within rtol 1e-5; timed with its plan and bound."""
+    from nicr_mtsa_tpu_torch.models.upsampling import two_tap_params
+    (x, crop, OH, OW), kwargs = call
+    B, C, h, w = x.shape
+    err = _same('train_loop resize_reduce 2x up',
+                rr.crop_resize_argmax_score(x, crop, OH, OW),
+                rr.crop_resize_argmax_score_reference(x, crop, OH, OW))
+    in_h = crop[0].stop - crop[0].start
+    in_w = crop[1].stop - crop[1].start
+    rows = len(np.unique(np.concatenate(two_tap_params(in_h, OH)[:2])))
+    cols = len(np.unique(np.concatenate(two_tap_params(in_w, OW)[:2])))
+    P_out = B * OH * OW
+    b_ms, b_by = bound(B * rows * cols * C * x.element_size() + P_out * 8,
+                       _reduce_ops(P_out * C, P_out, 9))
+    plan = rr._plan(B, C, in_h, OH, in_w, OW, x.dtype,
+                    torch.cuda.current_device())
+    row = dict(call=f'{tuple(x.shape)} {x.dtype} {_layout(x)} -> {OH} x '
+                    f'{OW}', max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               plan=plan._asdict(),
+               **_timed(lambda: rr.crop_resize_argmax_score(x, crop, OH, OW),
+                        lambda: rr.crop_resize_argmax_score_reference(
+                            x, crop, OH, OW)))
+    print(json.dumps({'phase': 'kernel_train_loop',
+                      'name': 'resize_reduce_2x_up', **row}), flush=True)
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=10,
@@ -4033,8 +4642,10 @@ def main():
     ap.add_argument('--profile', action='store_true',
                     help='also trace 3 requests of each serving path, '
                          '3 eval steps and 3 training steps of each '
-                         'family, 3 dataset batches through the host path '
-                         'and 3 streamed requests with torch.profiler')
+                         'family, 3 dataset batches through the host path, '
+                         '3 streamed requests and 3 training and 3 '
+                         'validation steps of the training loop with '
+                         'torch.profiler')
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4147,6 +4758,11 @@ def main():
     print(json.dumps({'phase': 'data_path_seconds',
                       **result['data_path_seconds']}), flush=True)
     bench_s = bench_sizes(args, kernels, card, result)
+    t0 = time.perf_counter()
+    path_launches['train_loop'] = train_loop(args, kernels, card, result)
+    result['train_loop_seconds'] = time.perf_counter() - t0
+    print(json.dumps({'phase': 'train_loop_seconds',
+                      'seconds': result['train_loop_seconds']}), flush=True)
     # the seconds the phases at the bench's batch sizes add to the script
     result['bench_size_seconds'] = dict(bench_s, total=sum(bench_s.values()))
     print(json.dumps({'phase': 'bench_size_seconds',

@@ -206,6 +206,13 @@ class DirectoryRGBDDataset:
         return None
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
+        return self.load(idx)
+
+    def load(self, idx: int, rng: Optional[np.random.RandomState] = None
+             ) -> Dict[str, Any]:
+        """Sample `idx`, preprocessed; `rng` is the generator the
+        preprocessor's augmentations draw from (the loader's, by
+        sample)."""
         sid = self._ids[idx]
         sample: Dict[str, Any] = {'identifier': (self.split, sid)}
         for key in self.sample_keys:
@@ -231,7 +238,8 @@ class DirectoryRGBDDataset:
             else:
                 raise KeyError(f"unknown sample key '{key}'")
         if self.preprocessor is not None:
-            sample = self.preprocessor(sample)
+            kwargs = {} if rng is None else {'rng': rng}
+            sample = self.preprocessor(sample, **kwargs)
         return sample
 
 

@@ -4,12 +4,22 @@ inside the dataset's `__getitem__`) in a thread pool -> collate ->
 optionally `move_batch_to_device`. At most `num_workers` batches are in
 the making and `prefetch_batches` wait in a queue, so that host work
 overlaps the device's within a bounded memory. Batches come in sampler
-order; an exception in a worker is raised in the consumer."""
+order; an exception in a worker is raised in the consumer.
+
+With a `seed`, each sample is loaded by `dataset.load(index, rng)` with
+its own `numpy.random.RandomState([seed, epoch, index])`, where `epoch`
+counts the passes over the loader (from 0): the augmentations then
+depend on neither the number of threads nor the order in which they
+finish. (The JAX package's loader lets its threads draw from the one
+global `np.random` stream.)"""
 import collections
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Optional, Sequence
+
+import numpy as np
 
 from ._collate import mt_collate
 from ._utils import move_batch_to_device
@@ -27,6 +37,7 @@ class DataLoader:
         prefetch_batches: int = 2,
         to_device: bool = False,
         device=None,
+        seed: Optional[int] = None,
     ) -> None:
         """`sampler`: the order of the samples (pass a shuffling one,
         such as `RandomSamplerSubset`, to shuffle), by default the
@@ -41,6 +52,8 @@ class DataLoader:
         self.prefetch_batches = prefetch_batches
         self.to_device = to_device
         self.device = device
+        self.seed = seed
+        self._passes = itertools.count()
 
     def _indices(self):
         if self.sampler is not None:
@@ -62,16 +75,23 @@ class DataLoader:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
-    def _load_batch(self, chunk):
-        batch = self.collate_fn([self.dataset[i] for i in chunk])
+    def _sample(self, index: int, epoch: int):
+        if self.seed is None:
+            return self.dataset[index]
+        return self.dataset.load(index, rng=np.random.RandomState(
+            [self.seed, epoch, index]))
+
+    def _load_batch(self, chunk, epoch: int = 0):
+        batch = self.collate_fn([self._sample(i, epoch) for i in chunk])
         if self.to_device:
             batch = move_batch_to_device(batch, self.device)
         return batch
 
     def __iter__(self):
+        epoch = next(self._passes)
         if self.num_workers == 0:
             for chunk in self._batches():
-                yield self._load_batch(chunk)
+                yield self._load_batch(chunk, epoch)
             return
 
         out_q: 'queue.Queue' = queue.Queue(maxsize=self.prefetch_batches)
@@ -96,7 +116,7 @@ class DataLoader:
                     try:
                         for chunk in chunks:
                             pending.append(pool.submit(self._load_batch,
-                                                       chunk))
+                                                       chunk, epoch))
                             if len(pending) > self.num_workers \
                                     and not put(pending.popleft().result()):
                                 return

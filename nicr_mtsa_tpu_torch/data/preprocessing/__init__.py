@@ -1,6 +1,9 @@
 """Host-side preprocessing of samples (counterpart of
-nicr_mtsa_tpu/data/preprocessing/, the steps of the eval path): numpy
-in, numpy out, one sample at a time."""
+nicr_mtsa_tpu/data/preprocessing/, the steps of the eval and the
+training path, augmentations included): numpy in, numpy out, one
+sample at a time."""
+from .augmentation import (RandomCrop, RandomHorizontalFlip,
+                           RandomHSVJitter)
 from .base import (APPLIED_PREPROCESSING_KEY, MULTI_DOWNSCALE_KEY_FMT,
                    Compose, PreprocessingBase,
                    add_to_applied_preprocessing_meta,
@@ -15,13 +18,14 @@ from .normalize import (RGB_MEAN, RGB_STD, NormalizeDepth, NormalizeRGB,
                         ScaleDepth, normalize)
 from .orientation import OrientationTargetGenerator
 from .panoptic import PanopticTargetGenerator, segment_table_overflow
-from .resize import FullResCloner, Resize, pad, resize
+from .resize import FullResCloner, RandomResize, Resize, pad, resize
 from .utils import KeyCleaner
 from ..fullres import (FULLRES_SUFFIX, get_fullres, get_fullres_key,
                        get_fullres_shape, get_valid_region_slices,
                        get_valid_region_slices_and_fullres_shape)
 
 __all__ = [
+    'RandomCrop', 'RandomHorizontalFlip', 'RandomHSVJitter', 'RandomResize',
     'APPLIED_PREPROCESSING_KEY', 'MULTI_DOWNSCALE_KEY_FMT', 'Compose',
     'PreprocessingBase', 'add_to_applied_preprocessing_meta',
     'get_applied_preprocessing_meta', 'DEFAULT_CLONE_KEY', 'CloneEntries',

@@ -14,6 +14,8 @@ Preprocessors run on the host, on numpy arrays, one sample at a time
 import abc
 from typing import Any, Dict, Iterator, Optional, Tuple
 
+import numpy as np
+
 from .._types import AppliedPreprocessingMeta, PreprocessingParameterDict
 from ..fullres import APPLIED_PREPROCESSING_KEY
 
@@ -48,6 +50,15 @@ def add_to_applied_preprocessing_meta(sample: dict, **parameters: Any
     get_applied_preprocessing_meta(sample).append(
         PreprocessingParameterDict(**parameters))
     return sample
+
+
+def need_rng(rng, what: str):
+    """`rng` if it is a numpy RandomState: every augmentation draws from
+    the one its caller passes in."""
+    if not isinstance(rng, np.random.RandomState):
+        raise TypeError(f'{what} draws from an explicit numpy RandomState: '
+                        f'pass rng=np.random.RandomState(seed), got {rng!r}')
+    return rng
 
 
 class PreprocessingBase(abc.ABC):
@@ -87,14 +98,15 @@ class PreprocessingBase(abc.ABC):
 
 
 class Compose:
-    """Sequential composition of preprocessors."""
+    """Sequential composition of preprocessors; keyword arguments (the
+    augmentations' `rng`) go to every step."""
 
     def __init__(self, transforms) -> None:
         self.transforms = list(transforms)
 
-    def __call__(self, sample: dict) -> dict:
+    def __call__(self, sample: dict, **kwargs) -> dict:
         for t in self.transforms:
-            sample = t(sample)
+            sample = t(sample, **kwargs)
         return sample
 
     def __repr__(self) -> str:

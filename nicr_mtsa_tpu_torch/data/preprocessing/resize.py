@@ -17,7 +17,7 @@ import numpy as np
 
 from ... import native
 from ..fullres import FULLRES_SUFFIX
-from .base import PreprocessingBase
+from .base import PreprocessingBase, need_rng
 from .clone import FlatCloneEntries
 from .utils import _get_input_shape, _get_relevant_spatial_keys
 
@@ -138,3 +138,35 @@ class Resize(PreprocessingBase):
         dynamic['valid_region_slice_y'] = slice(top, top + fit_h)
         dynamic['valid_region_slice_x'] = slice(left, left + fit_w)
         return sample, dynamic
+
+
+class RandomResize(PreprocessingBase):
+    """Augmentation: the whole sample rescaled by a factor drawn
+    uniformly from [min_scale, max_scale] by the caller's `rng` (a
+    numpy RandomState); no padding, so the whole output is the valid
+    region."""
+
+    def __init__(self, min_scale: float, max_scale: float,
+                 keys_to_ignore: Optional[Iterable[str]] = None) -> None:
+        if not 0 <= min_scale <= max_scale:
+            raise ValueError('Unexpected value for `min_scale`')
+        self._scale_range = (min_scale, max_scale)
+        self._keys_to_ignore = keys_to_ignore
+        super().__init__(
+            multiscale_processing=False,
+            fixed_parameters=dict(min_scale=min_scale, max_scale=max_scale,
+                                  keys_to_ignore=keys_to_ignore))
+
+    def _preprocess(self, sample: dict, rng=None, **kwargs
+                    ) -> Tuple[dict, Dict[str, Any]]:
+        h, w = _get_input_shape(sample)
+        lo, hi = self._scale_range
+        scale = lo if lo == hi else need_rng(rng, 'RandomResize').uniform(
+            lo, hi)
+        height, width = int(round(scale * h)), int(round(scale * w))
+        sample = resize(sample, height, width,
+                        keys_to_ignore=self._keys_to_ignore)
+        return sample, dict(old_height=h, old_width=w, new_height=height,
+                            new_width=width,
+                            valid_region_slice_y=slice(0, height),
+                            valid_region_slice_x=slice(0, width))

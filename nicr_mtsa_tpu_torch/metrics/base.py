@@ -6,8 +6,8 @@ state of tensors (or a dict of them):
 - `update_state(state, ...)` -> the new state (on the state's device),
 - `compute_from_state(state)` -> results, on the host at epoch end,
 
-plus a stateful holder (`state`, `compute`, `reset`) for the task
-helpers' epoch end."""
+plus a stateful holder (`state`, `update`, `compute`, `reset`) for the
+task helpers' eager steps and epoch end."""
 import torch
 
 
@@ -31,11 +31,22 @@ class MetricBase:
     def state(self, value):
         self._state = value
 
+    def update(self, *args, **kwargs):
+        """The state updated in place (the stateful API of the eager
+        path); a first state is made on the device of the first tensor
+        argument."""
+        if getattr(self, '_state', None) is None:
+            device = next((a.device for a in args
+                           if isinstance(a, torch.Tensor)), None)
+            self._state = self.empty_state(device)
+        self._state = self.update_state(self._state, *args, **kwargs)
+
     def compute(self, *args, **kwargs):
         return self.compute_from_state(self.state, *args, **kwargs)
 
     def reset(self):
-        self._state = self.empty_state()
+        """Back to an empty state, made where the next update is."""
+        self._state = None
 
 
 def to_numpy(t):

@@ -27,7 +27,18 @@
   postprocessing, the task losses and their sum, the gradients, the
   AdamW update (optim.py) and the new BatchNorm statistics. The model
   holds the parameters and statistics and the step updates them in
-  place; the random parts draw from the caller's generator.
+  place; the random parts draw from the caller's generator. With a
+  `loss_weighting` (weighting/: DWA, RLW, fixed) the weighted keys'
+  totals are scaled by the weights as they stand before the step, and
+  their values move the weighting on after it (one host fetch of a few
+  scalars a step; without a weighting the step does not sync).
+- `MultiTaskPipeline.validation_step` / `validation_epoch_end`, the
+  eager validation loop of `examples/train_synthetic.py`: the forward
+  pass in eval mode under inference mode, the postprocessing of the
+  keys the helpers read, and each helper's `validation_step`, which
+  accumulates its own metric states (the fused step's device code, the
+  GT angle tables walked from the batch's id dicts) and the MAE against
+  the GT instances.
 
 On the card the model runs channels-last (NHWC activations and conv
 weights), cuDNN's fast layout."""
@@ -340,10 +351,11 @@ class MultiTaskPipeline:
     def __init__(self, model: MultiTaskModel, postprocessors: dict,
                  task_helpers: dict, compute_dtype=torch.float32,
                  channels_last: bool = None,
-                 optimizer: Optional[AdamW] = None):
+                 optimizer: Optional[AdamW] = None, loss_weighting=None):
         self.model = model
         self.postprocessors = postprocessors
         self.task_helpers = task_helpers
+        self.loss_weighting = loss_weighting
         self.optimizer = optimizer or AdamW(1e-4)
         self.device = next(model.parameters()).device
         self._compute_dtype = compute_dtype
@@ -409,19 +421,28 @@ class MultiTaskPipeline:
         return losses
 
     @staticmethod
-    def total_loss(losses: dict):
-        """Sum of the '*_total_loss' entries."""
-        return sum(v for k, v in losses.items()
-                   if k.endswith(TOTAL_LOSS_SUFFIX))
+    def total_loss(losses: dict, weights: Optional[dict] = None):
+        """Sum of the '*_total_loss' entries; with `weights`, those it
+        names times their weight (rounded to f32, as the JAX step takes
+        it), then the others (the JAX package's order)."""
+        keys = [k for k in losses if k.endswith(TOTAL_LOSS_SUFFIX)]
+        if weights is None:
+            return sum(losses[k] for k in keys)
+        return sum(float(np.float32(weights[k])) * losses[k]
+                   for k in keys if k in weights) \
+            + sum(losses[k] for k in keys if k not in weights)
 
     def train_step(self, state: dict, batch: dict,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   batch_idx: int = 0):
         """One optimizer step: forward in training mode (random parts
         from `generator`, on the model's device; a head no loss reads
         moves only its BatchNorm statistics), losses, gradients
         (left in the parameters' `.grad`), the AdamW update and the new
         BatchNorm statistics, in place. Returns (state, losses) with
-        losses detached, 'total_loss' included; no host sync."""
+        losses detached, 'total_loss' included; no host sync unless a
+        `loss_weighting` takes the step's weighted losses (`batch_idx`,
+        the step's index in its epoch, is the weighting's)."""
         self.model.train()
         params = state['params']
         for p in params.values():
@@ -430,14 +451,21 @@ class MultiTaskPipeline:
                                  outputs=self._loss_tasks,
                                  generator=generator)
         losses = self.compute_losses(batch, predictions)
-        total = self.total_loss(losses)
+        weighting = self.loss_weighting
+        total = self.total_loss(
+            losses, None if weighting is None else weighting.weights)
         del predictions
         total.backward()
         self.optimizer.step(params, {n: p.grad for n, p in params.items()},
                             state['opt_state'])
         state['step'] += 1
         losses['total_loss'] = total
-        return state, {k: v.detach() for k, v in losses.items()}
+        losses = {k: v.detach() for k, v in losses.items()}
+        if weighting is not None:
+            keys = list(weighting.weights)
+            values = torch.stack([losses[k].float() for k in keys]).tolist()
+            weighting.reduce_losses(dict(zip(keys, values)), batch_idx)
+        return state, losses
 
     def postprocess_outputs(self, predictions: dict, batch: dict,
                             keys=None) -> dict:
@@ -507,10 +535,43 @@ class MultiTaskPipeline:
         def step(batch, metric_states):
             full_batch = dict(batch)
             full_batch.update(static_batch)
+            self.model.eval()
             predictions = self.model(self.model_inputs(full_batch))
             return self.evaluate_outputs(predictions, full_batch,
                                          metric_states, output_keys)
         return step
+
+    def validation_step(self, batch: dict, batch_idx: int = 0):
+        """The eager validation step: forward in eval mode under
+        inference mode, then `validate_outputs`. `batch` is the whole
+        batch on the device (provenance and per-sample dicts included,
+        as `move_batch_to_device` leaves them). Returns
+        (predictions_post, losses, logs); the JAX step also takes the
+        train state, here the model holds it."""
+        self.model.eval()
+        with torch.inference_mode():
+            predictions = self.model(self.model_inputs(batch))
+            return self.validate_outputs(predictions, batch, batch_idx)
+
+    def validate_outputs(self, predictions: dict, batch: dict,
+                         batch_idx: int = 0):
+        """Postprocessing of the keys the helpers read, the shared GT
+        slot map, then each helper's `validation_step` on given raw model
+        outputs."""
+        keys = set()
+        for helper in self.task_helpers.values():
+            keys.update(helper.prediction_keys, helper.validation_keys)
+        full_batch = dict(batch)
+        predictions_post = self.postprocess_outputs(predictions, full_batch,
+                                                    frozenset(keys))
+        _add_shared_gt_slots(full_batch)
+        all_losses, all_logs = {}, {}
+        for helper in self.task_helpers.values():
+            losses, logs = helper.validation_step(full_batch, batch_idx,
+                                                  predictions_post)
+            all_losses.update(losses)
+            all_logs.update(logs)
+        return predictions_post, all_losses, all_logs
 
     def load_metric_states(self, states: dict) -> None:
         for name, helper in self.task_helpers.items():
@@ -519,7 +580,8 @@ class MultiTaskPipeline:
 
     def validation_epoch_end(self):
         """(artifacts, examples, logs) of all helpers, from the states
-        they loaded."""
+        of their eager steps or, after a fused epoch, the states they
+        loaded."""
         artifacts, examples, logs = {}, {}, {}
         for helper in self.task_helpers.values():
             a, e, lg = helper.validation_epoch_end()

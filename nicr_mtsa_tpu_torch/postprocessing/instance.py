@@ -3,14 +3,49 @@ nicr_mtsa_tpu/postprocessing/instance.py): centre NMS + offset-vote
 grouping on device. With ground truth in the batch (dataset
 evaluation) it also segments under the GT foreground (branch i-1, with
 its full-resolution map) and reads per-instance orientations under the
-GT orientation foreground (branch o-2). Not ported: the debug branches
-and the GT-instance orientation table (branch o-1), which only the
-eager validation path reads."""
+GT orientation foreground (branch o-2), and, where a reader asks for
+it (the eager validation step), the mean orientation of each GT
+instance under the GT orientation foreground (branch o-1,
+`segment_orientation_table`). Not ported: the debug branches."""
 from typing import Optional
+
+import torch
 
 from ..ops.grouping import (denormalize_offsets, get_instance_segmentation,
                             instance_orientations)
-from .base import DensePostprocessingBase
+from ..ops.segments import SEGMENT_TABLE_PAD, ids_to_slots, unique_table
+from .base import DensePostprocessingBase, wants
+
+O1_KEY = 'orientations_gt_instance_gt_orientation_foreground'
+
+
+def segment_orientation_table(orientation, ids_map, foreground_mask,
+                              table_size: int = 128) -> dict:
+    """Mean orientation of each segment of an id map with arbitrary ids
+    (a GT instance map): the ids compressed to a sorted table of
+    `table_size`, the biternion channels of orientation (B, 2, H, W)
+    summed in f32 over each segment's pixels under `foreground_mask`
+    (B, H, W) (all pixels where None). {'ids', 'angles', 'valid'},
+    (B, S) each; a slot is valid where it holds an id other than 0 with
+    at least one counted pixel."""
+    B = ids_map.shape[0]
+    flat_ids = ids_map.reshape(B, -1).to(torch.int32)
+    table = unique_table(flat_ids, table_size)
+    S = table.shape[-1]
+    if foreground_mask is not None:
+        flat_ids = torch.where(foreground_mask.reshape(B, -1), flat_ids, -1)
+    slots = ids_to_slots(flat_ids, table).long()        # S: dropped
+    ori = orientation.float().reshape(B, 2, -1)
+    sums = torch.zeros((B, 2, S + 1), dtype=torch.float32,
+                       device=ori.device)
+    sums.scatter_add_(2, slots[:, None].expand(-1, 2, -1), ori)
+    counts = torch.zeros((B, S + 1), dtype=torch.int32, device=ori.device)
+    counts.scatter_add_(1, slots, torch.ones_like(slots, dtype=torch.int32))
+    sums, counts = sums[..., :S], counts[:, :S]
+    return {'ids': table,
+            'angles': torch.atan2(sums[:, 1], sums[:, 0]),
+            'valid': (table != SEGMENT_TABLE_PAD) & (table != 0)
+            & (counts > 0)}
 
 
 class InstancePostprocessing(DensePostprocessingBase):
@@ -72,6 +107,13 @@ class InstancePostprocessing(DensePostprocessingBase):
             'valid': result.centers.valid, 'areas': result.areas}
         self._add_fullres(r_dict, batch, 'instance_segmentation_gt_foreground',
                           keys, shape_key='instance')
+
+        # o-1: GT instances + GT orientation foreground, on request
+        if len(output) == 3 and wants(keys, O1_KEY) and all(
+                k in batch for k in ('instance', 'orientation_foreground')):
+            r_dict[O1_KEY] = segment_orientation_table(
+                output[2], batch['instance'],
+                batch['orientation_foreground'])
 
         # o-2: predicted instances + GT orientation foreground
         if len(output) == 3 and 'orientation_foreground' in batch:

@@ -9,7 +9,18 @@ shared batch dict, for the training step and the fused eval step:
 - `empty_metric_states(device)`, `update_metric_states(state, batch,
   predictions_post) -> state` (device tensors, no host sync),
 - `load_metric_states(state)` then `validation_epoch_end() ->
-  (artifacts, examples, logs)` on the host.
+  (artifacts, examples, logs)` on the host;
+
+and for the eager validation loop (the JAX package's `validation_step`
+path): `validation_step(batch, batch_idx, predictions_post) -> (losses,
+logs)` accumulates the helper's own states through the same
+`update_metric_states` (the GT angle tables walked from the batch's id
+dicts, as the JAX package walks them), with the losses mirrored into
+the logs and the step's host time under `<task>_step_time`; after an
+eager epoch `validation_epoch_end` also logs `<task>_epoch_end_time`
+(a fused epoch's logs stay the states' metrics). `initialize()` makes
+the losses and metrics anew. Example images (`store_examples`) are not
+ported and raise.
 
 `prediction_keys` names the postprocessed keys the helper reads; the
 step computes no full-resolution output beyond those and the caller's.
@@ -19,9 +30,13 @@ side outputs carry no scale, so each one's downscale k is the main
 output's width over its own, and its targets are the batch's
 `_down_<k>` sub-dict, under the loss key `down_<k>`; a side output
 without that sub-dict gets no loss (the bench's batches have none)."""
+from functools import wraps
+from time import perf_counter
+
 import torch
 
 from ..data.fullres import get_fullres
+from ._orientation_tables import gt_slot_angles
 
 TOTAL_LOSS_SUFFIX = '_total_loss'
 MULTI_DOWNSCALE_KEY_FMT = '_down_{}'
@@ -43,8 +58,101 @@ def _spatial_width(output) -> int:
     return head.shape[-1]
 
 
+def append_detached_losses_to_logs(step_fn):
+    """Mirror every loss of the step, detached, into its log dict."""
+    @wraps(step_fn)
+    def wrapper(*args, **kwargs):
+        losses, logs = step_fn(*args, **kwargs)
+        logs.update({k: v.detach() if isinstance(v, torch.Tensor) else v
+                     for k, v in losses.items()})
+        return losses, logs
+    return wrapper
+
+
+def append_profile_to_logs(key: str):
+    """Record the step's host wall time (s) under `key` in the log dict
+    it returns last."""
+    def decorator(step_fn):
+        @wraps(step_fn)
+        def wrapper(*args, **kwargs):
+            tic = perf_counter()
+            results = step_fn(*args, **kwargs)
+            results[-1][key] = perf_counter() - tic
+            return results
+        return wrapper
+    return decorator
+
+
+def epoch_end(key: str):
+    """The helper's `validation_epoch_end`: after an eager epoch it
+    first takes the states its `validation_step`s accumulated and logs
+    its host time under `key`; the states of a fused epoch are the ones
+    `load_metric_states` was given."""
+    def decorator(fn):
+        @wraps(fn)
+        def wrapper(self):
+            eager = self._eager_epoch
+            tic = perf_counter()
+            if eager:
+                self.load_metric_states(self._eager_states)
+            results = fn(self)
+            self._eager_states, self._eager_epoch = None, False
+            if eager:
+                results[-1][key] = perf_counter() - tic
+            return results
+        return wrapper
+    return decorator
+
+
+def refuse_examples(store_examples: bool) -> None:
+    if store_examples:
+        raise NotImplementedError('store_examples (the example images of '
+                                  'the validation step) is not ported')
+
+
 class TaskHelperBase:
     prediction_keys = ()
+    # further postprocessed keys the eager `validation_step` reads
+    validation_keys = ()
+    # the states of the eager steps since the last epoch end
+    _eager_epoch = False
+    _eager_states = None
+
+    def initialize(self) -> None:
+        """Make the losses and metrics anew (the JAX helpers' late
+        construction)."""
+
+    def validation_step(self, batch, batch_idx, predictions_post):
+        raise NotImplementedError(f'{type(self).__name__} has no eager '
+                                  f'validation_step in the port yet')
+
+    def update_eagerly(self, batch, predictions_post) -> None:
+        """One eager step's metric update, into the helper's own
+        states."""
+        self._eager_states = self.update_metric_states(
+            self._eager_states, batch, predictions_post)
+        self._eager_epoch = True
+
+    @staticmethod
+    def with_gt_angle_tables(batch, on: bool) -> dict:
+        """The batch with the GT angle tables the orientation-aware PQ
+        reads walked from its id dicts (`gt_slot_angles`, as the JAX
+        package's `validation_step` walks them) where `on`, without them
+        otherwise."""
+        batch = dict(batch)
+        batch.pop('panoptic_gt_angle_table', None)
+        batch.pop('panoptic_gt_angle_table_valid', None)
+        if on:
+            table = batch['panoptic_segment_table_fullres']
+            angle, valid = gt_slot_angles(
+                table.cpu().numpy(),
+                batch['panoptic_ids_to_instance_dict_fullres'],
+                batch['orientations_present'])
+            batch['panoptic_gt_angle_table'] = torch.from_numpy(angle).to(
+                table.device)
+            batch['panoptic_gt_angle_table_valid'] = torch.from_numpy(
+                valid).to(table.device)
+        return batch
 
     def collect_predictions_for_loss(self, batch, predictions_post,
                                      key: str, side_outputs_key: str = None):

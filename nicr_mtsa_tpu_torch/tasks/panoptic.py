@@ -1,8 +1,10 @@
-"""Panoptic task helper (counterpart of nicr_mtsa_tpu/tasks/panoptic.py),
-fused-eval path: PQ/SQ/RQ (+ orientation MAE) of the merged panoptic
-prediction against the full-resolution GT, scored through the merge's
-own slot map and segment table, plus the mIoU of the panoptic-derived
-semantic. No loss."""
+"""Panoptic task helper (counterpart of nicr_mtsa_tpu/tasks/panoptic.py):
+PQ/SQ/RQ (+ orientation MAE) of the merged panoptic prediction against
+the full-resolution GT, scored through the merge's own slot map and
+segment table, plus the mIoU of the panoptic-derived semantic, by the
+fused step or by eager `validation_step`s (the GT angle tables then
+walked from the batch's id dicts where it has `orientations_present`).
+No loss."""
 import numpy as np
 import torch
 
@@ -11,7 +13,8 @@ from ..metrics import (MeanIntersectionOverUnion,
                        PanopticQualityWithOrientationMAE)
 from ..metrics.base import to_numpy
 from ._orientation_tables import pred_slot_angles
-from .base import TaskHelperBase
+from .base import (TaskHelperBase, append_profile_to_logs, epoch_end,
+                   refuse_examples)
 
 _PAN_FULLRES = get_fullres_key('panoptic_segmentation_deeplab')
 _SLOTS_FULLRES = get_fullres_key('panoptic_segmentation_deeplab_slots')
@@ -23,14 +26,21 @@ class PanopticTaskHelper(TaskHelperBase):
                        'panoptic_segmentation_deeplab_slot_table',
                        'panoptic_segmentation_deeplab_ids', _ORI_KEY)
 
-    def __init__(self, semantic_n_classes: int, semantic_classes_is_thing):
+    def __init__(self, semantic_n_classes: int, semantic_classes_is_thing,
+                 store_examples: bool = False):
+        refuse_examples(store_examples)
+        self._semantic_n_classes = semantic_n_classes
+        self._is_thing = np.asarray(semantic_classes_is_thing, dtype=bool)
         self._max_instances_per_category = 1 << 16
+        self.initialize()
+
+    def initialize(self) -> None:
         self._mae_pq_deeplab = PanopticQualityWithOrientationMAE(
-            num_categories=semantic_n_classes, ignored_label=0,
+            num_categories=self._semantic_n_classes, ignored_label=0,
             max_instances_per_category=self._max_instances_per_category,
-            is_thing=np.asarray(semantic_classes_is_thing, dtype=bool))
+            is_thing=self._is_thing)
         self._metric_iou = MeanIntersectionOverUnion(
-            n_classes=semantic_n_classes, ignore_first_class=True)
+            n_classes=self._semantic_n_classes, ignore_first_class=True)
 
     def empty_metric_states(self, device=None):
         return {'pq': self._mae_pq_deeplab.empty_state(device),
@@ -72,6 +82,13 @@ class PanopticTaskHelper(TaskHelperBase):
         self._mae_pq_deeplab.state = state['pq']
         self._metric_iou.state = state['miou']
 
+    @append_profile_to_logs('panoptic_step_time')
+    def validation_step(self, batch, batch_idx, predictions_post):
+        self.update_eagerly(self.with_gt_angle_tables(
+            batch, 'orientations_present' in batch), predictions_post)
+        return {}, {}
+
+    @epoch_end('panoptic_epoch_end_time')
     def validation_epoch_end(self):
         artifacts, logs = {}, {}
         for key, value in self._mae_pq_deeplab.compute(

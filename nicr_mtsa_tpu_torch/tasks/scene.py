@@ -1,14 +1,15 @@
 """Scene classification task helper (counterpart of
 nicr_mtsa_tpu/tasks/scene.py): mean cross-entropy with void (label 0)
 left out; a confusion matrix on device -> accuracy and balanced
-accuracy."""
+accuracy, by the fused step or by eager `validation_step`s."""
 import numpy as np
 import torch
 
 from ..metrics import confusion_matrix
 from ..metrics.base import to_numpy
 from ..utils.dtypes import upcast
-from .base import TaskHelperBase
+from .base import (TaskHelperBase, append_detached_losses_to_logs,
+                   append_profile_to_logs, epoch_end)
 
 
 class SceneTaskHelper(TaskHelperBase):
@@ -21,6 +22,9 @@ class SceneTaskHelper(TaskHelperBase):
                                torch.as_tensor(class_weights,
                                                dtype=torch.float32))
         self._label_smoothing = float(label_smoothing)
+        self.initialize()
+
+    def initialize(self) -> None:
         self._cm_state = None
 
     def compute_losses(self, batch, predictions_post) -> dict:
@@ -58,6 +62,13 @@ class SceneTaskHelper(TaskHelperBase):
     def load_metric_states(self, state):
         self._cm_state = state
 
+    @append_profile_to_logs('scene_step_time')
+    @append_detached_losses_to_logs
+    def validation_step(self, batch, batch_idx, predictions_post):
+        self.update_eagerly(batch, predictions_post)
+        return self.compute_losses(batch, predictions_post), {}
+
+    @epoch_end('scene_epoch_end_time')
     def validation_epoch_end(self):
         cm = np.asarray(to_numpy(self._cm_state)).astype(np.float64)
         tp = np.diag(cm)

@@ -1,7 +1,8 @@
 """Semantic task helper (counterpart of nicr_mtsa_tpu/tasks/semantic.py):
 class-weighted cross-entropy at the main scale and at each side
 output's with its `_down_<k>` targets; a full-resolution confusion matrix
-(void-masked, labels shifted by -1) accumulated on device -> mIoU."""
+(void-masked, labels shifted by -1) accumulated on device -> mIoU, by
+the fused step or by eager `validation_step`s."""
 import numpy as np
 import torch
 
@@ -9,7 +10,8 @@ from ..data.fullres import get_fullres_key
 from ..losses import CrossEntropyLossSemantic
 from ..metrics import MeanIntersectionOverUnion, confusion_matrix
 from ..metrics.base import to_numpy
-from .base import TaskHelperBase
+from .base import (TaskHelperBase, append_detached_losses_to_logs,
+                   append_profile_to_logs, epoch_end, refuse_examples)
 
 _IDX_FULLRES = get_fullres_key('semantic_segmentation_idx')
 
@@ -19,11 +21,19 @@ class SemanticTaskHelper(TaskHelperBase):
                        _IDX_FULLRES)
 
     def __init__(self, n_classes: int, class_weights=None,
-                 label_smoothing: float = 0.0):
+                 label_smoothing: float = 0.0,
+                 store_examples: bool = False):
+        refuse_examples(store_examples)
         self._n_classes = n_classes
+        self._class_weights = class_weights
+        self._label_smoothing = label_smoothing
+        self.initialize()
+
+    def initialize(self) -> None:
         self._loss = CrossEntropyLossSemantic(
-            weights=class_weights, label_smoothing=label_smoothing)
-        self._metric_iou = MeanIntersectionOverUnion(n_classes=n_classes)
+            weights=self._class_weights,
+            label_smoothing=self._label_smoothing)
+        self._metric_iou = MeanIntersectionOverUnion(n_classes=self._n_classes)
 
     def compute_losses(self, batch, predictions_post) -> dict:
         preds, keys, targets = self.collect_predictions_for_loss(
@@ -52,6 +62,13 @@ class SemanticTaskHelper(TaskHelperBase):
     def load_metric_states(self, state):
         self._metric_iou.state = state
 
+    @append_profile_to_logs('semantic_step_time')
+    @append_detached_losses_to_logs
+    def validation_step(self, batch, batch_idx, predictions_post):
+        self.update_eagerly(batch, predictions_post)
+        return self.compute_losses(batch, predictions_post), {}
+
+    @epoch_end('semantic_epoch_end_time')
     def validation_epoch_end(self):
         miou, ious = self._metric_iou.compute(return_ious=True)
         artifacts = {'semantic_cm': np.asarray(to_numpy(

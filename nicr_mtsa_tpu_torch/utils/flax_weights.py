@@ -24,6 +24,11 @@ takes a gradient tree or an updated parameter tree of the JAX package
 to the port's names (`flax_tree_to_torch`), and its inverse takes the
 port's tensors into a flax tree (`torch_to_flax_variables`).
 
+A JAX train state (parameters, statistics, the optax Adam moments,
+the step) maps to the port's plain train state the same way
+(`flax_train_state_to_torch`, loaded by parallel/checkpoint.py
+`load_train_state`).
+
 A model with recompute (`backbone_remat`, `decoder_remat`) or
 attention chunking has the tree of the model without: flax's `nn.remat`
 keeps the blocks' names and the port's `remat` is a plain attribute, so
@@ -168,3 +173,49 @@ def load_flax_variables(model: torch.nn.Module, variables: Dict) -> None:
                 raise ValueError(f'{name}: flax shape {tuple(src.shape)} '
                                  f'!= torch shape {tuple(t.shape)}')
             t.copy_(src.to(t.dtype))
+
+
+def _adam_moments(opt_state):
+    """The (count, mu, nu) node of an optax Adam/AdamW state (a
+    `ScaleByAdamState`, alone or inside a chain's tuple), as numpy."""
+    fields = ('count', 'mu', 'nu')
+    if isinstance(opt_state, dict) and set(fields) <= set(opt_state):
+        return tuple(opt_state[f] for f in fields)
+    if hasattr(opt_state, '_fields') and set(fields) <= set(
+            opt_state._fields):
+        return tuple(getattr(opt_state, f) for f in fields)
+    if isinstance(opt_state, (tuple, list)):
+        found = [m for m in map(_adam_moments, opt_state) if m is not None]
+        if len(found) > 1:
+            raise ValueError('the optimizer state holds more than one set '
+                             'of Adam moments')
+        return found[0] if found else None
+    return None
+
+
+def flax_train_state_to_torch(state: Dict) -> Dict:
+    """A JAX package train state ({'params', 'batch_stats', 'opt_state'
+    (optax adam/adamw), 'step'}, leaves as numpy) as the port's plain
+    train state (parallel/checkpoint.py `train_state_dict`'s form, which
+    `load_train_state` copies into a pipeline's): the parameters, the
+    BatchNorm statistics and the Adam moments under the port's names and
+    layouts, the counts as int32."""
+    moments = _adam_moments(state['opt_state'])
+    if moments is None:
+        raise ValueError('no Adam moments (count, mu, nu) in the '
+                         'optimizer state')
+    count, mu, nu = moments
+
+    def tensors(tree, collection='params'):
+        return {n: torch.from_numpy(np.ascontiguousarray(a))
+                for n, a in flax_tree_to_torch(tree, collection).items()}
+
+    def scalar(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32)
+
+    return {'params': tensors(state['params']),
+            'batch_stats': tensors(state.get('batch_stats', {}),
+                                   'batch_stats'),
+            'opt_state': {'count': scalar(count), 'mu': tensors(mu),
+                          'nu': tensors(nu)},
+            'step': scalar(state['step'])}

@@ -594,3 +594,89 @@ def test_chip_smoke_bench_size_phases_fail_without_card(phase):
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[phase]()
+
+
+# the modules of the training loop's slice (augmentation, the synthetic
+# dataset, loss weighting, eager validation, checkpoints, the policy and
+# the log, the example)
+LOOP_SLICE_MODULES = (
+    'nicr_mtsa_tpu_torch.data.preprocessing.augmentation',
+    'nicr_mtsa_tpu_torch.testing.dataset',
+    'nicr_mtsa_tpu_torch.testing.preprocessing',
+    'nicr_mtsa_tpu_torch.weighting',
+    'nicr_mtsa_tpu_torch.parallel',
+    'nicr_mtsa_tpu_torch.parallel.checkpoint',
+    'nicr_mtsa_tpu_torch.metrics.mae',
+    'nicr_mtsa_tpu_torch.utils.checkpointing',
+    'nicr_mtsa_tpu_torch.utils.csv_logger',
+    'nicr_mtsa_tpu_torch.utils._printing',
+    'nicr_mtsa_tpu_torch.examples.train_synthetic',
+)
+
+
+def test_loop_slice_runs_with_jax_blocked(tmp_path):
+    """The training loop's modules import, augment a synthetic sample,
+    step DWA and write and read back a checkpoint with jax, flax, optax
+    and the JAX package made unimportable."""
+    code = (
+        'import sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        '        if name.split(".")[0] in ("jax", "flax", "optax", '
+        '"jaxlib", "nicr_mtsa_tpu"):\n'
+        '            raise ImportError("blocked: " + name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import importlib\n'
+        f'for m in {LOOP_SLICE_MODULES!r}:\n'
+        '    importlib.import_module(m)\n'
+        'import numpy as np, torch\n'
+        'from nicr_mtsa_tpu_torch.data import preprocessing as p\n'
+        'from nicr_mtsa_tpu_torch.testing import get_dataset\n'
+        'from nicr_mtsa_tpu_torch.weighting import DynamicWeightAverage\n'
+        'from nicr_mtsa_tpu_torch.parallel import (load_checkpoint, '
+        'save_checkpoint)\n'
+        'ds = get_dataset(p.Compose([p.RandomHorizontalFlip(0.5), '
+        'p.RandomHSVJitter(0.1, 0.1, 0.1)]), n_samples=1, height=24, '
+        'width=32)\n'
+        's = ds.load(0, np.random.RandomState(0))\n'
+        'w = DynamicWeightAverage(("a",))\n'
+        'w.reduce_losses({"a": 1.0}, 0)\n'
+        't = torch.zeros(3)\n'
+        'state = {"params": {"w": t}, "batch_stats": {}, "opt_state": '
+        'type("S", (), {"count": torch.zeros((), dtype=torch.int32), '
+        '"mu": {"w": t}, "nu": {"w": t}})(), "step": torch.zeros(())}\n'
+        f'path = save_checkpoint({str(tmp_path / "c")!r}, state, '
+        'extra={"dwa": w.state_dict()})\n'
+        '_, extra = load_checkpoint(path)\n'
+        'print(s["rgb"].shape, extra["dwa"]["loss_buffer"])\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "(24, 32, 3) [{'a': 1.0}]"
+
+
+def test_chip_smoke_train_loop_phase_fails_without_card():
+    """Phase 32 (the training loop) raises on a machine without a card,
+    before it writes its dataset: it does not fall back to the CPU."""
+    import argparse
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    try:
+        cs = importlib.import_module('chip_smoke')
+    finally:
+        sys.path.remove(str(ROOT))
+    from nicr_mtsa_tpu_torch.ops import cuda as kernels
+    args = argparse.Namespace(profile=False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cs.train_loop(args, kernels, 'no card', {})
+
+
+def test_train_synthetic_example_refuses_without_card(monkeypatch):
+    """The port's example runs on the card unless `--cpu`: without a
+    card it raises instead of drifting to the CPU."""
+    from nicr_mtsa_tpu_torch.examples import train_synthetic
+    monkeypatch.setattr(sys, 'argv', ['train_synthetic', '--steps', '1'])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train_synthetic.main()
