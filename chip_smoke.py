@@ -331,12 +331,55 @@ printed as `train_loop_seconds`):
    `--profile` one training and one validation step on a resident
    batch.
 
+And the rest of the dense model surface (their seconds are printed as
+`surface_seconds`):
+
+33. surface normals on `emsanet-bench` with 'normal' added to its tasks
+   (a 3-channel unit-length head beside the others): (a) serving at
+   B=8, 480 x 640, bf16, `extra_output_tasks=('normal',)`, launches a
+   request exactly phase 3's (1 finisher4x, 1 grouping, every other
+   wrapper none), every normal unit length within NORMAL_UNIT_TOL (bf16
+   rounding), frames/s and peak memory printed beside phase 3's; (b)
+   that pipeline in f32 on one frame on the card and on the CPU:
+   phase 4's gates, and the normals agreeing (within NORMAL_CPU_DIST)
+   on at least NORMAL_AGREE_MIN of the pixels, one image's normals
+   negated failing that; (c) the fused eval step at B=8 (phase 5's
+   model and batch with the normal task, its helper and seeded
+   synthetic normal targets): launches a step exactly
+   NORMAL_EVAL_KERNELS, losses finite, the metrics (normal_rmse too)
+   in range; the eager `validation_step`s of the semantic, scene and
+   normal helpers on the same raw outputs give the fused step's states
+   (phase 6's rule, atol 0); the card's raw outputs (B=2) postprocessed
+   and scored on the card and on the CPU: phase 6's rule, `sum_rmse`
+   within rtol 1e-5 and `n_elements` equal; (d) training
+   `emsanet_train_config()` with the normal task at B=8 bf16 with
+   `_down_<k>` targets for the side outputs (phase 19's gates: no
+   wrapper launched, losses finite and falling), then one float64 step
+   card vs CPU by phase 20's recipe and gates at NORMAL_TRAIN_CPU_HW
+   (the normal decoder's leaves and side heads included), its planted
+   faults and one in the normal losses caught;
+34. the model surface at full width, 480 x 640 bf16: (a) 2x ResNet-50
+   (bottleneck) with SE-add fusion and the APPM context, the
+   `emsanet-bench` decoders and heads: B=8 serving (rows 1 and 2 once
+   a request, their calls against their plain versions) and its f32
+   card-vs-CPU frame by phase 4's gates; a B=8 request at 960 x 1280
+   (the APPM bins doubled, checked on the branches' shapes; rows 1
+   and 2 once); one training step at B=8 (losses finite, its time and
+   peak memory); (b) one B=8 serving request a round (3 rounds) each of
+   SURFACE_VARIANTS: a -d16 encoder with no context module, SE
+   encoders, learned-3x3 and nearest upsampling (the semantic head not
+   deferred: row 6 serves, rows 1, 3 and 4 launch none), `ln`
+   normalization and the dense embedding decoder (its map's shape and
+   finite values); each kernel call of a request against its plain
+   version.
+
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
 chiprun_out/chip_smoke.json. Needs no network and no JAX."""
 import argparse
 import atexit
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -428,6 +471,30 @@ EMSANET_TRAIN_LAUNCHES = 0
 # heads' upsamplings, weights and biases), the instance losses
 EMSANET_TRAIN_FAULTS = {'upsampling_weight_grad': '.upsample',
                         'instance_losses': 'instance_decoder.'}
+# surface normals (phase 33): the unit-length error allowed a bf16
+# normal (its norm, the division and the output each rounded to bf16's
+# 8 bits; the JAX package's serving test allows the same); card vs CPU
+# in f32, the least share of pixels whose normals lie within
+# NORMAL_CPU_DIST of each other; the eval step's launches (phase 5's,
+# the grouping twice: the panoptic merge and the instance helper's GT
+# foreground); the side outputs' `_down_<k>` targets of training; the
+# float64 card-vs-CPU step's size (phase 20's takes three CPU steps at
+# 256 x 320, here cut to keep the phase short) and its planted faults,
+# phase 20's and one in the normal losses
+NORMAL_UNIT_TOL = 2e-2
+NORMAL_CPU_DIST, NORMAL_AGREE_MIN = 1e-3, 0.999
+NORMAL_EVAL_KERNELS = dict(EVAL_KERNELS, grouping=2)
+NORMAL_DOWNSCALES = (8, 16, 32)
+NORMAL_TRAIN_CPU_HW = (128, 160)
+NORMAL_TRAIN_FAULTS = dict(EMSANET_TRAIN_FAULTS,
+                           normal_losses='normal_decoder.')
+# that step's floor of a gradient's scale, as a share of the step's
+# largest |grad| (phase 20's 1e-5 is an f32 step's rounding noise): at
+# random init the normal decoder's gradients peak at 1.6e-6 of the
+# largest (the depth stem's; the step on the CPU at 128 x 160), so
+# phase 20's floor would hide them and a fault in them; float64
+# rounding noise lies far below 1e-9
+NORMAL_GRAD_FLOOR = 1e-9
 # panoptic ids are class * PANOPTIC_ID_CLASS + k (ops/merge.py); the
 # card-vs-CPU panoptic gate: the least share of segment pixels in
 # segments matched by class and IoU > 0.5 (see PERF.md section 2)
@@ -2178,7 +2245,15 @@ def _centre_lists(table):
             for img, val in zip(table['yx'].cpu(), table['valid'].cpu())]
 
 
-def card_vs_cpu(result, cfg, key, frame_seed):
+def _normal_agreement(a, b):
+    """Share of pixels whose unit normals (B, 3, H, W) lie within
+    NORMAL_CPU_DIST of each other, and the largest difference."""
+    d = torch.linalg.vector_norm(a.float() - b.float(), dim=1)
+    return (float((d <= NORMAL_CPU_DIST).float().mean()),
+            float((a.float() - b.float()).abs().max()))
+
+
+def card_vs_cpu(result, cfg, key, frame_seed, extra_output_tasks=()):
     """The f32 serving pipeline of `cfg` on one frame, on the card and
     on the CPU, with the same weights (the same seed builds the same
     model on both): semantic_idx must agree on >= 99.9 % of pixels, and
@@ -2186,12 +2261,16 @@ def card_vs_cpu(result, cfg, key, frame_seed):
     PANOPTIC_MATCH_MIN) with their borders in place
     (`panoptic_border_agreement` >= PANOPTIC_BORDER_MIN), while each
     planted panoptic fault must fall below its gate. First prints
-    whether the centre tables agree as ordered lists or only as sets."""
+    whether the centre tables agree as ordered lists or only as sets.
+    With 'normal' among `extra_output_tasks`, the normals must agree on
+    NORMAL_AGREE_MIN of the pixels (`_normal_agreement`), and the card's
+    with one image's normals negated must not."""
     from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
     rgb, depth = frames(1, seed=frame_seed)
     outs, centres = {}, {}
     for dev in ('cuda', 'cpu'):
-        pipe = build_serving_pipeline(cfg, device=dev, seed=0)
+        pipe = build_serving_pipeline(cfg, device=dev, seed=0,
+                                      extra_output_tasks=extra_output_tasks)
         centres[dev] = {}
         _capture_centres(pipe, centres[dev])
         outs[dev] = {k: v.cpu() for k, v in pipe(rgb, depth).items()}
@@ -2227,7 +2306,16 @@ def card_vs_cpu(result, cfg, key, frame_seed):
     n_segments = {dev: [len(torch.unique(p)) for p in o['panoptic']]
                   for dev, o in outs.items()}
     border_min = PANOPTIC_BORDER_MIN.get(key, PANOPTIC_MATCH_MIN)
+    normal = None
+    if 'normal' in extra_output_tasks:
+        n_card, n_cpu = (outs[d]['normal_output'] for d in ('cuda', 'cpu'))
+        planted = n_card.clone()
+        planted[0] = -planted[0]
+        normal = dict(zip(('agreement', 'max_abs'),
+                          _normal_agreement(n_card, n_cpu)),
+                      planted_negated=_normal_agreement(planted, n_cpu)[0])
     result[key] = dict(agreement=agree, scene_max_abs=scene_err,
+                       normal=normal,
                        n_instance_ids=n_instances,
                        panoptic_matched_share=matched,
                        panoptic_border_agreement=border,
@@ -2243,7 +2331,14 @@ def card_vs_cpu(result, cfg, key, frame_seed):
                       'panoptic_faults_matched_share': faults,
                       'panoptic_roll': roll,
                       'n_panoptic_ids': n_segments,
-                      'scene_max_abs': scene_err}), flush=True)
+                      'scene_max_abs': scene_err, 'normal': normal}),
+          flush=True)
+    if normal is not None and not (
+            normal['agreement'] >= NORMAL_AGREE_MIN
+            > normal['planted_negated']):
+        fail(f'{key}: normals agree on {normal["agreement"]} of the '
+             f'pixels, the planted negation on '
+             f'{normal["planted_negated"]}; the gate is {NORMAL_AGREE_MIN}')
     if agree['semantic_idx'] < 0.999:
         fail(f"{key}: semantic_idx agreement {agree['semantic_idx']}")
     if matched < PANOPTIC_MATCH_MIN:
@@ -2262,7 +2357,8 @@ def card_vs_cpu(result, cfg, key, frame_seed):
 
 def serve_exact(cfg, n_requests, want, kernels, card, result, key,
                 profile_it=False, B=8, targets=None, reference_of=None,
-                keep_reference=False):
+                keep_reference=False, extra_output_tasks=(),
+                check_out=None):
     """Serving of `cfg` at B on frames of its input size: a warm-up
     request (the kernels' inputs captured by `targets`), then three
     timed rounds of `n_requests` requests with the counters set to 0
@@ -2271,11 +2367,13 @@ def serve_exact(cfg, n_requests, want, kernels, card, result, key,
     memory from before the warm-up. With `reference_of`, one more request
     under deterministic cuDNN must give `reference_of`'s outputs bit for
     bit; with `keep_reference`, that request's outputs are returned for
-    such a comparison. Returns (the launches of `want`, the captured
-    calls, those outputs or None)."""
+    such a comparison. `extra_output_tasks` go to the pipeline, and
+    `check_out` (if any) checks the last request's outputs. Returns (the
+    launches of `want`, the captured calls, those outputs or None)."""
     from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
     H, W = cfg.input_size
-    pipe = build_serving_pipeline(cfg, device='cuda', seed=0)
+    pipe = build_serving_pipeline(cfg, device='cuda', seed=0,
+                                  extra_output_tasks=extra_output_tasks)
     rgb, depth = (torch.from_numpy(a).cuda() for a in frames(B, H, W))
     _fresh()
     with _capture(targets or {}) as calls:
@@ -2295,6 +2393,8 @@ def serve_exact(cfg, n_requests, want, kernels, card, result, key,
     n = 3 * n_requests
     launches = _check_launches(kernels, want, n, key)
     check_outputs(out, B, H, W, 40)
+    if check_out is not None:
+        check_out(out)
     fps = float(np.median(rounds))
     peak = _peak_gb()
     ref = bit_equal = None
@@ -2412,11 +2512,13 @@ def _planted_fault(fault, pipe):
         # each ladder step's and each task head's upsampling weight
         hooks = [p.register_hook(lambda g: g * scale)
                  for n, p in pipe.model.named_parameters()
-                 if n.startswith(('semantic_decoder.', 'instance_decoder.'))
+                 if n.startswith(('semantic_decoder.', 'instance_decoder.',
+                                  'normal_decoder.'))
                  and '.upsample' in n and n.endswith('.weight')]
-    elif fault == 'instance_losses':
+    elif fault in ('instance_losses', 'normal_losses'):
+        prefix = fault.split('_')[0] + '_'
         pipe.compute_losses = lambda b, p: {
-            k: v * scale if k.startswith('instance_') else v
+            k: v * scale if k.startswith(prefix) else v
             for k, v in compute_losses(b, p).items()}
     try:
         yield
@@ -2450,8 +2552,10 @@ def _train_step_result(cfg, hw, batch, dev, order=None, fault=None):
     with torch.no_grad():
         pipe.model.instance_decoder.task_head.conv_orientation.bias.copy_(
             torch.tensor(TRAIN_CPU_ORIENTATION_BIAS))
-    batch_t = build_train_batch(batch, *hw, seed=2, device=dev,
-                                rgbd=cfg.backbone_rgbd is not None)
+    normal = 'normal' in cfg.tasks
+    batch_t = build_train_batch(
+        batch, *hw, seed=2, device=dev, rgbd=cfg.backbone_rgbd is not None,
+        normals=normal, downscales=NORMAL_DOWNSCALES if normal else ())
     state = pipe.create_train_state()
     t0 = time.perf_counter()
     with torch.backends.mkldnn.flags(enabled=order != 'no_mkldnn'), \
@@ -2468,13 +2572,14 @@ def _train_step_result(cfg, hw, batch, dev, order=None, fault=None):
 
 def train_card_vs_cpu(result, hw=TRAIN_CPU_HW, batch=TRAIN_CPU_BATCH,
                       cfg=None, faults=TRAIN_FAULTS,
-                      key='train_card_vs_cpu', f32_cfg=None):
+                      key='train_card_vs_cpu', f32_cfg=None,
+                      grad_floor=1e-5):
     """One training step of `cfg` (default `emsaformer_dve_v2`'s, f32)
     with drop rates 0 on the card and on the CPU (`batch` at `hw`; the
     same seed builds the same weights and batch): losses within rtol
     1e-5, BatchNorm statistics within 1e-5, and each gradient within its
-    limit of its tensor's max |grad| (of 1e-5 x the step's largest, for
-    a tensor whose exact gradient is 0): TRAIN_GRAD_TOL, or
+    limit of its tensor's max |grad| (of `grad_floor` x the step's
+    largest, for a tensor whose exact gradient is 0): TRAIN_GRAD_TOL, or
     TRAIN_SPREAD_FACTOR times the spread of the same step on the CPU in
     its other summation orders, taken in this run, where that is more.
     Controls: the card's step again with each of `faults` planted must
@@ -2511,7 +2616,7 @@ def train_card_vs_cpu(result, hw=TRAIN_CPU_HW, batch=TRAIN_CPU_BATCH,
     if not loss_err <= 1e-5:
         fail(f'{key}: losses differ by rtol {loss_err}')
     largest = max(float(g.abs().max()) for g in g_cpu.values())
-    den = {n: max(float(g.abs().max()), 1e-5 * largest)
+    den = {n: max(float(g.abs().max()), grad_floor * largest)
            for n, g in g_cpu.items()}
 
     def errs(grads):
@@ -2671,7 +2776,8 @@ def evaluate(args, kernels, card, result):
 def _states_equal(card, cpu, name='', angle_atol=0.0):
     """None where the metric states `card` equal `cpu`, else where and
     how they first differ: integer states (and the f32 TP/FN/FP counts)
-    exactly, the f32 IoU and angular-error sums within rtol 1e-5. With
+    exactly, the f32 IoU, angular-error and RMSE sums within rtol 1e-5.
+    With
     `angle_atol` an angular-error sum may also differ by that many rad a
     counted angle (its state's `n_elements`)."""
     n = cpu.get('n_elements')
@@ -2694,7 +2800,7 @@ def _state_difference(a, b, name, angle_atol):
     if a.shape != b.shape or a.dtype != b.dtype:
         return f'{name}: {a.dtype} {tuple(a.shape)} against ' \
                f'{b.dtype} {tuple(b.shape)}'
-    if name.endswith(('iou_per_class', 'sum_angular_error')):
+    if name.endswith(('iou_per_class', 'sum_angular_error', 'sum_rmse')):
         atol = angle_atol if name.endswith('sum_angular_error') else 0.0
         if not torch.allclose(a, b, rtol=1e-5, atol=atol):
             return f'{name}: {a} against {b}'
@@ -2711,12 +2817,14 @@ def _to_cpu(t):
     return t
 
 
-def eval_card_vs_cpu(pipe, result):
+def eval_card_vs_cpu(pipe, result, key='eval_card_vs_cpu',
+                     normals=False):
     """The card's raw eval outputs (bf16, B=2), postprocessed with
-    their metric states updated on the card and, copied, on the CPU."""
+    their metric states updated on the card and, copied, on the CPU;
+    with `normals`, on a batch with normal targets."""
     from nicr_mtsa_tpu_torch.testing import build_eval_batch
     eb = build_eval_batch(2, (480, 640), (512, 512), 40, IS_THING, seed=1,
-                          device='cuda')
+                          device='cuda', normals=normals)
     batch = dict(eb.batch, **eb.static_batch)
     with torch.inference_mode():
         raw = pipe.model(pipe.model_inputs(batch))
@@ -2728,15 +2836,17 @@ def eval_card_vs_cpu(pipe, result):
             raw_cpu, batch_cpu, pipe.empty_metric_states('cpu'))
     diff = _states_equal(on_card, on_cpu)
     if diff:
-        fail(f'eval card vs CPU: {diff}')
+        fail(f'{key}: {diff}')
     counts = {'semantic_pixels': int(on_cpu['semantic'].sum()),
               'panoptic_tp': float(on_cpu['panoptic']['pq'][
                   'tp_per_class'].sum()),
               'instance_tp': float(on_cpu['instance']['pq'][
                   'tp_per_class'].sum())}
-    result['eval_card_vs_cpu'] = dict(states='equal', **counts)
-    print(json.dumps({'phase': 'eval_card_vs_cpu', 'states': 'equal',
-                      **counts}), flush=True)
+    if normals:
+        counts['normal_pixels'] = int(on_cpu['normal']['n_elements'])
+    result[key] = dict(states='equal', **counts)
+    print(json.dumps({'phase': key, 'states': 'equal', **counts}),
+          flush=True)
 
 
 SWIN_EVAL_LOG_KEYS = EVAL_LOG_KEYS + ('dense_visual_embedding_text_miou',
@@ -4621,6 +4731,319 @@ def _check_loop_resize(rr, call):
     return row
 
 
+# --- phases 33-34: surface normals and the rest of the model surface ------
+
+# phase 34: the serving variants of the dense model surface, each on
+# `emsanet_bench_config()` with these fields replaced, and the wrappers
+# each launches once a request (every other wrapper none): the
+# learned-3x3 and nearest heads cannot be deferred, so the score/argmax
+# reduce (row 6) serves them in place of the 4x finisher
+SURFACE_VARIANTS = {
+    'resnet34_d16_none': dict(backbone_rgb='resnet34-d16',
+                              backbone_depth='resnet34-d16',
+                              context_module='none'),
+    'resnet18se': dict(backbone_rgb='resnet18se', backbone_depth='resnet18se'),
+    'learned_3x3': dict(upsampling='learned-3x3',
+                        prediction_upsampling='learned-3x3',
+                        defer_semantic_prediction_upsampling=False),
+    'nearest': dict(upsampling='nearest', prediction_upsampling='nearest',
+                    defer_semantic_prediction_upsampling=False),
+    'ln': dict(normalization='ln'),
+    'embedding': dict(tasks=('semantic', 'instance', 'orientation', 'scene',
+                             'dense_visual_embedding')),
+}
+# 2x ResNet-50 (bottleneck) with the adaptive PPM (phase 34 (a))
+R50_APPM = dict(backbone_rgb='resnet50', backbone_depth='resnet50',
+                context_module='appm')
+# requests a timed round of each variant, and at 960 x 1280
+SURFACE_REQUESTS = 1
+LARGE_HW, LARGE_REQUESTS = (960, 1280), 2
+
+
+def _with_normals(cfg):
+    return dataclasses.replace(cfg, tasks=tuple(cfg.tasks) + ('normal',))
+
+
+def _unit_length_err(n):
+    return float((torch.linalg.vector_norm(n.float(), dim=1) - 1.0)
+                 .abs().max())
+
+
+def _serving_want(kernels, *names):
+    """Every wrapper of the port: 1 launch a request for `names`, 0 for
+    the others."""
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(dict.fromkeys(names, 1))
+    return want
+
+
+def _eager_equals_fused(pipe, batch, names, key):
+    """The eager `validation_step`s of the helpers `names` on the fused
+    step's raw outputs of `batch` accumulate the fused states (phase 6's
+    rule at atol 0); the eager states are dropped after."""
+    with torch.inference_mode():
+        raw = pipe.model(pipe.model_inputs(batch))
+        _, _, fused = pipe.evaluate_outputs(raw, batch,
+                                            pipe.empty_metric_states())
+        helpers = {n: pipe.task_helpers[n] for n in names}
+        keys = set()
+        for h in helpers.values():
+            keys.update(h.prediction_keys, h.validation_keys)
+        post = pipe.postprocess_outputs(raw, batch, frozenset(keys))
+        for h in helpers.values():
+            h.validation_step(batch, 0, post)
+    eager = {n: h._eager_states for n, h in helpers.items()}
+    diff = _states_equal(eager, {n: fused[n] for n in names})
+    for h in helpers.values():
+        h.validation_epoch_end()
+    if diff:
+        fail(f'{key}: eager states differ from the fused step: {diff}')
+
+
+def normals(args, kernels, card, result):
+    """Phase 33 (see the module's docstring). Returns the launches of
+    its serving, eval and training paths."""
+    from nicr_mtsa_tpu_torch.pipeline import (build_eval_pipeline,
+                                              emsanet_bench_config,
+                                              emsanet_train_config)
+    from nicr_mtsa_tpu_torch.testing import (build_eval_batch,
+                                             build_train_batch)
+    paths, found = {}, {}
+
+    def unit(out):
+        n = out['normal_output']
+        if tuple(n.shape) != (8, 3, 480, 640) or \
+                not bool(torch.isfinite(n).all()):
+            fail(f'normal_output: {tuple(n.shape)} or not finite')
+        found['unit_length_err'] = _unit_length_err(n)
+        if not found['unit_length_err'] <= NORMAL_UNIT_TOL:
+            fail(f'normals {found["unit_length_err"]} off unit length')
+
+    paths['serve_normals'] = serve_exact(
+        _with_normals(emsanet_bench_config()), args.requests,
+        _serving_want(kernels, *SERVING_KERNELS), kernels, card, result,
+        'serving_normals', args.profile, extra_output_tasks=('normal',),
+        check_out=unit)[0]
+    beside = {k: {m: result[k][m] for m in ('frames_per_s', 'peak_mem_gb')}
+              for k in ('serving', 'serving_normals') if k in result}
+    result['serving_normals'].update(found, beside_phase_3=beside)
+    print(json.dumps({'phase': 'serving_normals_beside_phase_3', **beside,
+                      **found, 'card': card}), flush=True)
+    card_vs_cpu(result, _with_normals(emsanet_bench_config(dtype='float32')),
+                'normals_card_vs_cpu', frame_seed=7,
+                extra_output_tasks=('normal',))
+
+    # the fused eval step with the normal helper
+    B = 8
+    pipe = build_eval_pipeline(_with_normals(emsanet_bench_config(
+        defer=False)), device='cuda', seed=0)
+    eb = build_eval_batch(B, (480, 640), (512, 512), 40, IS_THING, seed=0,
+                          device='cuda', normals=True)
+    _fresh()
+    step = pipe.make_fused_eval_step(eb.static_batch)
+    _, losses, states = step(eb.batch, pipe.empty_metric_states())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            _, losses, states = step(eb.batch, states)
+        int(states['normal']['n_elements'])
+        rounds.append(B * args.steps / (time.perf_counter() - t0))
+    paths['eval_normals'] = _check_launches(
+        kernels, NORMAL_EVAL_KERNELS, 3 * args.steps, 'eval_normals')
+    bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
+    if bad or 'normal_total_loss' not in losses:
+        fail(f'eval_normals: losses not finite {bad} or no normal loss')
+    pipe.load_metric_states(states)
+    _, _, logs = pipe.validation_epoch_end()
+    metrics = {k: float(logs[k]) for k in EVAL_LOG_KEYS}
+    _metrics_in_range(metrics, 'eval_normals')
+    rmse = float(logs['normal_rmse'])
+    if not 0.0 < rmse <= 2.0:
+        fail(f'eval_normals: normal_rmse {rmse} not in (0, 2]')
+    result['eval_normals'] = dict(
+        batch=B, steps_per_round=args.steps, rounds_frames_per_s=rounds,
+        frames_per_s=float(np.median(rounds)), card=card,
+        beside_phase_5=result.get('eval', {}).get('frames_per_s'),
+        normal_rmse=rmse,
+        metrics=metrics, peak_mem_gb=_peak_gb(),
+        launches_per_step={k: c / (3 * args.steps)
+                           for k, c in paths['eval_normals'].items() if c})
+    print(json.dumps({'phase': 'eval_normals', **result['eval_normals']}),
+          flush=True)
+    _eager_equals_fused(pipe, dict(eb.batch, **eb.static_batch),
+                        ('semantic', 'scene', 'normal'), 'eval_normals')
+    eval_card_vs_cpu(pipe, result, 'eval_normals_card_vs_cpu', normals=True)
+    del pipe, step, eb, states
+
+    # training with the normal task and the side outputs' targets
+    cfg = _with_normals(emsanet_train_config())
+    batch = build_train_batch(B, 480, 640, seed=0, device='cuda',
+                              rgbd=False, normals=True,
+                              downscales=NORMAL_DOWNSCALES)
+    paths['train_normals'] = train(
+        args, kernels, card, result, 'train_normals', cfg,
+        dict.fromkeys(kernels.KERNELS, EMSANET_TRAIN_LAUNCHES), batch=batch,
+        profile_it=False)[0]
+    if not any(k.startswith('normal_loss_down_')
+               for k in result['train_normals']['losses']):
+        fail('train_normals: no side-output loss of the normal task')
+    del batch
+    _fresh()
+    hw = NORMAL_TRAIN_CPU_HW
+    train_card_vs_cpu(result, hw=hw,
+                      cfg=_with_normals(emsanet_train_config(hw, 'float64')),
+                      faults=NORMAL_TRAIN_FAULTS,
+                      key='normal_train_card_vs_cpu',
+                      grad_floor=NORMAL_GRAD_FLOOR)
+    return paths
+
+
+def model_surface(args, kernels, card, result):
+    """Phase 34 (see the module's docstring). Returns the launches of
+    its serving paths."""
+    from nicr_mtsa_tpu_torch.pipeline import (build_serving_pipeline,
+                                              build_train_pipeline,
+                                              emsanet_bench_config,
+                                              emsanet_train_config)
+    from nicr_mtsa_tpu_torch.testing import build_train_batch
+    paths = {}
+    cfg = dataclasses.replace(emsanet_bench_config(), **R50_APPM)
+    paths['serve_r50_appm'], calls, _ = serve_exact(
+        cfg, args.requests, _serving_want(kernels, *SERVING_KERNELS),
+        kernels, card, result, 'serving_r50_appm', args.profile,
+        targets=_serving_targets(False))
+    check_bench_shapes('serving_r50_appm', calls, result)
+    del calls
+    card_vs_cpu(result, dataclasses.replace(
+        emsanet_bench_config(dtype='float32'), **R50_APPM),
+        'r50_appm_card_vs_cpu', frame_seed=8)
+
+    # a request at twice the training size: the APPM bins doubled
+    B, (H, W) = 8, LARGE_HW
+    _fresh()
+    pipe = build_serving_pipeline(cfg, device='cuda', seed=0)
+    rgb, depth = (torch.from_numpy(a).cuda() for a in frames(B, H, W))
+    cm = pipe.model.context_module
+    seen = []
+    handle = cm.register_forward_hook(lambda m, i, o: seen.append(
+        [tuple(t.shape[-2:]) for t in o[1]]))
+    out = pipe(rgb, depth)
+    handle.remove()
+    check_outputs(out, B, H, W, 40)
+    h_ctx, w_ctx = H // 32, W // 32
+    mh = int(h_ctx / cm.input_size[0] + 0.5)
+    mw = int(w_ctx / cm.input_size[1] + 0.5)
+    want_bins = [(b * mh, b * mw) for b in cm.bins]
+    if (mh, mw) != (2, 2) or seen[0] != want_bins:
+        fail(f'r50_appm at {H} x {W}: branches {seen[0]}, expected '
+             f'{want_bins} (multiplier {mh}, {mw})')
+    # rows 1 and 2 at this request's shapes: against their plain
+    # versions, and timed (the card's time alone, `stream_ms`; the plain
+    # version between events), row 1 beside its bound
+    with _capture(_serving_targets(False)) as calls:
+        pipe(rgb, depth)
+    check_bench_shapes('serving_r50_appm_960', calls, result)
+    timing = {}
+    for row, (fn, plain, _, _, forced) in _bench_rows().items():
+        if row in calls:
+            a, kw = calls[row][0]
+            kw = dict(kw, **forced)
+            timing[row] = dict(
+                shape=list(a[0].shape),
+                stream_ms=stream_ms(lambda: fn(*a, **kw)),
+                plain_ms=cuda_ms(lambda: plain(*a, **kw)))
+    timing['finisher4x']['bound_ms'], timing['finisher4x']['bound_by'] = \
+        _finisher_bound(calls['finisher4x'][0][0][0])
+    # row 2's bound by phase 2's formula: the offsets, the mask and the
+    # ids moved once, 6 operations a foreground pixel and valid centre
+    off, _, ok, fg = calls['grouping'][0][0][:4]
+    n_px = off[0, 0].numel()
+    timing['grouping']['bound_ms'], timing['grouping']['bound_by'] = bound(
+        off.numel() * off.element_size() + off.shape[0] * n_px * (1 + 4)
+        + ok.numel() * 9,
+        6 * int((fg.reshape(fg.shape[0], -1).sum(1) * ok.sum(1)).sum()))
+    del calls
+    # the peak of the requests alone, not of the plain versions above
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(LARGE_REQUESTS):
+        out = pipe(rgb, depth)
+    int(out['panoptic'][0, 0, 0])
+    fps = B * LARGE_REQUESTS / (time.perf_counter() - t0)
+    _check_launches(kernels, _serving_want(kernels, *SERVING_KERNELS),
+                    LARGE_REQUESTS, 'r50_appm_960')
+    result['serving_r50_appm_960'] = dict(
+        batch=B, size=[H, W], appm_bins=seen[0], frames_per_s=fps,
+        peak_mem_gb=_peak_gb(), kernels=timing, card=card)
+    print(json.dumps({'phase': 'serving_r50_appm_960',
+                      **result['serving_r50_appm_960']}), flush=True)
+    del pipe, rgb, depth, out
+
+    # one training step of the same model at B=8
+    _fresh()
+    pipe = build_train_pipeline(dataclasses.replace(
+        emsanet_train_config(), **R50_APPM), device='cuda', seed=0)
+    batch = build_train_batch(B, 480, 640, seed=0, device='cuda',
+                              rgbd=False)
+    state = pipe.create_train_state()
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    step_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = pipe.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    losses = {k: float(v) for k, v in losses.items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f'train_r50_appm: losses not finite {losses}')
+    result['train_r50_appm'] = dict(
+        batch=B, step_ms=step_ms, frames_per_s=B * 1e3 / step_ms[-1],
+        total_loss=losses['total_loss'], peak_mem_gb=_peak_gb(), card=card)
+    print(json.dumps({'phase': 'train_r50_appm',
+                      **result['train_r50_appm']}), flush=True)
+    del pipe, batch, state
+
+    # one request a round of each variant, its kernel calls checked
+    from nicr_mtsa_tpu_torch.postprocessing import semantic as sem_post
+    for name, fields in SURFACE_VARIANTS.items():
+        cfg = dataclasses.replace(emsanet_bench_config(), **fields)
+        deferred = cfg.defer_semantic_prediction_upsampling == 'all'
+        row = 'finisher4x' if deferred else 'semantic_reduce'
+        targets = _serving_targets(False)
+        if not deferred:
+            del targets['finisher4x']
+            targets['semantic_reduce'] = (sem_post, 'semantic_argmax_score',
+                                          _first_calls())
+        extra = (('dense_visual_embedding',) if name == 'embedding'
+                 else ())
+        found = {}
+
+        def embedding(out):
+            e = out['dense_visual_embedding_output']
+            found['embedding_shape'] = list(e.shape)
+            if tuple(e.shape) != (8, 512, 480, 640) or \
+                    not bool(torch.isfinite(e).all()):
+                fail(f'{name}: embedding {tuple(e.shape)} or not finite')
+
+        _fresh()
+        paths[f'serve_{name}'], calls, _ = serve_exact(
+            cfg, SURFACE_REQUESTS, _serving_want(kernels, row, 'grouping'),
+            kernels, card, result, f'surface_{name}', targets=targets,
+            extra_output_tasks=extra,
+            check_out=embedding if extra else None)
+        check_bench_shapes(f'surface_{name}', calls, result)
+        result[f'surface_{name}'].update(found)
+        del calls
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=10,
@@ -4763,6 +5186,12 @@ def main():
     result['train_loop_seconds'] = time.perf_counter() - t0
     print(json.dumps({'phase': 'train_loop_seconds',
                       'seconds': result['train_loop_seconds']}), flush=True)
+    t0 = time.perf_counter()
+    path_launches.update(normals(args, kernels, card, result))
+    path_launches.update(model_surface(args, kernels, card, result))
+    result['surface_seconds'] = time.perf_counter() - t0
+    print(json.dumps({'phase': 'surface_seconds',
+                      'seconds': result['surface_seconds']}), flush=True)
     # the seconds the phases at the bench's batch sizes add to the script
     result['bench_size_seconds'] = dict(bench_s, total=sum(bench_s.values()))
     print(json.dumps({'phase': 'bench_size_seconds',

@@ -1,5 +1,7 @@
 """Backbones of the port: ResNet-18/34 with basicblock or
-nonbottleneck1d blocks, and Swin v1/v2 (single- or multimodal).
+nonbottleneck1d blocks, ResNet-50/101 with bottleneck blocks, each
+also with per-stage SE (`*se`) or a dilated last stage (`*-d16`), and
+Swin v1/v2 (single- or multimodal).
 `get_backbone` is the registry (counterpart of nicr_mtsa_tpu/models/
 backbones/__init__.py)."""
 from .base import Backbone
@@ -7,7 +9,9 @@ from .resnet import ResNetBackbone, get_resnet_backbone
 from .swin import ATTN_BACKENDS, SwinBackbone, get_swin_backbone
 
 KNOWN_BACKBONES = (
-    'resnet18', 'resnet34',
+    'resnet18', 'resnet34', 'resnet50', 'resnet101',
+    'resnet18se', 'resnet34se', 'resnet50se', 'resnet101se',
+    'resnet18-d16', 'resnet34-d16', 'resnet50-d16', 'resnet101-d16',
     'swin-t', 'swin-s', 'swin-b', 'swin-t-v2', 'swin-s-v2', 'swin-b-v2',
     'swin-t-128', 'swin-t-v2-128',
     'swin-multi-t', 'swin-multi-s', 'swin-multi-b',

@@ -1,6 +1,7 @@
 """Shared model building blocks: conv, BatchNorm, the LayerNorm over the
-last axis, a Dense layer, ConvNormAct, SqueezeAndExcitation
-(counterpart of nicr_mtsa_tpu/models/common.py).
+last axis, the LayerNorm over the channels of conv models (`ln`), a
+Dense layer, ConvNormAct, SqueezeAndExcitation (counterpart of
+nicr_mtsa_tpu/models/common.py).
 
 Parameters stay float32; every module casts its weights to the dtype
 of its input (once, then cached; inside the autograd graph, uncached,
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 from ..utils.dtypes import upcast
 from .remat import recomputing
 
-KNOWN_NORMALIZATIONS = ('bn', 'batchnorm')
+KNOWN_NORMALIZATIONS = ('bn', 'batchnorm', 'ln', 'layernorm')
 KNOWN_ACTIVATIONS = ('relu', 'silu', 'swish')
 
 _Pair = Union[int, Tuple[int, int]]
@@ -65,12 +66,26 @@ def get_activation(name: Optional[str] = None):
     return F.relu if name == 'relu' else F.silu
 
 
-def check_normalization(name: Optional[str] = None) -> str:
+def get_normalization_name(name: Optional[str] = None) -> str:
+    """'batchnorm' or 'layernorm' for a registry name."""
     name = (name or 'batchnorm').lower()
     if name not in KNOWN_NORMALIZATIONS:
-        raise ValueError(f"Unsupported normalization in this port: "
-                         f"'{name}'")
-    return 'batchnorm'
+        raise ValueError(f"Unknown normalization: '{name}'")
+    return 'batchnorm' if name in ('bn', 'batchnorm') else 'layernorm'
+
+
+def make_norm(name: Optional[str], n_channels: int,
+              zero_init_scale: bool = False) -> nn.Module:
+    """The channel normalization of conv models named `name` (the JAX
+    package's `Norm`): BatchNorm, or ChannelLayerNorm for 'ln'; with
+    `zero_init_scale` its scale starts at 0 (zero-residual init)."""
+    cls = (BatchNorm if get_normalization_name(name) == 'batchnorm'
+           else ChannelLayerNorm)
+    norm = cls(n_channels)
+    if zero_init_scale:
+        with torch.no_grad():
+            norm.weight.zero_()
+    return norm
 
 
 class Conv2d(nn.Module):
@@ -149,6 +164,30 @@ class BatchNorm(nn.Module):
             self.running_var.copy_(m * self.running_var
                                    + (1.0 - m) * var.detach())
         return y.to(x.dtype)
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channel axis 1 of NCHW tensors, the `ln`
+    normalization of conv models: flax's `nn.LayerNorm` (eps 1e-6, its
+    default), f32 statistics with the clamped fast variance, y = (x -
+    mean) * (rsqrt(var + eps) * weight) + bias in f32, one cast to x's
+    dtype; the same arithmetic in training. Not the LN kernel, whose
+    JAX counterpart serves only the Swin path."""
+
+    def __init__(self, n_channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(n_channels))
+        self.bias = nn.Parameter(torch.zeros(n_channels))
+
+    def forward(self, x):
+        x32 = upcast(x)
+        mean = x32.mean(dim=1, keepdim=True)
+        var = ((x32 * x32).mean(dim=1, keepdim=True)
+               - mean * mean).clamp_min(0.0)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight.view(shape)
+        return ((x32 - mean) * mul + self.bias.view(shape)).to(x.dtype)
 
 
 class FusedLayerNorm(nn.Module):
@@ -251,10 +290,7 @@ class ConvNormAct(nn.Module):
         self.conv = Conv2d(n_in, n_out, kernel_size, stride,
                            dilation=dilation, use_bias=norm is None,
                            generator=generator)
-        self.norm = None
-        if norm is not None:
-            check_normalization(norm)
-            self.norm = BatchNorm(n_out)
+        self.norm = make_norm(norm, n_out) if norm is not None else None
         self.act = get_activation(act) if act is not None else None
 
     def forward(self, x):

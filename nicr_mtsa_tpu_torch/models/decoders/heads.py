@@ -1,11 +1,13 @@
 """Task heads (counterpart of nicr_mtsa_tpu/models/decoders/heads.py).
 
-- `TaskHead`: 3x3 conv -> n x2 prediction upsamplings; with
+- `TaskHead`: 3x3 conv -> n x2 prediction upsamplings -> optional
+  post-op (`post='unit-length'`: the normals' unit vectors); with
   `defer_last_upsampling=True` the last learned-3x3-zeropad upsampling
   is returned as a DeferredUpsampling, with `'all'` both upsamplings of
   a two-step head as a DeferredUpsampling2 (learned-3x3-zeropad) or a
   DeferredBilinear2 (bilinear, parameter-free); the parameters are the
-  same in every case.
+  same in every case. Another mode, or a post-op, cannot be deferred
+  and raises (the JAX package asserts it).
 - `InstanceHead`: shared 3x3 ConvNormAct split into centre (sigmoid),
   offset (tanh) and orientation (unit length) convs; the concatenated
   raw maps are upsampled jointly before the activations."""
@@ -29,16 +31,24 @@ class TaskHead(nn.Module):
     def __init__(self, n_in: int, n_channels_out: int,
                  upsampling: str = 'learned-3x3-zeropad',
                  n_upsamplings: int = 0, defer_last_upsampling=False,
-                 generator=None):
+                 post: Optional[str] = None, generator=None):
         super().__init__()
+        if post not in (None, 'unit-length'):
+            raise ValueError(f"Unknown task-head post-op: '{post}'")
         self.defer_all = defer_last_upsampling == 'all'
         self.defer_last = defer_last_upsampling is True and n_upsamplings > 0
         if self.defer_all:
             assert n_upsamplings == 2, n_upsamplings
+        deferrable = (('bilinear', 'learned-3x3-zeropad') if self.defer_all
+                      else ('learned-3x3-zeropad',))
+        if (self.defer_all or self.defer_last) and (
+                upsampling not in deferrable or post is not None):
+            raise ValueError(
+                f'defer_last_upsampling={defer_last_upsampling!r} defers '
+                f'{" or ".join(deferrable)} upsampling without a post-op, '
+                f'not {upsampling!r} with post {post!r}')
         self.bilinear = upsampling == 'bilinear'
-        if self.defer_last and self.bilinear:
-            raise ValueError('defer_last_upsampling=True defers a '
-                             'learned-3x3-zeropad upsampling, not bilinear')
+        self.post = post
         self.n_upsamplings = n_upsamplings
         k = 3 if n_upsamplings else 1
         self.conv = Conv2d(n_in, n_channels_out, k, use_bias=True,
@@ -62,6 +72,8 @@ class TaskHead(nn.Module):
         if self.defer_last:
             u = getattr(self, f'upsample_{n_applied}')
             return DeferredUpsampling(x=x, kernel=u.weight, bias=u.bias)
+        if self.post == 'unit-length':
+            x = unit_length(x)
         return x
 
 

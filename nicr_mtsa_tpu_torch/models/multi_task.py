@@ -4,7 +4,11 @@ multi_task.py `MultiTaskModelConfig` and `build_model`): the dense
 family (fused dual-backbone RGB-D encoder, or a single rgb or depth
 backbone; dense decoders) and the MLP
 family (a single 4-channel rgbd backbone such as the multimodal Swin,
-SegFormer-style MLP decoders, the dense-visual-embedding decoder).
+SegFormer-style MLP decoders); each names its tasks from the JAX
+package's registry (`KNOWN_TASKS`: the semantic, instance (with the
+orientation head), normal, scene and dense-visual-embedding decoders,
+'panoptic' for the semantic and instance decoders), and a name it
+does not build raises.
 
 The config names its compute dtype as a string ('float32',
 'bfloat16', or 'float64' for a reference run on the CPU, with the
@@ -22,13 +26,19 @@ import torch.nn as nn
 from ..utils.device import resolve_device
 from .backbones import get_backbone
 from .context import get_context_module
-from .decoders import (EmbeddingMLPDecoder, InstanceDecoder,
-                       InstanceMLPDecoder, SceneClassificationDecoder,
+from .decoders import (EmbeddingDecoder, EmbeddingMLPDecoder,
+                       InstanceDecoder, InstanceMLPDecoder, NormalDecoder,
+                       NormalMLPDecoder, SceneClassificationDecoder,
                        SemanticDecoder, SemanticMLPDecoder)
 from .encoder import Encoder, FusedRGBDEncoder
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
           'float64': torch.float64}
+# the JAX package's task registry (nicr_mtsa_tpu/multi_task.py), in its
+# order: 'orientation' is the instance decoder's third head, 'panoptic'
+# the semantic and instance decoders together
+KNOWN_TASKS = ('semantic', 'instance', 'orientation', 'normal', 'scene',
+               'panoptic', 'dense_visual_embedding')
 
 
 @dataclass
@@ -105,12 +115,14 @@ class MultiTaskModel(nn.Module):
                  semantic_decoder: Optional[nn.Module] = None,
                  instance_decoder: Optional[nn.Module] = None,
                  scene_decoder: Optional[nn.Module] = None,
-                 embedding_decoder: Optional[nn.Module] = None):
+                 embedding_decoder: Optional[nn.Module] = None,
+                 normal_decoder: Optional[nn.Module] = None):
         super().__init__()
         self.encoder = encoder
         self.context_module = context_module
         self.semantic_decoder = semantic_decoder
         self.instance_decoder = instance_decoder
+        self.normal_decoder = normal_decoder
         self.scene_decoder = scene_decoder
         self.embedding_decoder = embedding_decoder
 
@@ -131,6 +143,7 @@ class MultiTaskModel(nn.Module):
         result = {}
         for task, dec in (('semantic', self.semantic_decoder),
                           ('instance', self.instance_decoder),
+                          ('normal', self.normal_decoder),
                           ('scene', self.scene_decoder),
                           ('dense_visual_embedding',
                            self.embedding_decoder)):
@@ -187,10 +200,20 @@ def build_model(config: MultiTaskModelConfig, device=None,
     model is sized from it."""
     device = resolve_device(device)
     c = config
+    tasks = set(c.tasks)
+    unknown = sorted(tasks - set(KNOWN_TASKS))
+    if unknown:
+        raise ValueError(f'Unknown tasks {unknown}; the known tasks are '
+                         f'{KNOWN_TASKS}')
+    if 'orientation' in tasks and not tasks & {'instance', 'panoptic'}:
+        raise ValueError("the 'orientation' task is a head of the instance "
+                         "decoder: name 'instance' or 'panoptic' with it")
     g = torch.Generator().manual_seed(seed)
     encoder = _build_encoder(c, g, rgbd_backbone)
+    ds_in = encoder.downsampling
     context = get_context_module(
         c.context_module, encoder.n_channels_out, c.context_n_channels,
+        input_size=(c.input_size[0] // ds_in, c.input_size[1] // ds_in),
         normalization=c.normalization, activation=c.activation,
         generator=g)
 
@@ -208,7 +231,7 @@ def build_model(config: MultiTaskModelConfig, device=None,
         ed_fusion = ed_fusion.replace('-rgb', '').replace('-depth', '')
     common = dict(
         n_channels_in=c.context_n_channels,
-        downsampling_in=encoder.downsampling,
+        downsampling_in=ds_in,
         fusion=ed_fusion, fusion_n_channels=fusion_n_channels,
         fusion_downsamplings=fusion_downsamplings,
         norm=c.normalization, act=c.activation,
@@ -224,8 +247,7 @@ def build_model(config: MultiTaskModelConfig, device=None,
                       downsamplings=c.decoder_downsamplings,
                       block=c.decoder_block, n_blocks=c.decoder_n_blocks,
                       side_heads=train, remat=c.decoder_remat)
-    tasks = set(c.tasks)
-    semantic = instance = scene = embedding = None
+    semantic = instance = normal = scene = embedding = None
     if tasks & {'semantic', 'panoptic'}:
         semantic = (SemanticMLPDecoder if is_mlp else SemanticDecoder)(
             n_classes=c.semantic_n_classes,
@@ -236,16 +258,20 @@ def build_model(config: MultiTaskModelConfig, device=None,
         instance = (InstanceMLPDecoder if is_mlp else InstanceDecoder)(
             with_orientation='orientation' in tasks, generator=g,
             **common)
+    if 'normal' in tasks:
+        normal = (NormalMLPDecoder if is_mlp else NormalDecoder)(
+            generator=g, **common)
     if 'scene' in tasks:
-        # the PPM's global branch has n_channels_in // len(bins) channels
-        scene = SceneClassificationDecoder(
-            encoder.n_channels_out // len(context.bins),
-            c.scene_n_classes, generator=g)
+        # a pooling context's global branch has n_channels_in //
+        # len(bins) channels; without branches the decoder pools the
+        # context output (context_n_channels)
+        n_scene = (encoder.n_channels_out // len(context.bins)
+                   if context.bins else c.context_n_channels)
+        scene = SceneClassificationDecoder(n_scene, c.scene_n_classes,
+                                           generator=g)
     if 'dense_visual_embedding' in tasks:
-        if not is_mlp:
-            raise ValueError('this port has the MLP embedding decoder only')
-        embedding = EmbeddingMLPDecoder(embedding_dim=c.embedding_dim,
-                                        generator=g, **common)
+        embedding = (EmbeddingMLPDecoder if is_mlp else EmbeddingDecoder)(
+            embedding_dim=c.embedding_dim, generator=g, **common)
     model = MultiTaskModel(encoder, context, semantic, instance, scene,
-                           embedding)
+                           embedding, normal)
     return model.train(train).to(device)

@@ -1,5 +1,6 @@
-"""Learned-3x3-zeropad and bilinear upsampling and their deferred
-two-stage forms (counterpart of nicr_mtsa_tpu/models/upsampling.py).
+"""The upsampling modes (learned-3x3-zeropad, learned-3x3, bilinear,
+nearest) and the deferred two-stage forms (counterpart of
+nicr_mtsa_tpu/models/upsampling.py).
 
 `learned-3x3-zeropad` is nearest x2 followed by a zero-padded depthwise
 3x3 conv. Its fused form is one input-dilated depthwise conv with a
@@ -30,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import cached_weight
+from .common import Conv2d, cached_weight
 
 _BILINEAR_KERNEL = ((0.0625, 0.1250, 0.0625),
                     (0.1250, 0.2500, 0.1250),
@@ -193,6 +194,12 @@ def _tap_tensors(n: int, m: int, device, dtype):
     Built outside inference mode even when first asked for inside it,
     so a training step can save the weights for its backward."""
     lo, hi, w0, w1 = two_tap_params(n, m)
+    if dtype == torch.float64:
+        # a float64 run forms 1 - w in float64, as the JAX package's
+        # `1.0 - w` (a Python float) stays under x64 (its periodic
+        # resize; only a period above 32, which no float64 path here
+        # meets, takes its f32 dense form)
+        w0 = 1.0 - w1.astype(np.float64)
     with torch.inference_mode(False):
         return (torch.from_numpy(lo).to(device),
                 torch.from_numpy(hi).to(device),
@@ -236,31 +243,62 @@ def resize_nearest(x, height: int, width: int):
                                 width, -1)
 
 
+KNOWN_UPSAMPLING_METHODS = ('nearest', 'bilinear', 'learned-3x3',
+                            'learned-3x3-zeropad')
+
+
+def upsample_nearest_2x(x):
+    """Nearest x2 of the last two axes (each value repeated 2 x 2)."""
+    return F.interpolate(x, scale_factor=2, mode='nearest')
+
+
 class Upsampling(nn.Module):
-    """x2 `learned-3x3-zeropad` upsampling (nearest x2 + zero-padded
-    depthwise 3x3 + bias, as one conv_transpose2d with the flipped fused
-    4x4 kernel; weight (C, 1, 3, 3) initialised to the bilinear kernel,
-    bias zero), or parameter-free `bilinear` by `scale_factor` (a
-    half-pixel resize, `resize_bilinear`; factor 1 is the identity)."""
+    """Upsampling by `scale_factor` of one of the JAX package's modes:
+    - `learned-3x3-zeropad` (x2): nearest x2 + zero-padded depthwise 3x3
+      + bias, as one conv_transpose2d with the flipped fused 4x4 kernel;
+      weight (C, 1, 3, 3) initialised to the bilinear kernel, bias zero;
+    - `learned-3x3` (x2): nearest x2, an edge (replication) pad, then a
+      depthwise 3x3 conv `conv` (weight and bias; the bilinear kernel
+      at init): another parameter tree than the zeropad mode's;
+    - `bilinear`: a half-pixel resize (`resize_bilinear`);
+    - `nearest`: nearest x2, or the floor(i * src / dst) resize for
+      other factors (`resize_nearest`).
+    The two parameter-free modes take any factor (1 is the identity)."""
 
     def __init__(self, mode: str, n_channels: int, use_bias: bool = True,
                  scale_factor: int = 2):
         super().__init__()
+        mode = mode.lower()
+        if mode not in KNOWN_UPSAMPLING_METHODS:
+            raise ValueError(f"Unknown upsampling: '{mode}'")
         self.mode = mode
         self.scale_factor = int(scale_factor)
-        if mode == 'bilinear':
+        if mode in ('bilinear', 'nearest'):
             return
-        if mode != 'learned-3x3-zeropad' or self.scale_factor != 2:
-            raise ValueError(f"Unsupported upsampling in this port: "
-                             f"'{mode}' x{scale_factor}")
+        if self.scale_factor != 2:
+            raise ValueError(f"'{mode}' upsampling is x2 only, not "
+                             f"x{scale_factor}")
+        if mode == 'learned-3x3':
+            self.conv = Conv2d(n_channels, n_channels, 3, padding=0,
+                               groups=n_channels, use_bias=use_bias)
+            with torch.no_grad():
+                self.conv.weight.copy_(bilinear_kernel(n_channels))
+            return
         self.weight = nn.Parameter(bilinear_kernel(n_channels))
         self.bias = (nn.Parameter(torch.zeros(n_channels)) if use_bias
                      else None)
 
     def forward(self, x):
+        f = self.scale_factor
         if self.mode == 'bilinear':
-            f = self.scale_factor
             return resize_bilinear(x, f * x.shape[-2], f * x.shape[-1])
+        if self.mode == 'nearest':
+            if f == 2:
+                return upsample_nearest_2x(x)
+            return resize_nearest(x, f * x.shape[-2], f * x.shape[-1])
+        if self.mode == 'learned-3x3':
+            x = F.pad(upsample_nearest_2x(x), (1, 1, 1, 1), mode='replicate')
+            return self.conv(x)
         dt = x.dtype
         kt = cached_weight(self, 'weight', dt,
                            lambda w: fused_zeropad_2x_kernel(w).flip(2, 3))

@@ -54,15 +54,16 @@ from .data.preprocessing.normalize import RGB_MEAN, RGB_STD
 from .models.encoder import Encoder
 from .models.multi_task import (MultiTaskModel, MultiTaskModelConfig,
                                 build_model)
-from .models.upsampling import DEFERRED_TYPES
 from .ops.segments import ids_to_slots
 from .optim import AdamW
 from .tasks.base import TOTAL_LOSS_SUFFIX
 from .postprocessing import (DenseVisualEmbeddingPostprocessing,
-                             InstancePostprocessing, PanopticPostprocessing,
-                             ScenePostprocessing, SemanticPostprocessing)
+                             InstancePostprocessing, NormalPostprocessing,
+                             PanopticPostprocessing, ScenePostprocessing,
+                             SemanticPostprocessing)
 from .tasks import (DenseVisualEmbeddingTaskHelper, InstanceTaskHelper,
-                    PanopticTaskHelper, SceneTaskHelper, SemanticTaskHelper)
+                    NormalTaskHelper, PanopticTaskHelper, SceneTaskHelper,
+                    SemanticTaskHelper)
 
 def _as_tensor(a, device) -> torch.Tensor:
     if isinstance(a, np.ndarray):
@@ -120,9 +121,10 @@ class PanopticInferencePipeline:
                  compute_dtype=torch.bfloat16,
                  channels_last: bool = None,
                  extra_output_tasks: Sequence[str] = ()):
-        """extra_output_tasks: further task heads ('dense_visual_embedding')
-        whose raw main outputs are added as '<task>_output'; their
-        decoders run only when asked for."""
+        """extra_output_tasks: further task heads ('normal',
+        'dense_visual_embedding') whose raw main outputs (NCHW, at the
+        input's resolution) are added as '<task>_output'; their decoders
+        run only when asked for."""
         self.model = model
         self.post = panoptic_postprocessing
         self._depth_mean = float(depth_mean)
@@ -309,12 +311,8 @@ def default_postprocessors(tasks: Sequence[str],
                            **dve_kwargs) -> dict:
     """The per-task postprocessors of the enabled tasks
     (`semantic_classes_is_thing` without void); `dve_kwargs` go to the
-    dense-visual-embedding postprocessor (its class tables). Dense
-    scores and the normal postprocessor are not ported."""
+    dense-visual-embedding postprocessor (its class tables)."""
     tasks = set(tasks)
-    if 'normal' in tasks:
-        raise NotImplementedError("postprocessing of ['normal'] is not "
-                                  "ported yet")
     post = {}
     sem_post = SemanticPostprocessing()
     ins_post = InstancePostprocessing(
@@ -335,6 +333,8 @@ def default_postprocessors(tasks: Sequence[str],
             post['semantic'] = sem_post
         if 'instance' in tasks:
             post['instance'] = ins_post
+    if 'normal' in tasks:
+        post['normal'] = NormalPostprocessing()
     if 'scene' in tasks:
         post['scene'] = ScenePostprocessing()
     if 'dense_visual_embedding' in tasks:
@@ -398,20 +398,17 @@ class MultiTaskPipeline:
 
     def compute_losses(self, batch: dict, predictions: dict) -> dict:
         """Task losses of raw training outputs: the training
-        postprocessing is a pass-through (the semantic and instance
-        outputs under their task names, where the panoptic
-        postprocessor stands for both)."""
+        postprocessing is a pass-through (the outputs under their task
+        names; the panoptic postprocessor's semantic and instance ones
+        stand for those of its tasks)."""
         predictions_post = {}
+        panoptic = self.postprocessors.get('panoptic')
         for task, raw in predictions.items():
             post = self.postprocessors.get(task)
-            if post is None and task in ('semantic', 'instance') \
-                    and 'panoptic' in self.postprocessors:
-                if isinstance(raw[0], DEFERRED_TYPES):
-                    raise ValueError('training takes a configuration '
-                                     'without deferred upsampling')
-                predictions_post[f'{task}_output'] = raw[0]
-                predictions_post[f'{task}_side_outputs'] = raw[1]
-            elif post is not None:
+            if post is None and panoptic is not None \
+                    and task in ('semantic', 'instance'):
+                post = getattr(panoptic, f'_{task}_postprocessing')
+            if post is not None:
                 predictions_post.update(
                     post.postprocess(raw, batch, is_training=True))
         losses = {}
@@ -617,18 +614,22 @@ def emsaformer_train_config(input_size: Tuple[int, int] = (480, 640),
 
 
 def train_task_helpers(n_classes: int = 40, n_thing: int = 8,
-                       top_k: int = 64, scene_n_classes: int = 10) -> dict:
+                       top_k: int = 64, scene_n_classes: int = 10,
+                       normal: bool = False) -> dict:
     """The task helpers of the JAX package's `bench.py --train`:
     semantic, instance (with void, the first `n_thing` classes are
-    things) and scene."""
+    things) and scene; with `normal` also the surface normals' (L1)."""
     is_thing_v = (False,) + tuple(i < n_thing for i in range(n_classes))
-    return {
+    helpers = {
         'semantic': SemanticTaskHelper(n_classes=n_classes),
         'instance': InstanceTaskHelper(
             semantic_n_classes=n_classes + 1,
             semantic_classes_is_thing=is_thing_v, top_k_instances=top_k),
         'scene': SceneTaskHelper(n_classes=scene_n_classes),
     }
+    if normal:
+        helpers['normal'] = NormalTaskHelper()
+    return helpers
 
 
 def build_train_pipeline(config: MultiTaskModelConfig = None, device=None,
@@ -638,19 +639,22 @@ def build_train_pipeline(config: MultiTaskModelConfig = None, device=None,
     `cuda`): the model of `config` (default `emsaformer_train_config()`,
     `bench.py --model emsaformer_dve_v2`; `emsanet_train_config()` is
     the bench's default model; random weights from `seed`) in training
-    mode, the postprocessors of the bench's tasks, its task helpers and
+    mode, the postprocessors of the bench's tasks, its task helpers (and
+    the normal task's where the config names it) and
     `AdamW(1e-4, mu_dtype=mu_dtype)` (`torch.bfloat16`: `bench.py
     --mu-bf16`), computing in the config's dtype."""
     config = config or emsaformer_train_config()
     model = build_model(config, device=device, seed=seed, train=True)
     n = config.semantic_n_classes
+    normal = 'normal' in config.tasks
     post = default_postprocessors(
-        ('semantic', 'instance', 'orientation', 'scene', 'panoptic'),
+        ('semantic', 'instance', 'orientation', 'scene', 'panoptic')
+        + (('normal',) if normal else ()),
         semantic_classes_is_thing=tuple(i < n_thing for i in range(n)),
         top_k_instances=top_k)
     return MultiTaskPipeline(
         model, post, train_task_helpers(n, n_thing, top_k,
-                                        config.scene_n_classes),
+                                        config.scene_n_classes, normal),
         compute_dtype=config.torch_dtype,
         optimizer=AdamW(1e-4, mu_dtype=mu_dtype))
 
@@ -682,12 +686,14 @@ def _thing_classes(n_classes: int, n_thing: int,
 def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,
                       top_k: int = 64, scene_n_classes: int = 10,
                       dense_visual_embedding: bool = False,
-                      is_thing: Optional[Sequence[bool]] = None) -> dict:
+                      is_thing: Optional[Sequence[bool]] = None,
+                      normal: bool = False) -> dict:
     """The task helpers of the JAX package's `bench.py --eval`: the
     thing classes are `is_thing` (without void; a dataset's
     `semantic_label_list_without_void.classes_is_thing`), else the first
     `n_thing` classes; with `dense_visual_embedding` also the
-    embedding's (cosine loss, retrieval mIoU)."""
+    embedding's (cosine loss, retrieval mIoU), with `normal` the surface
+    normals' (L1 loss, per-pixel RMSE)."""
     is_thing_v = (False,) + _thing_classes(n_classes, n_thing, is_thing)
     helpers = {
         'semantic': SemanticTaskHelper(n_classes=n_classes),
@@ -702,6 +708,8 @@ def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,
     if dense_visual_embedding:
         helpers['dense_visual_embedding'] = DenseVisualEmbeddingTaskHelper(
             n_classes=n_classes)
+    if normal:
+        helpers['normal'] = NormalTaskHelper()
     return helpers
 
 
@@ -744,5 +752,5 @@ def build_eval_pipeline(config: MultiTaskModelConfig = None, device=None,
     return MultiTaskPipeline(
         model, post, eval_task_helpers(n, n_thing, top_k,
                                        config.scene_n_classes, with_dve,
-                                       is_thing),
+                                       is_thing, 'normal' in config.tasks),
         compute_dtype=config.torch_dtype)

@@ -1,5 +1,6 @@
-"""Instance postprocessing, inference branch (counterpart of
-nicr_mtsa_tpu/postprocessing/instance.py): centre NMS + offset-vote
+"""Instance postprocessing (counterpart of
+nicr_mtsa_tpu/postprocessing/instance.py). Training passes the outputs
+on. Inference: centre NMS + offset-vote
 grouping on device. With ground truth in the batch (dataset
 evaluation) it also segments under the GT foreground (branch i-1, with
 its full-resolution map) and reads per-instance orientations under the
@@ -87,6 +88,11 @@ class InstancePostprocessing(DensePostprocessingBase):
                                   foreground_mask):
         return instance_orientations(orientation, segmentation,
                                      foreground_mask, self._top_k_instances)
+
+    def _postprocess_training(self, data, batch):
+        output, side_outputs = data
+        return {'instance_output': output,
+                'instance_side_outputs': side_outputs}
 
     def _postprocess_inference(self, data, batch, keys=None):
         output, side_outputs = data

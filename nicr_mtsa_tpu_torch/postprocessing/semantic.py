@@ -1,5 +1,7 @@
-"""Semantic postprocessing, inference branch (counterpart of
-nicr_mtsa_tpu/postprocessing/semantic.py): first-argmax idx and
+"""Semantic postprocessing (counterpart of
+nicr_mtsa_tpu/postprocessing/semantic.py). Training passes the outputs
+on (a deferred head raises: training applies its upsamplings).
+Inference: first-argmax idx and
 max-softmax score from the fused 2x finisher for a head that deferred
 its last upsampling, from the fused 4x finisher for a head that
 deferred both (learned-3x3-zeropad or bilinear), else from the logits
@@ -44,6 +46,14 @@ def fullres_idx_score(output, batch, idx=None, score=None):
 
 
 class SemanticPostprocessing(DensePostprocessingBase):
+    def _postprocess_training(self, data, batch):
+        output, side_outputs = data
+        if isinstance(output, DEFERRED_TYPES):
+            raise ValueError('training takes a configuration without '
+                             'deferred upsampling')
+        return {'semantic_output': output,
+                'semantic_side_outputs': side_outputs}
+
     def _postprocess_inference(self, data, batch, keys=None):
         output, side_outputs = data
         want_fullres = (has_valid_region(batch)

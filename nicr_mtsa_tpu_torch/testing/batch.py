@@ -9,7 +9,13 @@ It is nearest-resized to the working resolution with the host
 preprocessing's index map, the targets the eval step reads come from
 the numpy generators of data/targets.py, and the batch moves to the
 device as tensors: dense images NCHW ('rgb', 'depth',
-'instance_offset', 'orientation'), maps (B, H, W) int32 or bool."""
+'instance_offset', 'orientation', 'normal'), maps (B, H, W) int32 or
+bool.
+
+Surface-normal targets are opt-in (`normals=True`), drawn from a
+generator of their own (`normal_rng(seed)`), so every batch without
+them stays as it was: a unit vector a pixel, NORMAL_INVALID_SHARE of
+the pixels all zero (invalid), nearest-resized like the labels."""
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -24,6 +30,10 @@ from ..tasks.dense_visual_embedding import pad_embedding_luts
 from ..utils.device import resolve_device
 
 DEPTH_MEAN, DEPTH_STD = 8000.0, 4000.0       # bench.py NormalizeDepth
+# the share of all-zero (invalid) pixels of the synthetic normal targets
+NORMAL_INVALID_SHARE = 0.1
+# the training batch's keys that are not per-pixel targets
+_INPUT_KEYS = ('rgb', 'depth', 'rgbd', 'scene')
 
 
 class GroundTruth(NamedTuple):
@@ -95,16 +105,45 @@ def eval_arrays(samples: List[GroundTruth], work_hw: Tuple[int, int],
     return {k: np.stack(v) for k, v in out.items()}, overflow
 
 
+def normal_rng(seed: int) -> np.random.Generator:
+    """The generator of a batch's synthetic normal targets: apart from
+    the batch's own, so that opting in changes nothing else."""
+    return np.random.default_rng([seed, 1])
+
+
+def normal_maps(rng, B: int, H: int, W: int,
+                invalid_share: float = NORMAL_INVALID_SHARE) -> np.ndarray:
+    """(B, H, W, 3) f32 unit normals, one a pixel (normalised Gaussian
+    draws), with `invalid_share` of the pixels all zero."""
+    n = rng.normal(size=(B, H, W, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    n[rng.random((B, H, W)) < invalid_share] = 0.0
+    return n
+
+
+def nearest_downscale(a: np.ndarray, k: int) -> np.ndarray:
+    """A (B, H, W, ...) map at 1 / k resolution, by the host
+    preprocessing's nearest index map."""
+    H, W = a.shape[1:3]
+    yi = nearest_indices(H, H // k)
+    xi = nearest_indices(W, W // k)
+    return a[:, yi][:, :, xi]
+
+
 def train_arrays(B: int, H: int, W: int, seed: int = 0,
-                 n_classes: int = 40,
-                 rgbd: bool = True) -> Dict[str, np.ndarray]:
+                 n_classes: int = 40, rgbd: bool = True,
+                 normals: bool = False,
+                 downscales: Sequence[int] = ()) -> Dict[str, np.ndarray]:
     """The random training batch of `bench.py --train`, in the JAX
     package's layouts (NHWC inputs, maps (B, H, W)), drawn in its order
     from `np.random.default_rng(seed)`: the inputs, 'rgbd' (B, H, W, 4)
     for a 4-channel backbone or, with `rgbd=False`, 'rgb' (B, H, W, 3)
     and 'depth' (B, H, W, 1) for two encoders; 'semantic' in
     [0, n_classes] (0 void), the instance centre, offset and masks, the
-    orientation and its mask, and 'scene' in [1, 10)."""
+    orientation and its mask, and 'scene' in [1, 10). With `normals`,
+    also 'normal' (`normal_maps` from `normal_rng(seed)`); for each k of
+    `downscales`, '_down_<k>': every per-pixel target nearest-downscaled
+    by k (the side outputs' multiscale supervision)."""
     rng = np.random.default_rng(seed)
     if rgbd:
         batch = {'rgbd': rng.normal(size=(B, H, W, 4)).astype(np.float32)}
@@ -122,18 +161,28 @@ def train_arrays(B: int, H: int, W: int, seed: int = 0,
         'orientation_foreground': rng.random((B, H, W)) > 0.5,
         'scene': rng.integers(1, 10, (B,)).astype(np.int32),
     })
+    if normals:
+        batch['normal'] = normal_maps(normal_rng(seed), B, H, W)
+    targets = {k: v for k, v in batch.items() if k not in _INPUT_KEYS}
+    for k in downscales:
+        batch[f'_down_{k}'] = {key: nearest_downscale(v, k)
+                               for key, v in targets.items()}
     return batch
 
 
 def build_train_batch(B: int, H: int, W: int, seed: int = 0, device=None,
-                      n_classes: int = 40,
-                      rgbd: bool = True) -> Dict[str, torch.Tensor]:
+                      n_classes: int = 40, rgbd: bool = True,
+                      normals: bool = False,
+                      downscales: Sequence[int] = ()
+                      ) -> Dict[str, torch.Tensor]:
     """`train_arrays` as tensors on `device` (default `cuda`): dense
     images NCHW ('rgbd' or 'rgb' and 'depth', 'instance_offset',
-    'orientation'), maps (B, H, W) int32 or bool, 'scene' (B,) int32."""
+    'orientation', 'normal'), maps (B, H, W) int32 or bool, 'scene' (B,)
+    int32, the '_down_<k>' dicts alike."""
     device = resolve_device(device)
-    return move_batch_to_device(train_arrays(B, H, W, seed, n_classes, rgbd),
-                                device)
+    return move_batch_to_device(
+        train_arrays(B, H, W, seed, n_classes, rgbd, normals, downscales),
+        device)
 
 
 def _unit_rows(rng, n: int, dim: int) -> np.ndarray:
@@ -173,14 +222,17 @@ def build_eval_batch(B: int, work_hw: Tuple[int, int],
                      full_hw: Tuple[int, int], n_classes: int,
                      is_thing: Sequence[bool], seed: int = 0,
                      segment_table_size: int = 128, device=None,
-                     dve_dim: int = None) -> EvalBatch:
+                     dve_dim: int = None, normals: bool = False
+                     ) -> EvalBatch:
     """A synthetic eval batch of B samples on `device` (default
     `cuda`): normalised random RGB-D inputs at `work_hw`, ground truth
     and targets as `eval_arrays` makes them, scene labels in
     1..10, and the Resize provenance of a full valid region. With
     `dve_dim`, also the bench's dense-visual-embedding targets of that
     width (`dve_arrays` on the working-resolution panoptic maps, the
-    LUTs drawn after `dve_tables(n_classes, dve_dim)`)."""
+    LUTs drawn after `dve_tables(n_classes, dve_dim)`). With `normals`,
+    'normal_fullres' (`normal_maps` at `full_hw` from `normal_rng(seed)`)
+    and its nearest resize to `work_hw`, 'normal'."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     samples = [synthetic_ground_truth(rng, full_hw, n_classes, is_thing)
@@ -201,5 +253,10 @@ def build_eval_batch(B: int, work_hw: Tuple[int, int],
     arrays['depth'] = np.where(depth == 0, 0.0, (depth - DEPTH_MEAN)
                                / DEPTH_STD).astype(np.float32)
     arrays['scene'] = rng.integers(1, 11, (B,)).astype(np.int32)
+    if normals:
+        full = normal_maps(normal_rng(seed), B, *full_hw)
+        arrays['normal_fullres'] = full
+        arrays['normal'] = full[:, nearest_indices(full_hw[0], h)][
+            :, :, nearest_indices(full_hw[1], w)]
     return EvalBatch(move_batch_to_device(arrays, device),
                      resize_provenance(h, w), overflow)

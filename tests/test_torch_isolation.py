@@ -680,3 +680,92 @@ def test_train_synthetic_example_refuses_without_card(monkeypatch):
     monkeypatch.setattr(sys, 'argv', ['train_synthetic', '--steps', '1'])
     with pytest.raises(RuntimeError, match='device="cpu"'):
         train_synthetic.main()
+
+
+# the modules of the dense model surface (surface normals, the ResNet
+# variants, the context modules, the upsamplings, `ln`, the dense
+# embedding decoder)
+SURFACE_SLICE_MODULES = (
+    'nicr_mtsa_tpu_torch.metrics.rmse',
+    'nicr_mtsa_tpu_torch.models.blocks',
+    'nicr_mtsa_tpu_torch.models.backbones.resnet',
+    'nicr_mtsa_tpu_torch.models.context',
+    'nicr_mtsa_tpu_torch.models.upsampling',
+    'nicr_mtsa_tpu_torch.models.decoders.embedding',
+    'nicr_mtsa_tpu_torch.models.decoders.normal',
+    'nicr_mtsa_tpu_torch.models.decoders.panoptic',
+    'nicr_mtsa_tpu_torch.postprocessing.normal',
+    'nicr_mtsa_tpu_torch.tasks.normal',
+    'nicr_mtsa_tpu_torch.testing.batch',
+)
+
+
+def test_surface_slice_modules_import_with_jax_blocked():
+    """The surface slice's modules import, and a small model with every
+    new option serves normals on the CPU, with jax, flax, optax and the
+    JAX package made unimportable."""
+    code = (
+        'import sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        '        if name.split(".")[0] in ("jax", "flax", "optax", '
+        '"jaxlib", "nicr_mtsa_tpu"):\n'
+        '            raise ImportError("blocked: " + name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import importlib\n'
+        f'for m in {SURFACE_SLICE_MODULES!r}:\n'
+        '    importlib.import_module(m)\n'
+        'import numpy as np\n'
+        'from nicr_mtsa_tpu_torch.models.multi_task import '
+        'MultiTaskModelConfig\n'
+        'from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline\n'
+        'cfg = MultiTaskModelConfig(tasks=("semantic", "instance", '
+        '"normal"), backbone_rgb="resnet18se", backbone_depth="resnet18se",'
+        ' resnet_block="basicblock", context_module="appm", '
+        'context_n_channels=32, decoder_n_channels=(16, 16, 16), '
+        'decoder_n_blocks=1, input_size=(64, 96), normalization="ln", '
+        'upsampling="learned-3x3", prediction_upsampling="nearest")\n'
+        'pipe = build_serving_pipeline(cfg, device="cpu", '
+        'extra_output_tasks=("normal",))\n'
+        'out = pipe(np.zeros((1, 64, 96, 3), np.uint8), '
+        'np.ones((1, 64, 96), np.uint16))\n'
+        'print(tuple(out["normal_output"].shape))\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == '(1, 3, 64, 96)'
+
+
+@pytest.mark.parametrize('phase', ['normals', 'model_surface'])
+def test_chip_smoke_surface_phases_fail_without_card(phase):
+    """Phases 33 (normals) and 34 (the model surface) raise on a
+    machine without a card: neither falls back to the CPU."""
+    import argparse
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    try:
+        cs = importlib.import_module('chip_smoke')
+    finally:
+        sys.path.remove(str(ROOT))
+    from nicr_mtsa_tpu_torch.ops import cuda as kernels
+    args = argparse.Namespace(requests=1, steps=1, train_steps=1,
+                              profile=False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(cs, phase)(args, kernels, 'no card', {})
+
+
+@pytest.mark.parametrize('defer', [True, 'all'])
+@pytest.mark.parametrize('mode', ['learned-3x3', 'nearest'])
+def test_deferred_head_refuses_other_upsamplings(mode, defer):
+    """Only a learned-3x3-zeropad head (or, deferring both, a bilinear
+    one) can be deferred: a learned-3x3 or nearest head raises, as the
+    JAX package asserts; so does a post-op under deferral."""
+    from nicr_mtsa_tpu_torch.models.decoders import TaskHead
+    with pytest.raises(ValueError, match='defer'):
+        TaskHead(8, 40, upsampling=mode, n_upsamplings=2,
+                 defer_last_upsampling=defer)
+    with pytest.raises(ValueError, match='defer'):
+        TaskHead(8, 3, upsampling='learned-3x3-zeropad', n_upsamplings=2,
+                 defer_last_upsampling=defer, post='unit-length')
