@@ -373,6 +373,52 @@ And the rest of the dense model surface (their seconds are printed as
    finite values); each kernel call of a request against its plain
    version.
 
+And the outputs beyond the eval step, the host extras and the examples
+(their seconds are printed as `outputs_seconds`):
+
+35. `emsanet-bench`'s fused eval step (phase 5's model and batch, B=8)
+   with the panoptic postprocessor's dense scores (`compute_scores`),
+   the instance postprocessor's debug branches (`debug`) and every
+   helper's example images (`store_examples`): three timed rounds of N
+   steps, launches a step exactly OUTPUTS_EVAL_KERNELS (phase 5's and a
+   third grouping: the all-foreground segmentation), the three score
+   maps finite and in [0, 1], losses finite, metrics in range,
+   frames/s printed beside phase 5's; the f32 model's raw outputs (B=2)
+   postprocessed on the card and on the CPU: the panoptic ids and the
+   all-foreground segmentation agreeing on at least
+   PANOPTIC_MATCH_MIN of the pixels, the score maps within rtol 1e-5
+   where the ids agree; then the eager `validation_step` of every
+   helper on the fixture's frames (B=8 cycled, 480 x 640, the 10-class
+   model) equal to the fused states (phase 6's rule, atol 0), with
+   OUTPUTS_EVAL_KERNELS launched by each of the two postprocessings,
+   and EXAMPLE_KEYS written by `write_png` under chiprun_out/examples/
+   and read back equal;
+36. a deferred head's full-resolution keys on a 960 x 1280
+   ground-truth batch (B=8 frames at 480 x 640, bf16), `--defer4x`
+   (DeferredUpsampling2) and `--no-defer4x` (DeferredUpsampling): the
+   working-resolution idx of the finisher equal bit for bit to the
+   argmax of `apply_deferred_upsampling_exact`'s bf16 logits (tie
+   pixels counted), the full-resolution idx row 5 on those logits,
+   launches exactly 1 finisher and 1 crop+resize+reduce; row 5 at that
+   call against its plain version, timed with its plan and bound;
+37. `emsaformer_dve_v2` eval (the 10-class model) from the fixture's
+   frames through the host extras: `SemanticClassMapper` (class
+   MAPPED_CLASS to void, its pixels counted), a `TransformWrapper`
+   flip, the bench's eval preprocessing, seeded synthetic segment
+   embeddings (D=512) and `DenseVisualEmbeddingTargetGenerator` (LUT
+   rows unit length), the LUTs padded; five- and ten-crop of a frame;
+   every helper's eager `validation_step` (the DVE helper's included)
+   equal to the fused states at atol 0; then `emsanet_train_config()`
+   trained three steps at B=8 with a `StepCheckpointManager`
+   (`max_to_keep=2`) saving after each: the last two steps kept, the
+   restored state equal, the next step of a pipeline of another seed
+   restored from it bit-equal under deterministic algorithms;
+   checkpoint MB, save, wait and load ms printed;
+38. `python -m nicr_mtsa_tpu_torch.examples.infer_panoptic` and
+   `python -m nicr_mtsa_tpu_torch.examples.eval_dataset --dataset
+   tests/fixtures/mini_dataset` on the card: exit 0, the three PNGs
+   decodable by `read_png`, the printed metrics finite and in range.
+
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
 chiprun_out/chip_smoke.json. Needs no network and no JAX."""
@@ -4700,15 +4746,17 @@ def _check_loop_intersection(it, maps):
     return out
 
 
-def _check_loop_resize(rr, call):
+def _check_loop_resize(rr, call, phase='kernel_train_loop',
+                       name='resize_reduce_2x_up'):
     """Row 5's first call of the loop's validation (the 2x upscale of
     (8, 10, 480, 640) bf16 to the 960 x 1280 ground truth, a plan no
-    other phase makes) against its plain version: idx exact, scores
-    within rtol 1e-5; timed with its plan and bound."""
+    other phase makes), or another `call`, against its plain version:
+    idx exact, scores within rtol 1e-5; timed with its plan and bound,
+    printed under `phase` and `name`."""
     from nicr_mtsa_tpu_torch.models.upsampling import two_tap_params
     (x, crop, OH, OW), kwargs = call
     B, C, h, w = x.shape
-    err = _same('train_loop resize_reduce 2x up',
+    err = _same(f'{phase} {name}',
                 rr.crop_resize_argmax_score(x, crop, OH, OW),
                 rr.crop_resize_argmax_score_reference(x, crop, OH, OW))
     in_h = crop[0].stop - crop[0].start
@@ -4726,8 +4774,7 @@ def _check_loop_resize(rr, call):
                **_timed(lambda: rr.crop_resize_argmax_score(x, crop, OH, OW),
                         lambda: rr.crop_resize_argmax_score_reference(
                             x, crop, OH, OW)))
-    print(json.dumps({'phase': 'kernel_train_loop',
-                      'name': 'resize_reduce_2x_up', **row}), flush=True)
+    print(json.dumps({'phase': phase, 'name': name, **row}), flush=True)
     return row
 
 
@@ -4780,7 +4827,8 @@ def _serving_want(kernels, *names):
 def _eager_equals_fused(pipe, batch, names, key):
     """The eager `validation_step`s of the helpers `names` on the fused
     step's raw outputs of `batch` accumulate the fused states (phase 6's
-    rule at atol 0); the eager states are dropped after."""
+    rule at atol 0); the eager states are dropped after. Returns the
+    example images the helpers stored."""
     with torch.inference_mode():
         raw = pipe.model(pipe.model_inputs(batch))
         _, _, fused = pipe.evaluate_outputs(raw, batch,
@@ -4794,10 +4842,12 @@ def _eager_equals_fused(pipe, batch, names, key):
             h.validation_step(batch, 0, post)
     eager = {n: h._eager_states for n, h in helpers.items()}
     diff = _states_equal(eager, {n: fused[n] for n in names})
+    examples = {}
     for h in helpers.values():
-        h.validation_epoch_end()
+        examples.update(h.validation_epoch_end()[1])
     if diff:
         fail(f'{key}: eager states differ from the fused step: {diff}')
+    return examples
 
 
 def normals(args, kernels, card, result):
@@ -5044,6 +5094,442 @@ def model_surface(args, kernels, card, result):
     return paths
 
 
+# --- phases 35-38: the outputs of the eval path, the host extras and the
+# examples ------------------------------------------------------------------
+
+# phase 35: a fused eval step with the dense panoptic scores and the
+# debug branches launches the bench's eval kernels and one grouping more
+# (debug branch i-2's all-foreground segmentation)
+OUTPUTS_EVAL_KERNELS = dict(EVAL_KERNELS, grouping=3)
+SCORE_KEYS = tuple(f'panoptic_segmentation_deeplab_{k}_score'
+                   for k in ('semantic', 'instance', 'panoptic'))
+# the example images every helper of phase 35's eager step stores
+EXAMPLE_KEYS = (
+    'semantic_example_batch_idx_0_0', 'semantic_example_batch_score_0_0',
+    'instance_center_heatmap_example_batch_0_0',
+    'instance_offset_example_batch_0_0',
+    'instance_predicted_centers_example_batch_0_0',
+    'instance_instance_example_batch_0_0', 'orientation_example_batch_0_0',
+    'panoptic_example_batch_deeplab_0_0',
+    'panoptic_example_batch_deeplab_semantic_0_0',
+    'panoptic_example_batch_deeplab_instance_0_0',
+    *(f'panoptic_example_batch_deeplab_{k}_score_0_0'
+      for k in ('semantic', 'instance', 'panoptic')))
+# phase 36: the ground truth of the deferred head's full-resolution keys
+DEFERRED_GT_HW = (960, 1280)
+DEFERRED_VARIANTS = {'defer4x': ('all', 'finisher4x'),
+                     'no_defer4x': (True, 'finisher2x')}
+# phase 37: the class the fixture frames' mapper folds into void, the
+# embeddings' width and seed
+MAPPED_CLASS = 4
+DVE_DIM = 512
+CKPT_STEPS, CKPT_KEEP = 3, 2
+
+
+def _fixture_batch(compose, B=8):
+    """B fixture `valid` frames (cycled) through `compose`, collated on
+    the host."""
+    from nicr_mtsa_tpu_torch.data import get_dataset, mt_collate
+    ds = get_dataset(FIXTURE, split='valid')
+    return mt_collate([compose(ds[i % len(ds)]) for i in range(B)])
+
+
+def _write_examples(examples, key):
+    """Each example image written by `write_png` under
+    chiprun_out/examples/<key>/ and read back equal."""
+    from nicr_mtsa_tpu_torch.data.png import read_png, write_png
+    out = os.path.join('chiprun_out', 'examples', key)
+    os.makedirs(out, exist_ok=True)
+    for name, img in examples.items():
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+            fail(f'{key}: example {name} is {img.dtype} {img.shape}')
+        path = os.path.join(out, f'{name}.png')
+        write_png(path, img)
+        if not np.array_equal(read_png(path), img):
+            fail(f'{key}: example {name} read back differs')
+    return out
+
+
+def eval_outputs(args, kernels, card, result):
+    """Phase 35 (see the module's docstring). Returns the launches of
+    its fused and eager eval paths."""
+    from nicr_mtsa_tpu_torch.data import move_batch_to_device
+    from nicr_mtsa_tpu_torch.data.fullres import APPLIED_PREPROCESSING_KEY
+    from nicr_mtsa_tpu_torch.pipeline import (build_eval_pipeline,
+                                              emsanet_bench_config)
+    from nicr_mtsa_tpu_torch.testing import build_eval_batch
+    opts = dict(compute_scores=True, debug=True, store_examples=True)
+    paths, B = {}, 8
+    pipe = build_eval_pipeline(device='cuda', seed=0, **opts)
+    _fresh()
+    eb = build_eval_batch(B, (480, 640), (512, 512), 40, IS_THING, seed=0,
+                          segment_table_size=128, device='cuda')
+    step = pipe.make_fused_eval_step(eb.static_batch, output_keys=SCORE_KEYS)
+    preds, losses, states = step(eb.batch, pipe.empty_metric_states())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            preds, losses, states = step(eb.batch, states)
+        int(states['semantic'][0, 0])
+        rounds.append(B * args.steps / (time.perf_counter() - t0))
+    paths['eval_outputs'] = _check_launches(
+        kernels, OUTPUTS_EVAL_KERNELS, 3 * args.steps, 'eval_outputs')
+    score_range = {}
+    for k in SCORE_KEYS:
+        s = preds[k]
+        lo, hi = float(s.min()), float(s.max())
+        if tuple(s.shape) != (B, 480, 640) or \
+                not bool(torch.isfinite(s).all()) or lo < 0 or hi > 1:
+            fail(f'eval_outputs: {k} {tuple(s.shape)} in [{lo}, {hi}]')
+        score_range[k] = (lo, hi)
+    bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
+    if bad:
+        fail(f'eval_outputs: losses not finite: {bad}')
+    pipe.load_metric_states(states)
+    _, _, logs = pipe.validation_epoch_end()
+    metrics = {k: float(logs[k]) for k in EVAL_LOG_KEYS}
+    _metrics_in_range(metrics, 'eval_outputs')
+    fps = float(np.median(rounds))
+    result['eval_outputs'] = dict(
+        batch=B, steps_per_round=args.steps, rounds_frames_per_s=rounds,
+        frames_per_s=fps, card=card, score_range=score_range,
+        beside_phase_5=result.get('eval', {}).get('frames_per_s'),
+        peak_mem_gb=_peak_gb(), metrics=metrics,
+        launches_per_step={k: c / (3 * args.steps)
+                           for k, c in paths['eval_outputs'].items() if c})
+    print(json.dumps({'phase': 'eval_outputs', **result['eval_outputs']}),
+          flush=True)
+    del pipe, step, eb, states, preds
+    _outputs_card_vs_cpu(result, opts)
+
+    # the eager step on the fixture's frames (their per-sample dicts),
+    # every helper storing its example images
+    _fresh()
+    ds_is_thing = _fixture()[1]
+    pipe = build_eval_pipeline(
+        emsanet_bench_config(n_classes=len(ds_is_thing), defer=False),
+        device='cuda', seed=0, is_thing=ds_is_thing, **opts)
+    host = _fixture_batch(_dataset_compose((False,) + ds_is_thing), B)
+    batch = dict(move_batch_to_device(host, 'cuda'),
+                 **{APPLIED_PREPROCESSING_KEY:
+                    host[APPLIED_PREPROCESSING_KEY]})
+    kernels.reset_launch_counts()
+    examples = _eager_equals_fused(pipe, batch, tuple(pipe.task_helpers),
+                                   'eval_outputs_eager')
+    # the fused and the eager postprocessing of one batch
+    paths['eval_outputs_eager'] = _check_launches(
+        kernels, OUTPUTS_EVAL_KERNELS, 2, 'eval_outputs_eager')
+    if sorted(examples) != sorted(EXAMPLE_KEYS):
+        fail(f'eval_outputs_eager: examples {sorted(examples)}')
+    out = _write_examples(examples, 'eval_outputs')
+    result['eval_outputs'].update(examples=len(examples), examples_dir=out)
+    print(json.dumps({'phase': 'eval_outputs_eager', 'states': 'equal',
+                      'examples': len(examples), 'written_to': out}),
+          flush=True)
+    return paths
+
+
+def _outputs_card_vs_cpu(result, opts):
+    """The f32 eval model's raw outputs (B=2) postprocessed with the
+    scores and the debug branches on the card and, copied, on the CPU:
+    the panoptic ids and the all-foreground segmentation agree on at
+    least PANOPTIC_MATCH_MIN of the pixels, the three score maps within
+    rtol 1e-5 where the ids agree."""
+    from nicr_mtsa_tpu_torch.pipeline import (build_eval_pipeline,
+                                              emsanet_bench_config)
+    from nicr_mtsa_tpu_torch.testing import build_eval_batch
+    key = 'eval_outputs_card_vs_cpu'
+    pipe = build_eval_pipeline(
+        emsanet_bench_config(dtype='float32', defer=False), device='cuda',
+        seed=0, **opts)
+    eb = build_eval_batch(2, (480, 640), (512, 512), 40, IS_THING, seed=1,
+                          device='cuda')
+    batch = dict(eb.batch, **eb.static_batch)
+    maps = ('panoptic_segmentation_deeplab',
+            'instance_segmentation_all_foreground')
+    keys = frozenset(SCORE_KEYS + maps)
+    with torch.inference_mode():
+        raw = pipe.model(pipe.model_inputs(batch))
+        card_out = pipe.postprocess_outputs(raw, batch, keys)
+        cpu_out = pipe.postprocess_outputs(
+            {k: _to_cpu(v) for k, v in raw.items()},
+            {k: _to_cpu(v) for k, v in batch.items()}, keys)
+    found = {}
+    for k in maps:
+        found[f'{k}_agree'] = float(
+            (card_out[k].cpu() == cpu_out[k]).float().mean())
+        if found[f'{k}_agree'] < PANOPTIC_MATCH_MIN:
+            fail(f'{key}: {k} agrees on {found[f"{k}_agree"]}')
+    agree = card_out[maps[0]].cpu() == cpu_out[maps[0]]
+    for k in SCORE_KEYS:
+        a, b = card_out[k].cpu()[agree], cpu_out[k][agree]
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
+            fail(f'{key}: {k} differs by {float((a - b).abs().max())}')
+        found[f'{k}_max_abs_diff'] = float((a - b).abs().max())
+    result[key] = found
+    print(json.dumps({'phase': key, **found}), flush=True)
+
+
+def deferred_fullres(args, kernels, card, result):
+    """Phase 36 (see the module's docstring). Returns the launches of
+    each variant's postprocessing."""
+    from nicr_mtsa_tpu_torch.data.fullres import resize_provenance
+    from nicr_mtsa_tpu_torch.models.upsampling import (
+        apply_deferred_upsampling_exact)
+    from nicr_mtsa_tpu_torch.ops.cuda import resize_reduce as rr
+    from nicr_mtsa_tpu_torch.pipeline import (build_serving_pipeline,
+                                              emsanet_bench_config)
+    from nicr_mtsa_tpu_torch.postprocessing import SemanticPostprocessing
+    paths, B = {}, 8
+    keys = frozenset(('semantic_segmentation_idx',
+                      'semantic_segmentation_score',
+                      'semantic_segmentation_idx_fullres',
+                      'semantic_segmentation_score_fullres'))
+    for variant, (defer, finisher) in DEFERRED_VARIANTS.items():
+        key = f'deferred_fullres_{variant}'
+        pipe = build_serving_pipeline(emsanet_bench_config(defer=defer),
+                                      device='cuda', seed=0)
+        _fresh()
+        batch = dict(resize_provenance(480, 640),
+                     semantic_fullres=torch.zeros(
+                         (B,) + DEFERRED_GT_HW, dtype=torch.int32,
+                         device='cuda'))
+        rgb, depth = (torch.from_numpy(a).cuda() for a in frames(B))
+        post = SemanticPostprocessing()
+        with torch.inference_mode():
+            pred = pipe.model(pipe.preprocess(rgb, depth),
+                              outputs=('semantic',))['semantic']
+            post.postprocess(pred, batch, keys=keys)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = post.postprocess(pred, batch, keys=keys)
+            torch.cuda.synchronize()
+            post_ms = (time.perf_counter() - t0) * 1e3
+            paths[key] = _check_launches(
+                kernels, {finisher: 1, 'resize_reduce': 1}, 1, key)
+            exact = apply_deferred_upsampling_exact(pred[0])
+            if exact.dtype != torch.bfloat16:
+                fail(f'{key}: the exact logits are {exact.dtype}')
+            top2 = exact.topk(2, dim=1).values
+            ties = int((top2[:, 0] == top2[:, 1]).sum())
+            n_diff = int((exact.argmax(dim=1)
+                          != out['semantic_segmentation_idx']).sum())
+            if n_diff:
+                fail(f'{key}: the finisher idx differs from the argmax of '
+                     f'the exact logits at {n_diff} pixels')
+            crop = (slice(0, 480), slice(0, 640))
+            row = _check_loop_resize(
+                rr, ((exact, crop) + DEFERRED_GT_HW, {}), phase=key,
+                name='resize_reduce_deferred_fullres')
+            full = rr.crop_resize_argmax_score(exact, crop, *DEFERRED_GT_HW)
+            if not torch.equal(full[0],
+                               out['semantic_segmentation_idx_fullres']):
+                fail(f'{key}: the full-resolution idx is not row 5 on the '
+                     f'exact logits')
+        result[key] = dict(tie_pixels=ties, tie_share=ties / exact[:, 0]
+                           .numel(), postprocess_ms=post_ms, card=card,
+                           peak_mem_gb=_peak_gb(), row5=row,
+                           launches={k: c for k, c in paths[key].items()
+                                     if c})
+        print(json.dumps({'phase': key, **{k: v for k, v in result[
+            key].items() if k != 'row5'}}), flush=True)
+        del pipe, pred, out, exact, top2, full
+    return paths
+
+
+def _hflip(stack):
+    return stack[:, ::-1]
+
+
+def _segment_embeddings(sample, **kwargs):
+    """Seeded synthetic DVE inputs for a sample: an image embedding and
+    one embedding a panoptic id (void left out), D = DVE_DIM."""
+    ids = [int(i) for i in np.unique(sample['panoptic']) if i != 0]
+    rng = np.random.default_rng(sum(ids) % 2 ** 32)
+    sample['image_embedding'] = rng.normal(size=DVE_DIM).astype(np.float32)
+    sample['panoptic_embedding'] = {
+        i: rng.normal(size=DVE_DIM).astype(np.float32) for i in ids}
+    return sample
+
+
+def dve_host(args, kernels, card, result):
+    """Phase 37 (see the module's docstring). Returns the launches of
+    the DVE eval's fused and eager postprocessing."""
+    from nicr_mtsa_tpu_torch.data import get_dataset, move_batch_to_device
+    from nicr_mtsa_tpu_torch.data import preprocessing as p
+    from nicr_mtsa_tpu_torch.data.fullres import APPLIED_PREPROCESSING_KEY
+    from nicr_mtsa_tpu_torch.pipeline import (build_eval_pipeline,
+                                              emsaformer_eval_config)
+    from nicr_mtsa_tpu_torch.tasks.dense_visual_embedding import (
+        pad_embedding_luts)
+    from nicr_mtsa_tpu_torch.testing import dve_tables
+    key, B = 'dve_host', 8
+    ds = get_dataset(FIXTURE, split='valid')
+    is_thing = ds.config.semantic_label_list_without_void.classes_is_thing
+    n = len(is_thing)
+    cfg = dataclasses.replace(emsaformer_eval_config(), semantic_n_classes=n)
+    _, text, visual_mean = dve_tables(n, DVE_DIM)
+    pipe = build_eval_pipeline(cfg, device='cuda', seed=0, is_thing=is_thing,
+                               dve_tables=(text, visual_mean))
+    _fresh()
+
+    # the host transforms on the recorded frames
+    frame = ds[0]
+    for kind, n_crops in (('five', 5), ('ten', 10)):
+        s = p.TransformWrapper(lambda x: x, final_crop=(kind, 64, 96))(
+            {k: v.copy() if isinstance(v, np.ndarray) else v
+             for k, v in frame.items()})
+        if s['semantic'].shape != (n_crops, 64, 96) or not np.array_equal(
+                s['semantic'][0], frame['semantic'][:64, :96]):
+            fail(f'{key}: {kind}-crop gives {s["semantic"].shape}')
+    base = _dataset_compose((False,) + is_thing).transforms
+    compose = p.Compose(
+        [p.SemanticClassMapper((MAPPED_CLASS,), new_label=0),
+         p.TransformWrapper(_hflip)] + base[:7]
+        + [_segment_embeddings, p.DenseVisualEmbeddingTargetGenerator()]
+        + base[7:])
+    t0 = time.perf_counter()
+    host = _fixture_batch(compose, B)
+    host_ms = (time.perf_counter() - t0) * 1e3 / B
+    mapped = sum(int(e.get('mapped_pixels', {}).get(MAPPED_CLASS, 0))
+                 for entries in host[APPLIED_PREPROCESSING_KEY]
+                 for e in entries)
+    if not mapped or (host['semantic_fullres'] == MAPPED_CLASS).any():
+        fail(f'{key}: class {MAPPED_CLASS} was not mapped ({mapped} px)')
+    luts = list(host['dense_visual_embedding_lut'])
+    if not all(np.allclose(np.linalg.norm(t, axis=1), 1.0, rtol=1e-5)
+               for t in luts):
+        fail(f'{key}: LUT rows not unit length')
+    host['dense_visual_embedding_lut'] = pad_embedding_luts(luts, DVE_DIM)
+    batch = dict(move_batch_to_device(host, 'cuda'),
+                 **{APPLIED_PREPROCESSING_KEY:
+                    host[APPLIED_PREPROCESSING_KEY]})
+    valid = float((batch['dense_visual_embedding_indices'] != 0)
+                  .float().mean())
+    if not valid:
+        fail(f'{key}: no pixel has a DVE target')
+    kernels.reset_launch_counts()
+    _eager_equals_fused(pipe, batch, tuple(pipe.task_helpers), key)
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    with torch.inference_mode():
+        raw = pipe.model(pipe.model_inputs(batch))
+        _, losses, states = pipe.evaluate_outputs(
+            raw, batch, pipe.empty_metric_states())
+    dve_loss = float(losses['dense_visual_embedding_total_loss'])
+    if not np.isfinite(dve_loss):
+        fail(f'{key}: DVE loss {dve_loss}')
+    found = dict(host_ms_a_sample=host_ms, mapped_pixels=mapped,
+                 dve_valid_share=valid, dve_loss=dve_loss,
+                 peak_mem_gb=_peak_gb(), card=card)
+    del pipe, raw, batch
+    found.update(_step_checkpoints(key))
+    result[key] = found
+    print(json.dumps({'phase': key, 'states': 'eager equal fused',
+                      **found}), flush=True)
+    return {key: launches}
+
+
+def _step_checkpoints(key):
+    """`emsanet_train_config()`'s train state (B=8) saved by a
+    `StepCheckpointManager` after each of CKPT_STEPS steps with
+    `max_to_keep=CKPT_KEEP`, restored into a pipeline of another seed:
+    the next step bit-equal under deterministic algorithms."""
+    import tempfile
+    from nicr_mtsa_tpu_torch.parallel import StepCheckpointManager
+    from nicr_mtsa_tpu_torch.pipeline import (build_train_pipeline,
+                                              emsanet_train_config)
+    from nicr_mtsa_tpu_torch.testing import build_train_batch
+    _fresh()
+    cfg = emsanet_train_config()
+    batch = build_train_batch(8, 480, 640, seed=0, device='cuda', rgbd=False)
+    live = build_train_pipeline(cfg, device='cuda', seed=0)
+    state = live.create_train_state()
+    save_ms = []
+    with tempfile.TemporaryDirectory() as tmp, _deterministic(True):
+        mgr = StepCheckpointManager(tmp, max_to_keep=CKPT_KEEP)
+        for i in range(CKPT_STEPS):
+            g = torch.Generator('cuda').manual_seed(i)
+            state, _ = live.train_step(state, batch, g)
+            t0 = time.perf_counter()
+            mgr.save(int(state['step']), state, extra={'step': i})
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        mgr.wait_until_finished()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        kept = sorted(int(f.split('.')[0][5:]) for f in os.listdir(tmp))
+        if kept != list(range(CKPT_STEPS - CKPT_KEEP + 1, CKPT_STEPS + 1)):
+            fail(f'{key}: kept steps {kept}')
+        mb = os.path.getsize(os.path.join(tmp, f'step_{CKPT_STEPS}.pt')) / 1e6
+        other = build_train_pipeline(cfg, device='cuda', seed=1)
+        t0 = time.perf_counter()
+        resumed, extra = mgr.restore(target=other.create_train_state())
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    if extra != {'step': CKPT_STEPS - 1}:
+        fail(f'{key}: extra {extra}')
+    _train_state_equal(state, resumed, f'{key} restored')
+    g = torch.Generator('cuda').manual_seed(CKPT_STEPS)
+    twin = torch.Generator('cuda').manual_seed(CKPT_STEPS)
+    with _deterministic(True):
+        state, la = live.train_step(state, batch, g)
+        resumed, lb = other.train_step(resumed, batch, twin)
+    bad = [k for k in la if not torch.equal(la[k], lb[k])]
+    if bad:
+        fail(f'{key}: losses {bad} differ after the resume')
+    _train_state_equal(state, resumed, f'{key} resumed step')
+    return dict(checkpoint_mb=mb, save_ms=save_ms, wait_ms=wait_ms,
+                load_ms=load_ms, kept_steps=kept)
+
+
+def examples_on_card(args, card, result):
+    """Phase 38 (see the module's docstring)."""
+    import tempfile
+    from nicr_mtsa_tpu_torch.data.png import read_png
+    key, found = 'examples', {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in (
+                ('infer_panoptic', ['--out', tmp]),
+                ('eval_dataset', ['--dataset', FIXTURE])):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, '-m',
+                 f'nicr_mtsa_tpu_torch.examples.{name}', *argv], cwd=root,
+                capture_output=True, text=True, timeout=600)
+            found[f'{name}_seconds'] = time.perf_counter() - t0
+            if res.returncode != 0:
+                fail(f'{key}: {name} exited {res.returncode}: '
+                     f'{res.stderr[-2000:]}')
+            found[f'{name}_stdout'] = res.stdout
+        for png in ('panoptic.png', 'semantic.png', 'depth.png'):
+            img = read_png(os.path.join(tmp, png))
+            if img.shape != (128, 160, 3) or img.dtype != np.uint8:
+                fail(f'{key}: {png} decodes to {img.dtype} {img.shape}')
+    metrics = {}
+    for line in found['eval_dataset_stdout'].splitlines():
+        if line.startswith('  ') and ':' in line:
+            k, v = line.split(':')
+            metrics[k.strip()] = float(v)
+    for k in ('semantic_miou', 'panoptic_all_deeplab_pq',
+              'instance_all_deeplab_pq', 'scene_acc'):
+        if k not in metrics or not np.isfinite(metrics[k]):
+            fail(f'{key}: eval_dataset printed {k} = {metrics.get(k)}')
+    _metrics_in_range(metrics, key)
+    found.update(metrics=metrics, card=card)
+    found['infer_panoptic_stdout'] = found['infer_panoptic_stdout'][-1500:]
+    del found['eval_dataset_stdout']
+    result[key] = found
+    print(json.dumps({'phase': key, **{k: v for k, v in found.items()
+                                        if not k.endswith('stdout')}}),
+          flush=True)
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=10,
@@ -5192,6 +5678,14 @@ def main():
     result['surface_seconds'] = time.perf_counter() - t0
     print(json.dumps({'phase': 'surface_seconds',
                       'seconds': result['surface_seconds']}), flush=True)
+    t0 = time.perf_counter()
+    path_launches.update(eval_outputs(args, kernels, card, result))
+    path_launches.update(deferred_fullres(args, kernels, card, result))
+    path_launches.update(dve_host(args, kernels, card, result))
+    examples_on_card(args, card, result)
+    result['outputs_seconds'] = time.perf_counter() - t0
+    print(json.dumps({'phase': 'outputs_seconds',
+                      'seconds': result['outputs_seconds']}), flush=True)
     # the seconds the phases at the bench's batch sizes add to the script
     result['bench_size_seconds'] = dict(bench_s, total=sum(bench_s.values()))
     print(json.dumps({'phase': 'bench_size_seconds',

@@ -15,7 +15,8 @@ does the same for two half-pixel bilinear x2 upsamplings (the MLP
 decoders' semantic head), which are nearest x2 + a replication-padded
 depthwise 3x3 with the fixed bilinear kernel. `zeropad2x_logits_exact`
 and `finisher4x_logits_exact` are the dense forms with those kernels'
-exact rounding order; both build their last stage with
+exact rounding order (`apply_deferred_upsampling_exact` picks the one
+of a deferred marker); both build their last stage with
 `_zeropad_phases`. All tensors here are NCHW; depthwise kernels are
 (C, 1, 3, 3).
 
@@ -171,6 +172,21 @@ def finisher4x_logits_exact(x, kernel1, bias1, kernel2, bias2,
         inter[:, :, :, -1] = 0.0
     # stage 2 is one zeropad x2 stage on the rounded, ringed plane
     return _zeropad_phases(_round(inter, dt), k2t, b2, dt)
+
+
+def apply_deferred_upsampling_exact(d):
+    """The dense logits of a deferred upsampling with the numerics of
+    the finisher that reduces it (`zeropad2x_logits_exact` for one
+    learned stage, `finisher4x_logits_exact` for two, with `edge` and
+    the fixed kernel for the bilinear pair): their argmax is the
+    finisher's idx, bf16 ties included."""
+    if isinstance(d, DeferredBilinear2):
+        k = bilinear_kernel(d.x.shape[1], d.x.device)
+        return finisher4x_logits_exact(d.x, k, None, k, None, edge=True)
+    if isinstance(d, DeferredUpsampling2):
+        return finisher4x_logits_exact(d.x, d.kernel1, d.bias1, d.kernel2,
+                                       d.bias2)
+    return zeropad2x_logits_exact(d.x, d.kernel, d.bias)
 
 
 def two_tap_params(n: int, m: int):

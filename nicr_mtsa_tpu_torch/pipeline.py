@@ -304,21 +304,25 @@ def _add_shared_gt_slots(full_batch: dict) -> None:
 
 def default_postprocessors(tasks: Sequence[str],
                            semantic_classes_is_thing: Sequence[bool],
+                           compute_scores: bool = False,
                            top_k_instances: int = 64,
                            heatmap_threshold: float = 0.1,
                            heatmap_nms_kernel_size: int = 3,
                            semantic_class_has_orientation=None,
-                           **dve_kwargs) -> dict:
+                           *, debug: bool = False, **dve_kwargs) -> dict:
     """The per-task postprocessors of the enabled tasks
-    (`semantic_classes_is_thing` without void); `dve_kwargs` go to the
-    dense-visual-embedding postprocessor (its class tables)."""
+    (`semantic_classes_is_thing` without void), the JAX package's
+    signature: `compute_scores` adds the panoptic postprocessor's dense
+    scores; `dve_kwargs` go to the dense-visual-embedding postprocessor
+    (its class tables). `debug` (keyword only, the port's) turns on the
+    instance postprocessor's debug branches."""
     tasks = set(tasks)
     post = {}
     sem_post = SemanticPostprocessing()
     ins_post = InstancePostprocessing(
         heatmap_threshold=heatmap_threshold,
         heatmap_nms_kernel_size=heatmap_nms_kernel_size,
-        top_k_instances=top_k_instances)
+        top_k_instances=top_k_instances, debug=debug)
     if 'panoptic' in tasks or {'semantic', 'instance'} <= tasks:
         if semantic_class_has_orientation is None:
             semantic_class_has_orientation = semantic_classes_is_thing
@@ -327,7 +331,8 @@ def default_postprocessors(tasks: Sequence[str],
             instance_postprocessing=ins_post,
             semantic_classes_is_thing=tuple(semantic_classes_is_thing),
             semantic_class_has_orientation=tuple(
-                semantic_class_has_orientation))
+                semantic_class_has_orientation),
+            compute_scores=compute_scores)
     else:
         if 'semantic' in tasks:
             post['semantic'] = sem_post
@@ -687,37 +692,43 @@ def eval_task_helpers(n_classes: int = 40, n_thing: int = 8,
                       top_k: int = 64, scene_n_classes: int = 10,
                       dense_visual_embedding: bool = False,
                       is_thing: Optional[Sequence[bool]] = None,
-                      normal: bool = False) -> dict:
+                      normal: bool = False,
+                      store_examples: bool = False) -> dict:
     """The task helpers of the JAX package's `bench.py --eval`: the
     thing classes are `is_thing` (without void; a dataset's
     `semantic_label_list_without_void.classes_is_thing`), else the first
     `n_thing` classes; with `dense_visual_embedding` also the
     embedding's (cosine loss, retrieval mIoU), with `normal` the surface
-    normals' (L1 loss, per-pixel RMSE)."""
+    normals' (L1 loss, per-pixel RMSE). `store_examples`: every helper
+    that has example images renders them in its eager step of batch
+    0."""
     is_thing_v = (False,) + _thing_classes(n_classes, n_thing, is_thing)
+    ex = dict(store_examples=store_examples)
     helpers = {
-        'semantic': SemanticTaskHelper(n_classes=n_classes),
+        'semantic': SemanticTaskHelper(n_classes=n_classes, **ex),
         'instance': InstanceTaskHelper(
             semantic_n_classes=n_classes + 1,
-            semantic_classes_is_thing=is_thing_v, top_k_instances=top_k),
+            semantic_classes_is_thing=is_thing_v, top_k_instances=top_k,
+            **ex),
         'panoptic': PanopticTaskHelper(
             semantic_n_classes=n_classes + 1,
-            semantic_classes_is_thing=is_thing_v),
+            semantic_classes_is_thing=is_thing_v, **ex),
         'scene': SceneTaskHelper(n_classes=scene_n_classes),
     }
     if dense_visual_embedding:
         helpers['dense_visual_embedding'] = DenseVisualEmbeddingTaskHelper(
-            n_classes=n_classes)
+            n_classes=n_classes, **ex)
     if normal:
-        helpers['normal'] = NormalTaskHelper()
+        helpers['normal'] = NormalTaskHelper(**ex)
     return helpers
 
 
 def build_eval_pipeline(config: MultiTaskModelConfig = None, device=None,
                         seed: int = 0, n_thing: int = 8, top_k: int = 64,
                         dve_tables=None,
-                        is_thing: Optional[Sequence[bool]] = None
-                        ) -> MultiTaskPipeline:
+                        is_thing: Optional[Sequence[bool]] = None,
+                        compute_scores: bool = False, debug: bool = False,
+                        store_examples: bool = False) -> MultiTaskPipeline:
     """The eval pipeline of `bench.py --eval` on `device` (default
     `cuda`): the model of `config` (default `emsanet-bench` with the
     semantic prediction upsampling in the head; `emsaformer_eval_config()`
@@ -728,7 +739,10 @@ def build_eval_pipeline(config: MultiTaskModelConfig = None, device=None,
     --eval --dataset` takes them from the dataset's meta.json), else the
     first `n_thing`. A config with the dense-visual-embedding task
     needs `dve_tables`, the (text, visual-mean) class embedding tables,
-    (C, D) each."""
+    (C, D) each. `compute_scores` (the panoptic dense scores), `debug`
+    (the instance postprocessor's debug branches) and `store_examples`
+    (the helpers' example images) go to the postprocessors and helpers
+    (`default_postprocessors`, `eval_task_helpers`)."""
     config = config or emsanet_bench_config(defer=False)
     with_dve = 'dense_visual_embedding' in config.tasks
     if with_dve and dve_tables is None:
@@ -747,10 +761,11 @@ def build_eval_pipeline(config: MultiTaskModelConfig = None, device=None,
     is_thing = _thing_classes(n, n_thing, is_thing)
     post = default_postprocessors(
         tuple(config.tasks) + ('panoptic',),
-        semantic_classes_is_thing=is_thing, top_k_instances=top_k,
-        **dve_kwargs)
+        semantic_classes_is_thing=is_thing, compute_scores=compute_scores,
+        top_k_instances=top_k, debug=debug, **dve_kwargs)
     return MultiTaskPipeline(
         model, post, eval_task_helpers(n, n_thing, top_k,
                                        config.scene_n_classes, with_dve,
-                                       is_thing, 'normal' in config.tasks),
+                                       is_thing, 'normal' in config.tasks,
+                                       store_examples),
         compute_dtype=config.torch_dtype)

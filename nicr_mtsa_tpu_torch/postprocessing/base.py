@@ -6,10 +6,9 @@ maps (B, H, W).
 `postprocess` takes an optional `keys`: the output keys a caller reads.
 Optional outputs not in it (the full-resolution maps, the PQ slot map)
 are not computed (the JAX package leaves their dead-code elimination
-to XLA); None computes them all. In training (`is_training=True`) the
-semantic, instance, normal and scene postprocessors pass their outputs
-on; the panoptic one has no training branch (the training pipeline
-passes the semantic and instance outputs on itself)."""
+to XLA); None computes them all. In training (`is_training=True`)
+every postprocessor passes its outputs on (the panoptic one those of
+its semantic and instance postprocessors)."""
 from typing import Optional, Tuple
 
 from ..data.fullres import (get_fullres_key,

@@ -7,7 +7,12 @@ its full-resolution map) and reads per-instance orientations under the
 GT orientation foreground (branch o-2), and, where a reader asks for
 it (the eager validation step), the mean orientation of each GT
 instance under the GT orientation foreground (branch o-1,
-`segment_orientation_table`). Not ported: the debug branches."""
+`segment_orientation_table`). With `debug` it also segments with
+every pixel foreground (branch i-2, `instance_segmentation_all_
+foreground` and its full-resolution map: one more grouping) and, with
+ground truth in the batch, reads the mean orientation of every GT
+instance and of every predicted instance without a foreground mask
+(`orientations_gt_instance`, `orientations_instance_segmentation`)."""
 from typing import Optional
 
 import torch
@@ -18,6 +23,7 @@ from ..ops.segments import SEGMENT_TABLE_PAD, ids_to_slots, unique_table
 from .base import DensePostprocessingBase, wants
 
 O1_KEY = 'orientations_gt_instance_gt_orientation_foreground'
+ALL_FG_KEY = 'instance_segmentation_all_foreground'
 
 
 def segment_orientation_table(orientation, ids_map, foreground_mask,
@@ -54,7 +60,8 @@ class InstancePostprocessing(DensePostprocessingBase):
                  heatmap_nms_kernel_size: int = 3,
                  heatmap_apply_foreground_mask: bool = False,
                  top_k_instances: int = 64, normalized_offset: bool = True,
-                 offset_distance_threshold: Optional[float] = None):
+                 offset_distance_threshold: Optional[float] = None,
+                 debug: bool = False):
         if heatmap_nms_kernel_size % 2 != 1:
             raise ValueError('heatmap_nms_kernel_size must be odd')
         if not 0 < top_k_instances <= 254:
@@ -65,6 +72,7 @@ class InstancePostprocessing(DensePostprocessingBase):
         self._top_k_instances = top_k_instances
         self._normalized_offset = normalized_offset
         self._offset_distance_threshold = offset_distance_threshold
+        self.debug = debug
 
     def _denormalize(self, center_offset):
         if not self._normalized_offset:
@@ -100,32 +108,54 @@ class InstancePostprocessing(DensePostprocessingBase):
                   'instance_side_outputs': side_outputs,
                   'instance_centers': output[0],
                   'instance_offsets': output[1]}
-        if 'instance_foreground' not in batch:
-            return r_dict
+        offsets = self._denormalize(output[1])
+        with_orientation = len(output) == 3
 
         # i-1: segmentation under the GT foreground (dataset evaluation)
-        result = self._get_instance_segmentation(
-            output[0], self._denormalize(output[1]),
-            batch['instance_foreground'])
-        r_dict['instance_segmentation_gt_foreground'] = result.segmentation
-        r_dict['instance_segmentation_gt_meta'] = {
-            'centers_yx': result.centers.yx, 'scores': result.scores,
-            'valid': result.centers.valid, 'areas': result.areas}
-        self._add_fullres(r_dict, batch, 'instance_segmentation_gt_foreground',
-                          keys, shape_key='instance')
+        if 'instance_foreground' in batch:
+            result = self._get_instance_segmentation(
+                output[0], offsets, batch['instance_foreground'])
+            r_dict['instance_segmentation_gt_foreground'] = \
+                result.segmentation
+            r_dict['instance_segmentation_gt_meta'] = {
+                'centers_yx': result.centers.yx, 'scores': result.scores,
+                'valid': result.centers.valid, 'areas': result.areas}
+            self._add_fullres(r_dict, batch,
+                              'instance_segmentation_gt_foreground', keys,
+                              shape_key='instance')
+
+        # i-2: every pixel foreground (debugging)
+        if self.debug:
+            B, _, H, W = output[0].shape
+            r_dict[ALL_FG_KEY] = self._get_instance_segmentation(
+                output[0], offsets,
+                torch.ones((B, H, W), dtype=torch.bool,
+                           device=output[0].device)).segmentation
+            self._add_fullres(r_dict, batch, ALL_FG_KEY, keys,
+                              shape_key='instance')
+        if not with_orientation:
+            return r_dict
 
         # o-1: GT instances + GT orientation foreground, on request
-        if len(output) == 3 and wants(keys, O1_KEY) and all(
+        if wants(keys, O1_KEY) and all(
                 k in batch for k in ('instance', 'orientation_foreground')):
             r_dict[O1_KEY] = segment_orientation_table(
                 output[2], batch['instance'],
                 batch['orientation_foreground'])
 
         # o-2: predicted instances + GT orientation foreground
-        if len(output) == 3 and 'orientation_foreground' in batch:
+        seg = r_dict.get('instance_segmentation_gt_foreground')
+        if seg is not None and 'orientation_foreground' in batch:
             r_dict['orientations_instance_segmentation'
                    '_gt_orientation_foreground'] = \
                 self._get_instance_orientation(
-                    output[2], result.segmentation,
-                    batch['orientation_foreground'])
+                    output[2], seg, batch['orientation_foreground'])
+
+        # the same without a foreground mask (debugging)
+        if self.debug and 'instance' in batch:
+            r_dict['orientations_gt_instance'] = segment_orientation_table(
+                output[2], batch['instance'], None)
+        if self.debug and seg is not None:
+            r_dict['orientations_instance_segmentation'] = \
+                self._get_instance_orientation(output[2], seg, None)
         return r_dict

@@ -4,8 +4,9 @@ A task helper wires one task's losses and metric states around the
 shared batch dict, for the training step and the fused eval step:
 
 - `compute_losses(batch, predictions_post) -> {name: loss}` (under
-  autograd in training; `training_step` wraps it as the JAX helpers'
-  `(losses, logs)`),
+  autograd in training); `training_step` returns it as the JAX
+  helpers' `(losses, logs)`, the logs the detached losses and the
+  step's host time under `<task>_step_time`,
 - `empty_metric_states(device)`, `update_metric_states(state, batch,
   predictions_post) -> state` (device tensors, no host sync),
 - `load_metric_states(state)` then `validation_epoch_end() ->
@@ -19,8 +20,11 @@ dicts, as the JAX package walks them), with the losses mirrored into
 the logs and the step's host time under `<task>_step_time`; after an
 eager epoch `validation_epoch_end` also logs `<task>_epoch_end_time`
 (a fused epoch's logs stay the states' metrics). `initialize()` makes
-the losses and metrics anew. Example images (`store_examples`) are not
-ported and raise.
+the losses and metrics anew. With `store_examples` the eager step of
+batch 0 also renders the helper's example images of its first image
+(numpy (H, W, 3) uint8 arrays from `visualization`, under the JAX
+package's keys), which `validation_epoch_end` returns as its second
+item.
 
 `prediction_keys` names the postprocessed keys the helper reads; the
 step computes no full-resolution output beyond those and the caller's.
@@ -104,10 +108,13 @@ def epoch_end(key: str):
     return decorator
 
 
-def refuse_examples(store_examples: bool) -> None:
-    if store_examples:
-        raise NotImplementedError('store_examples (the example images of '
-                                  'the validation step) is not ported')
+def to_numpy(t):
+    """A prediction of one image as numpy for the example images (a
+    bf16 or half tensor as float32)."""
+    t = t.detach().cpu()
+    if t.is_floating_point() and t.dtype != torch.float64:
+        t = t.float()
+    return t.numpy()
 
 
 class TaskHelperBase:
@@ -117,14 +124,11 @@ class TaskHelperBase:
     # the states of the eager steps since the last epoch end
     _eager_epoch = False
     _eager_states = None
+    _store_examples = False
 
     def initialize(self) -> None:
         """Make the losses and metrics anew (the JAX helpers' late
         construction)."""
-
-    def validation_step(self, batch, batch_idx, predictions_post):
-        raise NotImplementedError(f'{type(self).__name__} has no eager '
-                                  f'validation_step in the port yet')
 
     def update_eagerly(self, batch, predictions_post) -> None:
         """One eager step's metric update, into the helper's own
@@ -174,11 +178,6 @@ class TaskHelperBase:
                 keys.append(f'down_{k}')
                 targets.append(sub)
         return preds, keys, targets
-
-    def training_step(self, batch, batch_idx, predictions_post):
-        """(losses, logs) of one training batch: the losses of
-        `compute_losses`, no logs."""
-        return self.compute_losses(batch, predictions_post), {}
 
     @staticmethod
     def accumulate_losses(losses, n_elements):

@@ -13,8 +13,14 @@ the dense (B, P, D) target never exists (5.0 GB in f32 at B=8, 480 x
 
 The metric states are two confusion matrices, of the text-based and of
 the visual-mean-based retrieval at full resolution against the
-full-resolution semantic ground truth, void left out; their epoch
-results are the two retrieval mIoUs."""
+full-resolution semantic ground truth, void left out (the JAX package
+counts void into the (0, 0) cell and subtracts it again); their epoch
+results are the two retrieval mIoUs. The fused step updates them
+through `update_metric_states`, the eager `validation_step` through
+the same code into the helper's own states, with the losses of
+`compute_losses`; with `store_examples` the eager step of batch 0 also
+renders the text-based retrieval of its first image (`examples_cmap`:
+the semantic palette)."""
 from typing import List
 
 import numpy as np
@@ -27,7 +33,9 @@ from ..metrics.base import to_numpy
 from ..models.upsampling import resize_nearest
 from ..postprocessing.dense_visual_embedding import (TEXT_PREFIX,
                                                      VISUAL_MEAN_PREFIX)
-from .base import TaskHelperBase
+from ..visualization import visualize_semantic_pil
+from .base import (TaskHelperBase, append_detached_losses_to_logs,
+                   append_profile_to_logs, epoch_end, to_numpy as np_of)
 
 KNOWN_DENSE_VISUAL_EMBEDDING_LOSS_FUNCTIONS = ('cos_emb', 'mse', 'l1')
 # metric state -> (the full-resolution retrieval idx it counts, log key)
@@ -54,11 +62,18 @@ class DenseVisualEmbeddingTaskHelper(TaskHelperBase):
                        'dense_visual_embedding_side_outputs',
                        *(key for key, _ in _STATES.values()))
 
-    def __init__(self, n_classes: int, loss_name: str = 'cos_emb'):
+    def __init__(self, n_classes: int, loss_name: str = 'cos_emb',
+                 examples_cmap=None, store_examples: bool = False):
         self._loss_name = loss_name.lower()
         if self._loss_name not in KNOWN_DENSE_VISUAL_EMBEDDING_LOSS_FUNCTIONS:
             raise ValueError(f'unknown loss {loss_name!r}')
         self._n_classes = n_classes
+        self._examples = {}
+        self._examples_cmap = examples_cmap
+        self._store_examples = store_examples
+        # the working-resolution retrieval its example image shows
+        self.validation_keys = (f'{TEXT_PREFIX}_idx',) if store_examples \
+            else ()
         # the cosine goes through the score matrix (`_pixel_losses`)
         self._loss = (None if self._loss_name == 'cos_emb' else
                       {'mse': MSELoss, 'l1': L1Loss}[self._loss_name](
@@ -84,9 +99,10 @@ class DenseVisualEmbeddingTaskHelper(TaskHelperBase):
             'dense_visual_embedding_side_outputs')
         D = preds[0].shape[1]
         lut = batch['dense_visual_embedding_lut']
-        if isinstance(lut, (list, tuple)):           # ragged host LUTs
+        if isinstance(lut, (list, tuple)):           # ragged LUTs
             lut = torch.from_numpy(pad_embedding_luts(
-                [np.asarray(t) for t in lut], D))
+                [t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                 else np.asarray(t) for t in lut], D))
         lut = lut.to(preds[0].device, torch.float32)
         main_idx = batch['dense_visual_embedding_indices']
         outs = []
@@ -132,6 +148,25 @@ class DenseVisualEmbeddingTaskHelper(TaskHelperBase):
         for k, m in self._metrics.items():
             m.state = state[k]
 
+    @append_profile_to_logs('dense_visual_embedding_step_time')
+    @append_detached_losses_to_logs
+    def training_step(self, batch, batch_idx, predictions_post):
+        return self.compute_losses(batch, predictions_post), {}
+
+    @append_profile_to_logs('dense_visual_embedding_step_time')
+    @append_detached_losses_to_logs
+    def validation_step(self, batch, batch_idx, predictions_post):
+        losses = self.compute_losses(batch, predictions_post)
+        self.update_eagerly(batch, predictions_post)
+        key = f'{TEXT_PREFIX}_idx'
+        if self._store_examples and batch_idx == 0 \
+                and key in predictions_post:
+            self._examples['dve_text_semantic_example_batch_0_0'] = \
+                visualize_semantic_pil(np_of(predictions_post[key][0]),
+                                       colors=self._examples_cmap)
+        return losses, {}
+
+    @epoch_end('dense_visual_embedding_epoch_end_time')
     def validation_epoch_end(self):
         """The mIoU of each retrieval whose matrix holds counts."""
         logs = {}
@@ -140,4 +175,4 @@ class DenseVisualEmbeddingTaskHelper(TaskHelperBase):
             if int(np.asarray(to_numpy(m.state)).sum()):
                 logs[log_key] = m.compute()
             m.reset()
-        return {}, {}, logs
+        return {}, self._examples, logs

@@ -13,7 +13,10 @@ the GT panoptic map, the merge emitting the pred slot map directly
 eager steps also score the mean orientation of each GT instance
 (postprocessing branch o-1) against its GT angle: the plain MAE against
 the GT instances (`orientation_mae_gt_rad`/`_deg`), which the fused
-step does not compute (as in the JAX package)."""
+step does not compute (as in the JAX package). With `store_examples`
+the first image of batch 0 gives example images: the centre heatmap,
+the offsets, the predicted centres, the instances and the
+orientations."""
 import numpy as np
 import torch
 
@@ -25,8 +28,12 @@ from ..ops.merge import deeplab_merge_pq
 from ..ops.segments import SEGMENT_TABLE_PAD
 from ..postprocessing.instance import O1_KEY
 from ._orientation_tables import pred_slot_angles
+from ..visualization import (visualize_instance_center_pil,
+                             visualize_instance_offset_pil,
+                             visualize_instance_pil,
+                             visualize_orientation_pil)
 from .base import (TaskHelperBase, append_detached_losses_to_logs,
-                   append_profile_to_logs, epoch_end, refuse_examples)
+                   append_profile_to_logs, epoch_end, to_numpy as np_of)
 
 _SEG_FULLRES = get_fullres_key('instance_segmentation_gt_foreground')
 _ORI_KEY = 'orientations_instance_segmentation_gt_orientation_foreground'
@@ -43,7 +50,8 @@ class InstanceTaskHelper(TaskHelperBase):
         if loss_name_instance_center not in ('mse', 'l1'):
             raise ValueError(f"unknown centre loss "
                              f"'{loss_name_instance_center}'")
-        refuse_examples(store_examples)
+        self._examples = {}
+        self._store_examples = store_examples
         self._loss_name_instance_center = loss_name_instance_center
         self._semantic_n_classes = semantic_n_classes     # with void
         self._is_thing_np = np.asarray(semantic_classes_is_thing, dtype=bool)
@@ -141,6 +149,11 @@ class InstanceTaskHelper(TaskHelperBase):
 
     @append_profile_to_logs('instance_step_time')
     @append_detached_losses_to_logs
+    def training_step(self, batch, batch_idx, predictions_post):
+        return self.compute_losses(batch, predictions_post), {}
+
+    @append_profile_to_logs('instance_step_time')
+    @append_detached_losses_to_logs
     def validation_step(self, batch, batch_idx, predictions_post):
         losses = self.compute_losses(batch, predictions_post)
         with_orientation = len(predictions_post['instance_output']) == 3
@@ -155,7 +168,31 @@ class InstanceTaskHelper(TaskHelperBase):
             self._mae_gt.update(
                 o1['angles'], torch.from_numpy(angles).to(dev),
                 valid=torch.from_numpy(valid).to(dev) & o1['valid'])
+        if self._store_examples and batch_idx == 0:
+            self._store_example_images(predictions_post)
         return losses, {}
+
+    def _store_example_images(self, predictions_post):
+        center, offset, *orientation = predictions_post['instance_output']
+        ex = self._examples
+        ex['instance_center_heatmap_example_batch_0_0'] = \
+            visualize_instance_center_pil(center_img=np_of(center[0, 0]),
+                                          min_=0, max_=1)
+        ex['instance_offset_example_batch_0_0'] = \
+            visualize_instance_offset_pil(np_of(offset[0].permute(1, 2, 0)))
+        meta = predictions_post['instance_segmentation_gt_meta']
+        centers = [tuple(yx) for yx, v in
+                   zip(np_of(meta['centers_yx'][0]), np_of(meta['valid'][0]))
+                   if v]
+        ex['instance_predicted_centers_example_batch_0_0'] = \
+            visualize_instance_center_pil(centers=centers,
+                                          height=center.shape[2],
+                                          width=center.shape[3])
+        ex['instance_instance_example_batch_0_0'] = visualize_instance_pil(
+            np_of(predictions_post['instance_segmentation_gt_foreground'][0]))
+        if orientation:
+            ex['orientation_example_batch_0_0'] = visualize_orientation_pil(
+                np_of(orientation[0][0].permute(1, 2, 0)))
 
     @staticmethod
     def _gt_table_target_angles(ids_table, orientations_present):
@@ -187,4 +224,4 @@ class InstanceTaskHelper(TaskHelperBase):
                 self._mae_gt.compute()
             self._mae_gt.reset()
             self._with_orientation = False
-        return artifacts, {}, logs
+        return artifacts, self._examples, logs

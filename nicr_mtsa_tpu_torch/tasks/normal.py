@@ -4,14 +4,17 @@ ground-truth normal is not all zero, the predictions masked to them,
 at the main scale and, unless `disable_multiscale_supervision`, at each
 side output's with its `_down_<k>` targets; the per-pixel RMSE at full
 resolution (`normal_output_fullres` against `normal_fullres`), by the
-fused step or by eager `validation_step`s, logged as `normal_rmse`."""
+fused step or by eager `validation_step`s, logged as `normal_rmse`;
+with `store_examples` the first image of batch 0 as an example
+image."""
 import torch
 
 from ..data.fullres import get_fullres_key
 from ..losses import L1Loss, MSELoss
 from ..metrics import RootMeanSquaredError
+from ..visualization import visualize_normal_pil
 from .base import (TaskHelperBase, append_detached_losses_to_logs,
-                   append_profile_to_logs, epoch_end, refuse_examples)
+                   append_profile_to_logs, epoch_end, to_numpy as np_of)
 
 KNOWN_NORMAL_LOSS_FUNCTIONS = ('l1', 'mse')
 _OUTPUT_FULLRES = get_fullres_key('normal_output')
@@ -29,11 +32,12 @@ class NormalTaskHelper(TaskHelperBase):
     def __init__(self, loss_name: str = 'l1',
                  disable_multiscale_supervision: bool = False,
                  store_examples: bool = False):
-        refuse_examples(store_examples)
         if loss_name not in KNOWN_NORMAL_LOSS_FUNCTIONS:
             raise ValueError(f"Unknown normal loss: '{loss_name}'")
         self._loss_class = MSELoss if loss_name == 'mse' else L1Loss
         self._disable_multiscale_supervision = disable_multiscale_supervision
+        self._examples = {}
+        self._store_examples = store_examples
         self.initialize()
 
     def initialize(self) -> None:
@@ -72,12 +76,21 @@ class NormalTaskHelper(TaskHelperBase):
 
     @append_profile_to_logs('normal_step_time')
     @append_detached_losses_to_logs
+    def training_step(self, batch, batch_idx, predictions_post):
+        return self.compute_losses(batch, predictions_post), {}
+
+    @append_profile_to_logs('normal_step_time')
+    @append_detached_losses_to_logs
     def validation_step(self, batch, batch_idx, predictions_post):
         self.update_eagerly(batch, predictions_post)
+        if self._store_examples and batch_idx == 0:
+            self._examples['normal_example_batch_0_0'] = \
+                visualize_normal_pil(np_of(
+                    predictions_post['normal_output'][0].permute(1, 2, 0)))
         return self.compute_losses(batch, predictions_post), {}
 
     @epoch_end('normal_epoch_end_time')
     def validation_epoch_end(self):
         logs = {'normal_rmse': self._metric_rmse.compute()}
         self._metric_rmse.reset()
-        return {}, {}, logs
+        return {}, self._examples, logs

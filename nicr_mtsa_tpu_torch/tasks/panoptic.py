@@ -4,7 +4,10 @@ the full-resolution GT, scored through the merge's own slot map and
 segment table, plus the mIoU of the panoptic-derived semantic, by the
 fused step or by eager `validation_step`s (the GT angle tables then
 walked from the batch's id dicts where it has `orientations_present`).
-No loss."""
+No loss. With `store_examples` the first image of batch 0 gives example
+images: the panoptic map, its semantic and instance maps and, where the
+postprocessor computed them (`compute_scores`), the three score
+maps."""
 import numpy as np
 import torch
 
@@ -13,8 +16,10 @@ from ..metrics import (MeanIntersectionOverUnion,
                        PanopticQualityWithOrientationMAE)
 from ..metrics.base import to_numpy
 from ._orientation_tables import pred_slot_angles
+from ..visualization import (visualize_heatmap_pil, visualize_instance_pil,
+                             visualize_panoptic_pil, visualize_semantic_pil)
 from .base import (TaskHelperBase, append_profile_to_logs, epoch_end,
-                   refuse_examples)
+                   to_numpy as np_of)
 
 _PAN_FULLRES = get_fullres_key('panoptic_segmentation_deeplab')
 _SLOTS_FULLRES = get_fullres_key('panoptic_segmentation_deeplab_slots')
@@ -28,7 +33,8 @@ class PanopticTaskHelper(TaskHelperBase):
 
     def __init__(self, semantic_n_classes: int, semantic_classes_is_thing,
                  store_examples: bool = False):
-        refuse_examples(store_examples)
+        self._examples = {}
+        self._store_examples = store_examples
         self._semantic_n_classes = semantic_n_classes
         self._is_thing = np.asarray(semantic_classes_is_thing, dtype=bool)
         self._max_instances_per_category = 1 << 16
@@ -83,10 +89,36 @@ class PanopticTaskHelper(TaskHelperBase):
         self._metric_iou.state = state['miou']
 
     @append_profile_to_logs('panoptic_step_time')
+    def training_step(self, batch, batch_idx, predictions_post):
+        # merging and PQ happen in validation only
+        return {}, {}
+
+    @append_profile_to_logs('panoptic_step_time')
     def validation_step(self, batch, batch_idx, predictions_post):
         self.update_eagerly(self.with_gt_angle_tables(
             batch, 'orientations_present' in batch), predictions_post)
+        if self._store_examples and batch_idx == 0:
+            self._store_example_images(predictions_post)
         return {}, {}
+
+    def _store_example_images(self, predictions_post):
+        M = self._max_instances_per_category
+        pan = np_of(predictions_post['panoptic_segmentation_deeplab'][0])
+        ex = self._examples
+        ex['panoptic_example_batch_deeplab_0_0'] = visualize_panoptic_pil(
+            pan, max_instances=M, classes_is_thing=self._is_thing)
+        ex['panoptic_example_batch_deeplab_semantic_0_0'] = \
+            visualize_semantic_pil(pan // M)
+        ex['panoptic_example_batch_deeplab_instance_0_0'] = \
+            visualize_instance_pil(np_of(predictions_post[
+                'panoptic_segmentation_deeplab_instance_idx'][0]))
+        for score_key in ('semantic_score', 'instance_score',
+                          'panoptic_score'):
+            key = f'panoptic_segmentation_deeplab_{score_key}'
+            if key in predictions_post:
+                ex[f'panoptic_example_batch_deeplab_{score_key}_0_0'] = \
+                    visualize_heatmap_pil(np_of(predictions_post[key][0]),
+                                          min_=0, max_=1)
 
     @epoch_end('panoptic_epoch_end_time')
     def validation_epoch_end(self):
@@ -104,4 +136,4 @@ class PanopticTaskHelper(TaskHelperBase):
         logs['panoptic_deeplab_semantic_miou'] = miou
         artifacts['panoptic_deeplab_semantic_ious_per_class'] = ious
         self._metric_iou.reset()
-        return artifacts, {}, logs
+        return artifacts, self._examples, logs

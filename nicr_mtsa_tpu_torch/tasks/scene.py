@@ -64,6 +64,11 @@ class SceneTaskHelper(TaskHelperBase):
 
     @append_profile_to_logs('scene_step_time')
     @append_detached_losses_to_logs
+    def training_step(self, batch, batch_idx, predictions_post):
+        return self.compute_losses(batch, predictions_post), {}
+
+    @append_profile_to_logs('scene_step_time')
+    @append_detached_losses_to_logs
     def validation_step(self, batch, batch_idx, predictions_post):
         self.update_eagerly(batch, predictions_post)
         return self.compute_losses(batch, predictions_post), {}

@@ -2,7 +2,9 @@
 class-weighted cross-entropy at the main scale and at each side
 output's with its `_down_<k>` targets; a full-resolution confusion matrix
 (void-masked, labels shifted by -1) accumulated on device -> mIoU, by
-the fused step or by eager `validation_step`s."""
+the fused step or by eager `validation_step`s; with `store_examples`
+the idx and score maps of the first image of batch 0 as example
+images (`examples_cmap`: the semantic palette)."""
 import numpy as np
 import torch
 
@@ -10,8 +12,9 @@ from ..data.fullres import get_fullres_key
 from ..losses import CrossEntropyLossSemantic
 from ..metrics import MeanIntersectionOverUnion, confusion_matrix
 from ..metrics.base import to_numpy
+from ..visualization import visualize_heatmap_pil, visualize_semantic_pil
 from .base import (TaskHelperBase, append_detached_losses_to_logs,
-                   append_profile_to_logs, epoch_end, refuse_examples)
+                   append_profile_to_logs, epoch_end, to_numpy as np_of)
 
 _IDX_FULLRES = get_fullres_key('semantic_segmentation_idx')
 
@@ -21,12 +24,14 @@ class SemanticTaskHelper(TaskHelperBase):
                        _IDX_FULLRES)
 
     def __init__(self, n_classes: int, class_weights=None,
-                 label_smoothing: float = 0.0,
+                 label_smoothing: float = 0.0, examples_cmap=None,
                  store_examples: bool = False):
-        refuse_examples(store_examples)
         self._n_classes = n_classes
         self._class_weights = class_weights
         self._label_smoothing = label_smoothing
+        self._examples = {}
+        self._examples_cmap = examples_cmap
+        self._store_examples = store_examples
         self.initialize()
 
     def initialize(self) -> None:
@@ -64,8 +69,22 @@ class SemanticTaskHelper(TaskHelperBase):
 
     @append_profile_to_logs('semantic_step_time')
     @append_detached_losses_to_logs
+    def training_step(self, batch, batch_idx, predictions_post):
+        return self.compute_losses(batch, predictions_post), {}
+
+    @append_profile_to_logs('semantic_step_time')
+    @append_detached_losses_to_logs
     def validation_step(self, batch, batch_idx, predictions_post):
         self.update_eagerly(batch, predictions_post)
+        if self._store_examples and batch_idx == 0:
+            self._examples['semantic_example_batch_idx_0_0'] = \
+                visualize_semantic_pil(
+                    np_of(predictions_post['semantic_segmentation_idx'][0]),
+                    colors=self._examples_cmap)
+            self._examples['semantic_example_batch_score_0_0'] = \
+                visualize_heatmap_pil(
+                    np_of(predictions_post['semantic_segmentation_score'][0]),
+                    min_=0, max_=1)
         return self.compute_losses(batch, predictions_post), {}
 
     @epoch_end('semantic_epoch_end_time')
@@ -74,4 +93,4 @@ class SemanticTaskHelper(TaskHelperBase):
         artifacts = {'semantic_cm': np.asarray(to_numpy(
             self._metric_iou.state)), 'semantic_ious_per_class': ious}
         self._metric_iou.reset()
-        return artifacts, {}, {'semantic_miou': miou}
+        return artifacts, self._examples, {'semantic_miou': miou}

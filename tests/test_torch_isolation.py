@@ -769,3 +769,80 @@ def test_deferred_head_refuses_other_upsamplings(mode, defer):
     with pytest.raises(ValueError, match='defer'):
         TaskHead(8, 3, upsampling='learned-3x3-zeropad', n_upsamplings=2,
                  defer_last_upsampling=defer, post='unit-length')
+
+
+# the modules of the outputs slice: the dense panoptic scores and debug
+# branches, example images, the rest of the host transforms, step
+# checkpoints and the two examples
+OUTPUTS_SLICE_MODULES = (
+    'nicr_mtsa_tpu_torch.visualization',
+    'nicr_mtsa_tpu_torch.data.preprocessing.semantic',
+    'nicr_mtsa_tpu_torch.data.preprocessing.transform_wrapper',
+    'nicr_mtsa_tpu_torch.data.preprocessing.dense_visual_embedding',
+    'nicr_mtsa_tpu_torch.parallel.checkpoint',
+    'nicr_mtsa_tpu_torch.postprocessing.panoptic',
+    'nicr_mtsa_tpu_torch.examples.infer_panoptic',
+    'nicr_mtsa_tpu_torch.examples.eval_dataset',
+)
+
+
+def test_outputs_slice_modules_import_with_jax_blocked(tmp_path):
+    """The outputs slice's modules import, and the serving example runs
+    on the CPU and writes its images, with jax, flax, optax and the JAX
+    package made unimportable."""
+    code = (
+        'import sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        '        if name.split(".")[0] in ("jax", "flax", "optax", '
+        '"jaxlib", "nicr_mtsa_tpu"):\n'
+        '            raise ImportError("blocked: " + name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import importlib\n'
+        f'for m in {OUTPUTS_SLICE_MODULES!r}:\n'
+        '    importlib.import_module(m)\n'
+        'from nicr_mtsa_tpu_torch.examples import infer_panoptic\n'
+        f'run = infer_panoptic.main(["--cpu", "--out", {str(tmp_path)!r}, '
+        '"--size", "64", "96"])\n'
+        'print(sorted(run["images"]))\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == \
+        "['depth.png', 'panoptic.png', 'semantic.png']"
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        'depth.png', 'panoptic.png', 'semantic.png']
+
+
+@pytest.mark.parametrize('phase', ['eval_outputs', 'deferred_fullres',
+                                   'dve_host'])
+def test_chip_smoke_outputs_phases_fail_without_card(phase):
+    """Phases 35-37 raise on a machine without a card: none falls back
+    to the CPU."""
+    import argparse
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    try:
+        cs = importlib.import_module('chip_smoke')
+    finally:
+        sys.path.remove(str(ROOT))
+    from nicr_mtsa_tpu_torch.ops import cuda as kernels
+    args = argparse.Namespace(requests=1, steps=1, train_steps=1,
+                              profile=False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(cs, phase)(args, kernels, 'no card', {})
+
+
+@pytest.mark.parametrize('example', ['infer_panoptic', 'eval_dataset'])
+def test_examples_raise_without_card(example):
+    """Without `--cpu` the examples run on the card, and raise where
+    there is none."""
+    import importlib
+    module = importlib.import_module(
+        f'nicr_mtsa_tpu_torch.examples.{example}')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        module.main(['--dataset', str(ROOT / 'tests' / 'fixtures' /
+                                      'mini_dataset')]
+                    if example == 'eval_dataset' else [])

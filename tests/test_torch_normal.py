@@ -241,9 +241,12 @@ def test_normal_losses_match_jax(loss_name, multiscale):
 
 
 def test_normal_helper_refuses_examples_and_unknown_losses():
+    """Example images are ported (tests/test_torch_eval_outputs.py holds
+    them against the JAX helper's): `store_examples` is taken; an
+    unknown loss still raises."""
     from nicr_mtsa_tpu_torch.tasks import NormalTaskHelper
-    with pytest.raises(NotImplementedError, match='store_examples'):
-        NormalTaskHelper(store_examples=True)
+    helper = NormalTaskHelper(store_examples=True)
+    assert helper._store_examples and helper._examples == {}
     with pytest.raises(ValueError):
         NormalTaskHelper(loss_name='huber')
 

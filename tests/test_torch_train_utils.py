@@ -17,7 +17,8 @@ examples/train_synthetic.py run as the JAX package's test runs its own
   also when a run resumes an existing file.
 - `cprint*`: the same text as the JAX package's, without colour off a
   terminal.
-- The helpers refuse `store_examples=True` (not ported)."""
+- The helpers take `store_examples=True` (the images are held against
+  the JAX package's in test_torch_eval_outputs.py)."""
 import contextlib
 import io
 import os
@@ -208,8 +209,10 @@ def test_train_synthetic_example(tmp_path):
 
 
 def test_helpers_refuse_store_examples():
-    """The validation examples (visualization) are not ported: asking
-    for them raises instead of silently storing none."""
+    """The validation examples (visualization) are ported: asking for
+    them no longer raises, and a helper holds none before an eager step
+    of batch 0 (tests/test_torch_eval_outputs.py holds the images
+    against the JAX package's)."""
     from nicr_mtsa_tpu_torch.tasks import (InstanceTaskHelper,
                                            PanopticTaskHelper,
                                            SemanticTaskHelper)
@@ -219,5 +222,5 @@ def test_helpers_refuse_store_examples():
                                             store_examples=True),
                  lambda: PanopticTaskHelper(3, is_thing,
                                             store_examples=True)):
-        with pytest.raises(NotImplementedError, match='store_examples'):
-            make()
+        helper = make()
+        assert helper._store_examples and helper._examples == {}
