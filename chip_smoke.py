@@ -419,6 +419,43 @@ And the outputs beyond the eval step, the host extras and the examples
    tests/fixtures/mini_dataset` on the card: exit 0, the three PNGs
    decodable by `read_png`, the printed metrics finite and in range.
 
+And the pretrained backbones and normal training from recorded frames
+(their seconds are printed as `pretrained_seconds`):
+
+39. a seeded ResNet-34 (basic blocks) state dict in torchvision's
+   layout, with its `fc` head, `num_batches_tracked` buffers and a
+   `module.`-prefixed copy of one weight (other values), loaded by
+   `load_pretrained_backbone` through $MTSA_PRETRAINED_DIR for RGB and
+   through `checkpoint_path` for depth (the stem summed to 1 channel),
+   grafted by `merge_backbone_variables` into both encoders of
+   `emsanet-bench` with basic blocks (480 x 640, bf16): every grafted
+   tensor equal to the loaded one, the depth stem to the checkpoint's
+   summed kernel, every other tensor unchanged; served at B=8 as phase
+   3 (launches a request exactly 1 finisher4x and 1 grouping, frames/s
+   printed beside phase 3's); the f32 pipeline card vs CPU under phase
+   4's gates; the ImageNet classifier on that backbone (B=8, 224 x
+   224, f32, 1000 classes): logits card vs CPU within CLASSIFIER_TOL
+   of the largest, the card's forward timed;
+40. a seeded Swin-T v1 state dict in torchvision's layout (`swin_t`'s
+   shapes, `_orig_mod.`-prefixed, with its head and buffers) loaded
+   into the `swin-t` backbone, its forward at B=8, 224 x 224, f32 on
+   the card with the counters set to 0 just before: launches exactly
+   PRETRAINED_SWIN_KERNELS (12 window-attention sub-blocks, 29
+   LayerNorms; every other wrapper none), each stage within
+   SWIN_STAGE_TOL of the CPU's, each captured kernel call against its
+   plain version (phase 7's rules), the forward timed;
+41. phase 32's loop with 'normal' added to the tasks: 24 train and 8
+   valid frames of 960 x 1280 with seeded smooth unit normal fields
+   (.npy beside the PNG maps), the example's training preprocessing
+   with normals, 3 training steps at B=8 (no wrapper launched) and one
+   eager validation step (LOOP_VALID_KERNELS); losses finite, the
+   normal losses (main and side outputs) among them, `normal_rmse` in
+   (0, 2], image 0's normal targets negated moving the validation's
+   normal loss by more than NORMAL_FAULT_MIN of it and 100 times its
+   rerun spread, and the normal loss of predictions equal to the
+   targets 0, with image 0's targets negated at least
+   NORMAL_ORACLE_MIN.
+
 It prints the kernels line `{"kernels": [...]}` and, last, the result
 line `{"ok": true, "device": {...}}`. Details go to
 chiprun_out/chip_smoke.json. Needs no network and no JAX."""
@@ -1799,9 +1836,9 @@ def check_layernorm(ln, report, build):
     1e-5 and 1e-6, and on misaligned views (x[1:] of a flat buffer):
     bf16 outputs within 1 ulp (or 1e-6 x max |out|, where the affine
     cancels to near 0), f32 outputs within 1e-5. Times every path shape
-    (`cuda_ms` and the card's time alone) against its bound and
-    F.layer_norm; prints the plan, registers, spills and blocks an SM of
-    each; the kernels line times (153600, 128)."""
+    (`cuda_ms` and the card's time alone) against its bound, its plain
+    version and F.layer_norm; prints the plan, registers, spills and
+    blocks an SM of each; the kernels line times (153600, 128)."""
     import torch.nn.functional as F
     g = torch.Generator(device='cuda').manual_seed(7)
     err, beyond_ulp = 0.0, {}
@@ -1841,6 +1878,8 @@ def check_layernorm(ln, report, build):
             rows=rows, C=C, launches_a_request=launches,
             ms=cuda_ms(lambda: ln.fused_layer_norm(x, w, b)),
             stream_ms=stream_ms(lambda: ln.fused_layer_norm(x, w, b)),
+            plain_stream_ms=stream_ms(
+                lambda: ln.layer_norm_reference(x, w, b)),
             library_stream_ms=stream_ms(
                 lambda: F.layer_norm(x, (C,), wb, bb, 1e-5)),
             bound_ms=b_ms, bound_by=b_by, plan=plan._asdict(),
@@ -1865,6 +1904,8 @@ def check_layernorm(ln, report, build):
                       for s in shapes),
         bound_ms=sum(s['bound_ms'] * s['launches_a_request']
                      for s in shapes),
+        plain_stream_ms=sum(s['plain_stream_ms'] *
+                            s['launches_a_request'] for s in shapes),
         library_stream_ms=sum(s['library_stream_ms'] *
                               s['launches_a_request'] for s in shapes))
     print(json.dumps({'phase': 'kernel', **report['layernorm'],
@@ -2299,7 +2340,8 @@ def _normal_agreement(a, b):
             float((a.float() - b.float()).abs().max()))
 
 
-def card_vs_cpu(result, cfg, key, frame_seed, extra_output_tasks=()):
+def card_vs_cpu(result, cfg, key, frame_seed, extra_output_tasks=(),
+                prepare=None):
     """The f32 serving pipeline of `cfg` on one frame, on the card and
     on the CPU, with the same weights (the same seed builds the same
     model on both): semantic_idx must agree on >= 99.9 % of pixels, and
@@ -2310,13 +2352,16 @@ def card_vs_cpu(result, cfg, key, frame_seed, extra_output_tasks=()):
     whether the centre tables agree as ordered lists or only as sets.
     With 'normal' among `extra_output_tasks`, the normals must agree on
     NORMAL_AGREE_MIN of the pixels (`_normal_agreement`), and the card's
-    with one image's normals negated must not."""
+    with one image's normals negated must not. `prepare` (if any) takes
+    each pipeline before its run (phase 39 grafts its backbones)."""
     from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
     rgb, depth = frames(1, seed=frame_seed)
     outs, centres = {}, {}
     for dev in ('cuda', 'cpu'):
         pipe = build_serving_pipeline(cfg, device=dev, seed=0,
                                       extra_output_tasks=extra_output_tasks)
+        if prepare is not None:
+            prepare(pipe)
         centres[dev] = {}
         _capture_centres(pipe, centres[dev])
         outs[dev] = {k: v.cpu() for k, v in pipe(rgb, depth).items()}
@@ -2404,7 +2449,7 @@ def card_vs_cpu(result, cfg, key, frame_seed, extra_output_tasks=()):
 def serve_exact(cfg, n_requests, want, kernels, card, result, key,
                 profile_it=False, B=8, targets=None, reference_of=None,
                 keep_reference=False, extra_output_tasks=(),
-                check_out=None):
+                check_out=None, prepare=None):
     """Serving of `cfg` at B on frames of its input size: a warm-up
     request (the kernels' inputs captured by `targets`), then three
     timed rounds of `n_requests` requests with the counters set to 0
@@ -2414,12 +2459,15 @@ def serve_exact(cfg, n_requests, want, kernels, card, result, key,
     under deterministic cuDNN must give `reference_of`'s outputs bit for
     bit; with `keep_reference`, that request's outputs are returned for
     such a comparison. `extra_output_tasks` go to the pipeline, and
-    `check_out` (if any) checks the last request's outputs. Returns (the
+    `check_out` (if any) checks the last request's outputs; `prepare`
+    (if any) takes the pipeline before the warm-up. Returns (the
     launches of `want`, the captured calls, those outputs or None)."""
     from nicr_mtsa_tpu_torch.pipeline import build_serving_pipeline
     H, W = cfg.input_size
     pipe = build_serving_pipeline(cfg, device='cuda', seed=0,
                                   extra_output_tasks=extra_output_tasks)
+    if prepare is not None:
+        prepare(pipe)
     rgb, depth = (torch.from_numpy(a).cuda() for a in frames(B, H, W))
     _fresh()
     with _capture(targets or {}) as calls:
@@ -3115,22 +3163,29 @@ DATASET_EVAL_KERNELS = {'resize_reduce': 1, 'semantic_reduce': 1,
                         'grouping': 2, 'intersection': 2}
 # launches of each kernel in one request of `bench.py --stream` (phase 25)
 STREAM_KERNELS = {'finisher4x': 1, 'grouping': 1}
-# the planted staging race of phase 25: a spin of this many cycles (~20
+# the planted staging race of phase 25: a spin of this many cycles (~200
 # ms) on the copy stream before each batch's copies, and no wait for a
-# slot's event before its refill
-RACE_SLEEP_CYCLES = 40_000_000
+# slot's event before its refill. The host must refill a slot while its
+# copies still wait behind the spins: batch k's copies run after k + 1
+# spins and its slot is refilled when batch k + 3 is staged, so over 8
+# batches the host must stage a 12.3 MB batch in less than 5/7 of a
+# spin (a host serving at 171 frames/s outran spins of ~20 ms)
+RACE_SLEEP_CYCLES = 400_000_000
 
 
-def _dataset_compose(is_thing_v, H=480, W=640, table=128):
-    """The eval preprocessing of `bench.py --eval` (bench.py:213-232)."""
+def _dataset_compose(is_thing_v, H=480, W=640, table=128, normals=False):
+    """The eval preprocessing of `bench.py --eval` (bench.py:213-232);
+    with `normals` the surface normals kept at full resolution and
+    sub-sampled like the maps."""
     from nicr_mtsa_tpu_torch.data import preprocessing as p
+    extra = ('normal',) if normals else ()
     return p.Compose([
         p.InstanceClearStuffIDs(semantic_classes_is_thing=is_thing_v),
-        p.FullResCloner(('rgb', 'depth', 'semantic', 'instance')),
+        p.FullResCloner(('rgb', 'depth', 'semantic', 'instance') + extra),
         p.Resize(height=H, width=W),
         p.MultiscaleSupervisionGenerator(
             downscales=(4, 8, 16, 32),
-            keys=('semantic', 'instance', 'orientations')),
+            keys=('semantic', 'instance', 'orientations') + extra),
         p.InstanceTargetGenerator(
             sigma=8, semantic_classes_is_thing=is_thing_v,
             sigma_for_additional_downscales={4: 2, 8: 2, 16: 1, 32: 1}),
@@ -5530,6 +5585,452 @@ def examples_on_card(args, card, result):
 
 
 
+# phase 39: a seeded torchvision-layout ResNet-34 (basic blocks) grafted
+# into both encoders of `emsanet-bench` with basic blocks, and the
+# ImageNet classifier on that backbone: B=8 at 224 x 224, f32, its
+# logits card vs CPU within CLASSIFIER_TOL of the largest |logit|
+PRETRAINED_SEED = 39
+CLASSIFIER_B, CLASSIFIER_HW, CLASSIFIER_CLASSES = 8, (224, 224), 1000
+CLASSIFIER_TOL = 1e-4
+# phase 40: Swin-T v1 from a seeded torchvision-layout state dict, B=8 at
+# 224 x 224, f32; its launches of a forward (the sub-block once a block;
+# the LayerNorm of the patch embed, two a block, three mergings, the
+# last norm; every other wrapper none), and the stage outputs card vs
+# CPU within SWIN_STAGE_TOL of each stage's max |out| (12 stacked
+# blocks, each kernel call held to 1e-4 by phase 7's rule)
+PRETRAINED_SWIN_KERNELS = {'window_attention_block': 12, 'layernorm': 29}
+SWIN_STAGE_TOL = 1e-3
+# phase 41: recorded frames with surface normals at twice the model's
+# size (phase 32's), NORMAL_LOOP_STEPS training steps at LOOP_B and one
+# validation step
+NORMAL_LOOP_FRAMES = {'train': 24, 'valid': 8}
+NORMAL_LOOP_STEPS = 3
+# the planted fault (image 0's normal targets negated) must move the
+# validation's normal loss by this share of it at least, and by 100
+# times its rerun spread: the frames' normals are smooth fields
+# (`_smooth_normals`), so the move follows how far the barely trained
+# predictions lean along them (on an H100 at 700 W 5.9e-3 and 2.4e-2
+# of the loss in two runs, the spread 0 in both; on the CPU at
+# 96 x 128, f32, untrained: 0.18)
+NORMAL_FAULT_MIN = 1e-3
+# ... and the normal helper's loss on the same batch with the
+# predictions set to the targets at every scale must be 0 (it reads
+# each image's targets at the right scale and sign), image 0's targets
+# negated at least NORMAL_ORACLE_MIN: then that image alone contributes
+# 2 |n|_1 / 3 a valid pixel (the L1 is a mean over the 3 channels;
+# |n|_1 is 1 to sqrt(3)), over LOOP_B images' valid pixels, 1/12 to
+# 1/7 of one (0.124 on an H100, 0.123 on the CPU at 96 x 128)
+NORMAL_ORACLE_MIN = 0.05
+
+
+def _named_tensors(module):
+    out = dict(module.named_parameters())
+    out.update(module.named_buffers())
+    return out
+
+
+def _pretrained_files(tmp):
+    """The seeded ResNet-34 (basic blocks) in torchvision's layout, with
+    its `fc` head, `num_batches_tracked` buffers and a `module.`-prefixed
+    copy of one weight (other values; the mapping reads no such key),
+    saved as `<tmp>/pretrained/resnet34.pth` (read through
+    $MTSA_PRETRAINED_DIR) and `<tmp>/depth.pth` (through
+    `checkpoint_path`). Returns (the state dict, the directory, the
+    file)."""
+    from nicr_mtsa_tpu_torch.testing.torchvision_state import (
+        resnet_state_dict)
+    sd = resnet_state_dict((3, 4, 6, 3), seed=PRETRAINED_SEED)
+    sd['module.layer1.0.conv1.weight'] = -sd['layer1.0.conv1.weight']
+    directory = os.path.join(tmp, 'pretrained')
+    os.makedirs(directory)
+    path = os.path.join(tmp, 'depth.pth')
+    torch.save(sd, os.path.join(directory, 'resnet34.pth'))
+    torch.save(sd, path)
+    return sd, directory, path
+
+
+def _graft(rgb, depth, sd, gates):
+    """A `prepare` for serve_exact / card_vs_cpu: grafts the two loaded
+    backbones into the pipeline's model; every grafted tensor must equal
+    the loaded one bit for bit, the depth stem the checkpoint's kernel
+    summed over its input channels, every other tensor keep its value.
+    Appends each graft's counts to `gates`."""
+    from nicr_mtsa_tpu_torch.utils.pretrained import merge_backbone_variables
+
+    def prepare(pipe):
+        model = pipe.model
+        before = {k: v.detach().clone()
+                  for k, v in _named_tensors(model).items()}
+        for where, state in (('backbone_rgb', rgb),
+                             ('backbone_depth', depth)):
+            merge_backbone_variables(model, state, ('encoder', where))
+        after = _named_tensors(model)
+        grafted = set()
+        for where, state in (('backbone_rgb', rgb),
+                             ('backbone_depth', depth)):
+            for k, v in state.items():
+                name = f'encoder.{where}.{k}'
+                if not torch.equal(after[name].detach().cpu(), v):
+                    fail(f'pretrained: {name} is not the checkpoint tensor')
+                grafted.add(name)
+        stem = after['encoder.backbone_depth.conv1.weight'].detach().cpu()
+        if not torch.equal(stem, sd['conv1.weight'].sum(1, keepdim=True)):
+            fail('pretrained: the depth stem is not the summed RGB kernel')
+        moved = [k for k, v in before.items()
+                 if k not in grafted and not torch.equal(after[k], v)]
+        if moved:
+            fail(f'pretrained: tensors outside the graft changed: '
+                 f'{moved[:5]}')
+        gates.append(dict(device=str(pipe.device), grafted=len(grafted),
+                          kept=len(before) - len(grafted)))
+    return prepare
+
+
+def _imagenet_classifier(rgb):
+    """The ImageNet classifier on the grafted ResNet-34, f32, on the
+    card and on the CPU: logits within CLASSIFIER_TOL of the largest
+    |logit|, the card's forward timed."""
+    from nicr_mtsa_tpu_torch.models.backbones import get_backbone
+    from nicr_mtsa_tpu_torch.models.backbones.pretraining import (
+        ImageNetClassifier)
+    from nicr_mtsa_tpu_torch.utils.pretrained import merge_backbone_variables
+    g = torch.Generator().manual_seed(PRETRAINED_SEED)
+    cpu = ImageNetClassifier(
+        get_backbone('resnet34', resnet_block='basicblock', generator=g),
+        CLASSIFIER_CLASSES, generator=g).eval()
+    merge_backbone_variables(cpu, rgb, ('backbone',))
+    with torch.no_grad():
+        cpu.fc.bias.normal_(0.0, 0.1, generator=g)
+    card = ImageNetClassifier(
+        get_backbone('resnet34', resnet_block='basicblock'),
+        CLASSIFIER_CLASSES).eval()
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda()
+    H, W = CLASSIFIER_HW
+    x = torch.randn(CLASSIFIER_B, 3, H, W, generator=g)
+    with torch.no_grad():
+        want = cpu(x)
+        xc = x.cuda()
+        got = card(xc).cpu()
+        ms = cuda_ms(lambda: card(xc))
+    if tuple(got.shape) != (CLASSIFIER_B, CLASSIFIER_CLASSES) or \
+            not bool(torch.isfinite(got).all()):
+        fail(f'imagenet classifier: logits {tuple(got.shape)} or not finite')
+    err = float((got - want).abs().max() / want.abs().max())
+    top1 = float((got.argmax(1) == want.argmax(1)).float().mean())
+    if not err <= CLASSIFIER_TOL:
+        fail(f'imagenet classifier: card vs CPU {err} x max |logit| > '
+             f'{CLASSIFIER_TOL}')
+    return dict(batch=CLASSIFIER_B, hw=list(CLASSIFIER_HW),
+                n_classes=CLASSIFIER_CLASSES, max_err_share=err,
+                top1_agreement=top1, ms=ms,
+                max_abs_logit=float(want.abs().max()))
+
+
+def pretrained(args, kernels, card, result):
+    """Phase 39 (see the module's docstring). Returns the launches of its
+    serving path."""
+    import tempfile
+    from nicr_mtsa_tpu_torch.pipeline import emsanet_bench_config
+    from nicr_mtsa_tpu_torch.utils.device import resolve_device
+    from nicr_mtsa_tpu_torch.utils.pretrained import load_pretrained_backbone
+    resolve_device('cuda')          # without a card this raises first
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sd, directory, path = _pretrained_files(tmp)
+        saved = os.environ.get('MTSA_PRETRAINED_DIR')
+        os.environ['MTSA_PRETRAINED_DIR'] = directory
+        try:
+            rgb = load_pretrained_backbone('resnet34', 3)
+        finally:
+            if saved is None:
+                del os.environ['MTSA_PRETRAINED_DIR']
+            else:
+                os.environ['MTSA_PRETRAINED_DIR'] = saved
+        depth = load_pretrained_backbone('resnet34', 1, checkpoint_path=path)
+    if torch.equal(rgb['layer1_block0.conv1.weight'],
+                   sd['module.layer1.0.conv1.weight']):
+        fail('pretrained: the module.-prefixed copy was read')
+    gates = []
+    prepare = _graft(rgb, depth, sd, gates)
+    cfg = dataclasses.replace(emsanet_bench_config(),
+                              resnet_block='basicblock')
+    launches = serve_exact(
+        cfg, args.requests, dict.fromkeys(SERVING_KERNELS, 1), kernels,
+        card, result, 'serving_pretrained', prepare=prepare)[0]
+    beside = {k: result[k]['frames_per_s']
+              for k in ('serving', 'serving_pretrained') if k in result}
+    print(json.dumps({'phase': 'serving_pretrained_beside_phase_3',
+                      'frames_per_s': beside, 'card': card}), flush=True)
+    card_vs_cpu(result, dataclasses.replace(cfg, dtype='float32'),
+                'pretrained_card_vs_cpu', frame_seed=9, prepare=prepare)
+    classifier = _imagenet_classifier(rgb)
+    out = dict(graft=gates, classifier=classifier, card=card,
+               frames_per_s_beside_phase_3=beside,
+               seconds=time.perf_counter() - t_start)
+    result['pretrained'] = out
+    print(json.dumps({'phase': 'pretrained', **out}), flush=True)
+    # serve_exact held every other wrapper at 0 launches
+    full = dict.fromkeys(kernels.KERNELS, 0)
+    full.update(launches)
+    return {'serving_pretrained': full}
+
+
+def _swin_stages(bb, x):
+    outs, y = [], x
+    for i in range(bb.n_stages):
+        y = bb.forward_stage(i, y)
+        outs.append(y)
+    return outs
+
+
+def pretrained_swin(args, kernels, card, result):
+    """Phase 40 (see the module's docstring). Returns the launches of its
+    forward."""
+    import tempfile
+    from nicr_mtsa_tpu_torch.models.backbones import get_backbone
+    from nicr_mtsa_tpu_torch.testing.torchvision_state import swin_state_dict
+    from nicr_mtsa_tpu_torch.utils.pretrained import (
+        load_pretrained_backbone, merge_backbone_variables)
+    from nicr_mtsa_tpu_torch.utils.device import resolve_device
+    resolve_device('cuda')          # without a card this raises first
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'swin_t.pth')
+        torch.save(swin_state_dict(seed=PRETRAINED_SEED + 1,
+                                   prefix='_orig_mod.'), path)
+        state = load_pretrained_backbone('swin-t', 3, checkpoint_path=path)
+    cpu = get_backbone('swin-t', stochastic_depth=0.0).eval()
+    merge_backbone_variables(cpu, state, path=())
+    bb = get_backbone('swin-t', stochastic_depth=0.0).eval()
+    bb.load_state_dict(cpu.state_dict())
+    bb = bb.cuda()
+    H, W = CLASSIFIER_HW
+    x = torch.randn(CLASSIFIER_B, 3, H, W,
+                    generator=torch.Generator().manual_seed(40))
+    xc = x.cuda()
+    targets = {k: v for k, v in _serving_targets(swin=True).items()
+               if k in PRETRAINED_SWIN_KERNELS}
+    with torch.no_grad():
+        _swin_stages(bb, xc)                     # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with _capture(targets) as calls:
+            got = [o.cpu() for o in _swin_stages(bb, xc)]
+        launches = _check_launches(kernels, PRETRAINED_SWIN_KERNELS, 1,
+                                   'pretrained_swin')
+        want = _swin_stages(cpu, x)
+        ms = cuda_ms(lambda: _swin_stages(bb, xc))
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f'pretrained_swin: stage {i} {tuple(g.shape)} or not '
+                 f'finite')
+        errs.append(_rel_err(g, w))
+        if not errs[-1] <= SWIN_STAGE_TOL:
+            fail(f'pretrained_swin: stage {i} card vs CPU {errs[-1]} x max '
+                 f'|out| > {SWIN_STAGE_TOL}')
+    checked = check_bench_shapes('pretrained_swin', calls, result)
+    out = dict(batch=CLASSIFIER_B, hw=list(CLASSIFIER_HW),
+               stage_err_share=errs, forward_ms=ms, card=card,
+               launches={k: c for k, c in launches.items() if c},
+               kernel_calls_checked=sorted(checked),
+               seconds=time.perf_counter() - t_start)
+    result['pretrained_swin'] = out
+    print(json.dumps({'phase': 'pretrained_swin', **out}), flush=True)
+    return {'pretrained_swin': launches}
+
+
+def _smooth_normals(rng, H, W):
+    """(H, W, 3) f32 unit normals of one frame: a seeded direction near
+    the camera's axis (z > 0: the visible surfaces of a frame face the
+    camera), tilted linearly across the image as a curved surface's,
+    with NORMAL_INVALID_SHARE of the pixels all zero. A field, not
+    noise: the predictions of even an untrained model lean to one
+    direction over an image, so negating the field moves its L1 term by
+    a share of order one."""
+    from nicr_mtsa_tpu_torch.testing.batch import NORMAL_INVALID_SHARE
+    base = np.array([*(0.4 * rng.normal(size=2)), 1.0])
+    tilt = 0.3 * rng.normal(size=(2, 3))
+    n = (base / np.linalg.norm(base)
+         + np.linspace(-1.0, 1.0, H)[:, None, None] * tilt[0]
+         + np.linspace(-1.0, 1.0, W)[None, :, None] * tilt[1])
+    n = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+    n[rng.random((H, W)) < NORMAL_INVALID_SHARE] = 0.0
+    return n
+
+
+def _normal_frames_write(root):
+    """NORMAL_LOOP_FRAMES frames of the port's SyntheticRGBDDataset at
+    twice the model's size in each axis (as phase 32's), each with a
+    seeded smooth normal field (`_smooth_normals`; f32, stored as .npy
+    beside the PNG maps), as a directory dataset."""
+    from nicr_mtsa_tpu_torch.data import (DatasetConfig, SemanticLabel,
+                                          SemanticLabelList,
+                                          write_directory_dataset)
+    from nicr_mtsa_tpu_torch.examples.train_synthetic import IS_THING
+    from nicr_mtsa_tpu_torch.testing import SyntheticRGBDDataset
+    H, W = 2 * LOOP_HW[0], 2 * LOOP_HW[1]
+    synth = SyntheticRGBDDataset(n_samples=sum(NORMAL_LOOP_FRAMES.values()),
+                                 height=H, width=W,
+                                 n_classes_with_void=len(IS_THING))
+    config = DatasetConfig(
+        SemanticLabelList([SemanticLabel('void')] + [
+            SemanticLabel(f'class{i}', is_thing=t, use_orientation=t)
+            for i, t in enumerate(IS_THING) if i]),
+        scene_label_list=tuple(f'scene{i}' for i in range(1, 6)))
+    start = 0
+    for split, n in NORMAL_LOOP_FRAMES.items():
+        samples = []
+        for i in range(start, start + n):
+            s = synth.raw(i)
+            s['normal'] = _smooth_normals(np.random.default_rng(4100 + i),
+                                          H, W)
+            samples.append(s)
+        write_directory_dataset(root, split, samples, config)
+        start += n
+
+
+def _negate_normals(batch, b=0):
+    """The batch with image `b`'s normal targets negated, at every
+    scale."""
+    out = dict(batch)
+    for key, value in batch.items():
+        if key == 'normal':
+            t = value.clone()
+            t[b] = -t[b]
+            out[key] = t
+        elif key.startswith('_down_') and 'normal' in value:
+            out[key] = _negate_normals(value, b)
+    return out
+
+
+def _normal_oracle_loss(pipe, batch, targets):
+    """The normal helper's total loss on `targets` (a batch) with the
+    predictions set to `batch`'s own normal targets at every scale."""
+    side = [v['normal'] for k, v in batch.items()
+            if k.startswith('_down_') and 'normal' in v]
+    post = {'normal_output': batch['normal'], 'normal_side_outputs': side}
+    return float(pipe.task_helpers['normal'].compute_losses(
+        targets, post)['normal_total_loss'])
+
+
+def train_normals_frames(args, kernels, card, result):
+    """Phase 41 (see the module's docstring). Returns the launches of its
+    validation step."""
+    import tempfile
+    from nicr_mtsa_tpu_torch.data import DataLoader, get_dataset
+    from nicr_mtsa_tpu_torch.data.dataset import DEFAULT_SAMPLE_KEYS
+    from nicr_mtsa_tpu_torch.examples.train_synthetic import (
+        IS_THING, SCENE_N_CLASSES, make_pipeline, train_epoch,
+        train_preprocessing, validate)
+    from nicr_mtsa_tpu_torch.models.multi_task import build_model
+    from nicr_mtsa_tpu_torch.pipeline import emsanet_train_config
+    t_start = time.perf_counter()
+    cfg = _with_normals(dataclasses.replace(
+        emsanet_train_config(LOOP_HW, 'bfloat16',
+                             n_classes=len(IS_THING) - 1),
+        scene_n_classes=SCENE_N_CLASSES))
+    # the model first: without a card this raises before any work
+    pipe = make_pipeline(build_model(cfg, device='cuda', seed=0,
+                                     train=True), cfg)
+    watch = _LoopWatch(pipe)
+    state = pipe.create_train_state()
+    keys = DEFAULT_SAMPLE_KEYS + ('normal',)
+    _fresh()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, 'synthetic')
+        t0 = time.perf_counter()
+        _normal_frames_write(root)
+        write_s = time.perf_counter() - t0
+        train_ds = get_dataset(root, 'train', sample_keys=keys,
+                               preprocessor=train_preprocessing(
+                                   *LOOP_HW, normals=True))
+        valid_ds = get_dataset(root, 'valid', sample_keys=keys,
+                               preprocessor=_dataset_compose(
+                                   IS_THING, *LOOP_HW, normals=True))
+        train_loader = DataLoader(train_ds, batch_size=LOOP_B,
+                                  num_workers=2, drop_last=True, seed=0)
+        valid_loader = DataLoader(valid_ds, batch_size=LOOP_B,
+                                  num_workers=2)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = train_epoch(watch, state, train_loader, 0, 'cuda')
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        if len(watch.losses) != NORMAL_LOOP_STEPS:
+            fail(f'train_normals_frames: {len(watch.losses)} steps, '
+                 f'expected {NORMAL_LOOP_STEPS}')
+        if any(fn.launches for fn in kernels.KERNELS.values()):
+            fail('train_normals_frames: a training step launched a kernel '
+                 'wrapper')
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        validate(watch, valid_loader, 'cuda')
+        torch.cuda.synchronize()
+        valid_s = time.perf_counter() - t0
+        launches = _check_launches(kernels, LOOP_VALID_KERNELS,
+                                   len(watch.batches),
+                                   'train_normals_frames validation')
+    _, _, logs = pipe.validation_epoch_end()
+    recorded = [{k: float(v) for k, v in losses.items()}
+                for losses in watch.losses]
+    bad = [(i, k) for i, r in enumerate(recorded) for k, v in r.items()
+           if not np.isfinite(v)]
+    bad += [k for k, v in watch.valid_losses.items()
+            if not bool(torch.isfinite(v))]
+    if bad:
+        fail(f'train_normals_frames: losses not finite: {bad[:5]}')
+    normal_keys = sorted(k for k in recorded[-1] if k.startswith('normal_'))
+    if 'normal_total_loss' not in normal_keys or not any(
+            k.startswith('normal_loss_down_') for k in normal_keys):
+        fail(f'train_normals_frames: normal losses {normal_keys}')
+    rmse = float(logs['normal_rmse'])
+    if not 0.0 < rmse <= 2.0:
+        fail(f'train_normals_frames: normal_rmse {rmse} not in (0, 2]')
+    # a planted fault in the targets: image 0's normals negated must move
+    # the normal loss by more than NORMAL_FAULT_MIN of it and 100 times
+    # what the clean batch's loss moves between two runs
+    batch = watch.batches[-1]
+    loss = {}
+    for name, b in (('clean', batch), ('clean_again', batch),
+                    ('negated', _negate_normals(batch))):
+        loss[name] = float(pipe.validation_step(b)[1]['normal_total_loss'])
+    pipe.validation_epoch_end()
+    noise = abs(loss['clean_again'] - loss['clean'])
+    moved = abs(loss['negated'] - loss['clean'])
+    if not moved > max(100 * noise, NORMAL_FAULT_MIN * abs(loss['clean'])):
+        fail(f'train_normals_frames: negated normal targets moved the loss '
+             f'by {moved} only: {loss}')
+    oracle = {'clean': _normal_oracle_loss(pipe, batch, batch),
+              'negated': _normal_oracle_loss(pipe, batch,
+                                             _negate_normals(batch))}
+    if not (oracle['clean'] == 0.0
+            and oracle['negated'] >= NORMAL_ORACLE_MIN):
+        fail(f'train_normals_frames: the normal loss of predictions equal '
+             f'to the targets is {oracle}')
+    out = dict(batch=LOOP_B, frames=dict(NORMAL_LOOP_FRAMES),
+               model_hw=list(LOOP_HW),
+               frame_hw=[2 * LOOP_HW[0], 2 * LOOP_HW[1]], steps=len(recorded),
+               write_s=write_s, train_s=train_s, valid_s=valid_s,
+               train_frames_per_s=LOOP_B * len(recorded) / train_s,
+               normal_losses_last={k: recorded[-1][k] for k in normal_keys},
+               normal_rmse=rmse, planted_fault_loss=loss,
+               planted_fault_share=moved / abs(loss['clean']),
+               oracle_loss=oracle,
+               launches_per_validation_step={
+                   k: c for k, c in launches.items() if c},
+               peak_mem_gb=_peak_gb(), card=card,
+               seconds=time.perf_counter() - t_start)
+    result['train_normals_frames'] = out
+    print(json.dumps({'phase': 'train_normals_frames', **out}), flush=True)
+    del pipe, watch, state, batch
+    _fresh()
+    return {'train_normals_frames': launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=10,
@@ -5686,6 +6187,16 @@ def main():
     result['outputs_seconds'] = time.perf_counter() - t0
     print(json.dumps({'phase': 'outputs_seconds',
                       'seconds': result['outputs_seconds']}), flush=True)
+    t0 = time.perf_counter()
+    path_launches.update(pretrained(args, kernels, card, result))
+    path_launches.update(pretrained_swin(args, kernels, card, result))
+    path_launches.update(train_normals_frames(args, kernels, card, result))
+    result['pretrained_seconds'] = time.perf_counter() - t0
+    print(json.dumps({'phase': 'pretrained_seconds',
+                      'seconds': result['pretrained_seconds'], **{
+                          k: result[k]['seconds'] for k in (
+                              'pretrained', 'pretrained_swin',
+                              'train_normals_frames')}}), flush=True)
     # the seconds the phases at the bench's batch sizes add to the script
     result['bench_size_seconds'] = dict(bench_s, total=sum(bench_s.values()))
     print(json.dumps({'phase': 'bench_size_seconds',

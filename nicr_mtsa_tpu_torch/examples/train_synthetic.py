@@ -32,23 +32,28 @@ DWA_KEYS = ('semantic_total_loss', 'instance_center_total_loss',
             'scene_total_loss')
 
 
-def train_preprocessing(H: int, W: int):
-    """The training preprocessing at the model's size (H, W)."""
+def train_preprocessing(H: int, W: int, normals: bool = False):
+    """The training preprocessing at the model's size (H, W); with
+    `normals` the samples' surface normals (`normal`, (H, W, 3) f32)
+    are cloned at full resolution and sub-sampled for the side outputs
+    like the maps (the flip mirrors them as an image and keeps the sign
+    of x, as the JAX package's does)."""
     from ..data.preprocessing import (
         Compose, FullResCloner, InstanceClearStuffIDs,
         InstanceTargetGenerator, MultiscaleSupervisionGenerator,
         NormalizeDepth, NormalizeRGB, OrientationTargetGenerator,
         PanopticTargetGenerator, RandomHorizontalFlip, RandomHSVJitter,
         Resize, ToDeviceArrays)
+    extra = ('normal',) if normals else ()
     return Compose([
         InstanceClearStuffIDs(semantic_classes_is_thing=IS_THING),
-        FullResCloner(('rgb', 'depth', 'semantic', 'instance')),
+        FullResCloner(('rgb', 'depth', 'semantic', 'instance') + extra),
         Resize(height=H, width=W),
         RandomHSVJitter(0.05, 0.1, 0.1),
         RandomHorizontalFlip(p=0.5),
         MultiscaleSupervisionGenerator(
             downscales=(4, 8, 16, 32),
-            keys=('semantic', 'instance', 'orientations')),
+            keys=('semantic', 'instance', 'orientations') + extra),
         InstanceTargetGenerator(
             sigma=8, semantic_classes_is_thing=IS_THING,
             sigma_for_additional_downscales={4: 2, 8: 2, 16: 1, 32: 1}),
@@ -64,13 +69,16 @@ def train_preprocessing(H: int, W: int):
 def make_pipeline(model, config):
     """The pipeline of a model built from `config` (10 semantic classes,
     5 scenes): its postprocessing and task helpers (top-k 32), AdamW
-    (3e-4) and DWA over the five task losses."""
+    (3e-4) and DWA over the five task losses; where the config names
+    the 'normal' task also its helper (L1) and its loss under DWA."""
     from ..optim import AdamW
     from ..pipeline import MultiTaskPipeline, default_postprocessors
-    from ..tasks import (InstanceTaskHelper, PanopticTaskHelper,
-                         SceneTaskHelper, SemanticTaskHelper)
+    from ..tasks import (InstanceTaskHelper, NormalTaskHelper,
+                         PanopticTaskHelper, SceneTaskHelper,
+                         SemanticTaskHelper)
     from ..weighting import DynamicWeightAverage
     n_classes_with_void = len(IS_THING)
+    normal = 'normal' in config.tasks
     return MultiTaskPipeline(
         model=model,
         postprocessors=default_postprocessors(
@@ -86,8 +94,10 @@ def make_pipeline(model, config):
                 semantic_n_classes=n_classes_with_void,
                 semantic_classes_is_thing=IS_THING),
             'scene': SceneTaskHelper(n_classes=SCENE_N_CLASSES),
+            **({'normal': NormalTaskHelper()} if normal else {}),
         },
-        loss_weighting=DynamicWeightAverage(DWA_KEYS),
+        loss_weighting=DynamicWeightAverage(
+            DWA_KEYS + (('normal_total_loss',) if normal else ())),
         optimizer=AdamW(3e-4), compute_dtype=config.torch_dtype)
 
 

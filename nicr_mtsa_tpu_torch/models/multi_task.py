@@ -4,11 +4,11 @@ multi_task.py `MultiTaskModelConfig` and `build_model`): the dense
 family (fused dual-backbone RGB-D encoder, or a single rgb or depth
 backbone; dense decoders) and the MLP
 family (a single 4-channel rgbd backbone such as the multimodal Swin,
-SegFormer-style MLP decoders); each names its tasks from the JAX
-package's registry (`KNOWN_TASKS`: the semantic, instance (with the
-orientation head), normal, scene and dense-visual-embedding decoders,
-'panoptic' for the semantic and instance decoders), and a name it
-does not build raises.
+SegFormer-style MLP decoders); each names its tasks from the task
+registry (`multi_task.KNOWN_TASKS`, the JAX package's: the semantic,
+instance (with the orientation head), normal, scene and
+dense-visual-embedding decoders, 'panoptic' for the semantic and
+instance decoders), and a name it does not build raises.
 
 The config names its compute dtype as a string ('float32',
 'bfloat16', or 'float64' for a reference run on the CPU, with the
@@ -23,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..multi_task import KNOWN_TASKS
 from ..utils.device import resolve_device
 from .backbones import get_backbone
 from .context import get_context_module
@@ -34,11 +35,6 @@ from .encoder import Encoder, FusedRGBDEncoder
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
           'float64': torch.float64}
-# the JAX package's task registry (nicr_mtsa_tpu/multi_task.py), in its
-# order: 'orientation' is the instance decoder's third head, 'panoptic'
-# the semantic and instance decoders together
-KNOWN_TASKS = ('semantic', 'instance', 'orientation', 'normal', 'scene',
-               'panoptic', 'dense_visual_embedding')
 
 
 @dataclass

@@ -123,10 +123,34 @@ def load_checkpoint(path: str, target: Optional[Dict[str, Any]] = None):
     return state, data.get('extra')
 
 
+def _is_step_temp(name: str) -> bool:
+    """A `step_<n>.pt.<pid>.tmp` that `_write` leaves where a write was
+    killed before its rename."""
+    return name.startswith('step_') and name.endswith('.tmp')
+
+
+def _writer_alive(name: str) -> bool:
+    """Whether the process that named a temp file `step_<n>.pt.<pid>.tmp`
+    runs still, other than this one (whose write is renamed before its
+    prune)."""
+    pid = name.split('.')[-2]
+    if not pid.isdigit() or int(pid) == os.getpid():
+        return False
+    try:
+        os.kill(int(pid), 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:                   # another user's process
+        return True
+    return True
+
+
 def _step_of(name: str) -> Optional[int]:
-    """n of a file `step_<n>[.<suffixes>]`, else None."""
+    """n of a file `step_<n>[.<suffixes>]` (not a write's temp file),
+    else None."""
     base = name.split('.')[0]
-    if base.startswith('step_') and base[5:].isdigit():
+    if (base.startswith('step_') and base[5:].isdigit()
+            and not _is_step_temp(name)):
         return int(base[5:])
     return None
 
@@ -169,9 +193,16 @@ class StepCheckpointManager:
 
     def _prune(self) -> None:
         """keep-last-N: delete the files (and directories) of the steps
-        before the last `max_to_keep`."""
+        before the last `max_to_keep`, and the temp files of killed
+        writes (this manager's own write has been renamed by now; a
+        temp file of another live process is its write in flight and
+        stays)."""
         steps: Dict[int, list] = {}
         for name in os.listdir(self._dir):
+            if _is_step_temp(name):
+                if not _writer_alive(name):
+                    os.remove(os.path.join(self._dir, name))
+                continue
             step = _step_of(name)
             if step is not None:
                 steps.setdefault(step, []).append(name)

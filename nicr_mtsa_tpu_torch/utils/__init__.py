@@ -1,7 +1,8 @@
+from ._misc import partial_class
 from ._printing import cprint, cprint_section, cprint_step
 from .checkpointing import CheckpointHelper
 from .csv_logger import CSVLogger
 from .device import resolve_device
 
 __all__ = ['cprint', 'cprint_section', 'cprint_step', 'CheckpointHelper',
-           'CSVLogger', 'resolve_device']
+           'CSVLogger', 'partial_class', 'resolve_device']

@@ -9,18 +9,20 @@ H, W = 64, 96
 IS_THING = tuple(i in (1, 2, 3) for i in range(11))
 
 
-def train_compose(p, H=H, W=W):
+def train_compose(p, H=H, W=W, normals=False):
     """The JAX example's training preprocessing, from the preprocessing
-    package `p`, at (H, W)."""
+    package `p`, at (H, W); with `normals` the surface normals cloned
+    and sub-sampled like the maps."""
+    extra = ('normal',) if normals else ()
     return p.Compose([
         p.InstanceClearStuffIDs(semantic_classes_is_thing=IS_THING),
-        p.FullResCloner(('rgb', 'depth', 'semantic', 'instance')),
+        p.FullResCloner(('rgb', 'depth', 'semantic', 'instance') + extra),
         p.Resize(height=H, width=W),
         p.RandomHSVJitter(0.05, 0.1, 0.1),
         p.RandomHorizontalFlip(p=0.5),
         p.MultiscaleSupervisionGenerator(
             downscales=(4, 8, 16, 32),
-            keys=('semantic', 'instance', 'orientations')),
+            keys=('semantic', 'instance', 'orientations') + extra),
         p.InstanceTargetGenerator(
             sigma=8, semantic_classes_is_thing=IS_THING,
             sigma_for_additional_downscales={4: 2, 8: 2, 16: 1, 32: 1}),

@@ -34,7 +34,8 @@ from nicr_mtsa_tpu.data.dataset import DirectoryRGBDDataset as JDataset
 from nicr_mtsa_tpu_torch import native
 from nicr_mtsa_tpu_torch.data import DirectoryRGBDDataset, png
 from nicr_mtsa_tpu_torch.data import preprocessing as pre
-from _torch_data_helpers import FIXTURE, eval_compose
+from _torch_data_helpers import (FIXTURE, eval_compose,  # noqa: F401
+                                 jax_native_loaded)
 
 @pytest.fixture(scope='module')
 def datasets():

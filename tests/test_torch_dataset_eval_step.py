@@ -42,7 +42,8 @@ from nicr_mtsa_tpu_torch.pipeline import (build_eval_pipeline,
                                           emsanet_bench_config,
                                           strip_non_arrays)
 from nicr_mtsa_tpu_torch.utils import flax_weights as fw
-from _torch_data_helpers import FIXTURE, eval_compose
+from _torch_data_helpers import (FIXTURE, eval_compose,  # noqa: F401
+                                 jax_native_loaded)
 from _torch_emsanet_train_helpers import QUICK
 from _torch_train_helpers import randomise_norms
 

@@ -60,7 +60,7 @@ from nicr_mtsa_tpu_torch.utils.flax_weights import (flax_tree_to_torch,
                                                     load_flax_variables)
 from _torch_port_helpers import _randomise
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 
 
 class _NoDropout:

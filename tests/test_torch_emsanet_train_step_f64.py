@@ -27,7 +27,7 @@ from _torch_emsanet_train_helpers import (SIDE, jax_step, port_step,
                                           template, variables)
 from _torch_train_helpers import grad as _grad
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 
 
 @pytest.fixture(scope='module')

@@ -44,7 +44,8 @@ from nicr_mtsa_tpu_torch.data import preprocessing as pre
 from nicr_mtsa_tpu_torch.postprocessing import (InstancePostprocessing,
                                                 PanopticPostprocessing,
                                                 SemanticPostprocessing)
-from _torch_data_helpers import FIXTURE, eval_compose
+from _torch_data_helpers import (FIXTURE, eval_compose,  # noqa: F401
+                                 jax_native_loaded, join_write)
 
 torch.set_num_threads(2)
 H, W, B = 96, 128, 2
@@ -416,6 +417,7 @@ def test_eval_dataset_example(tmp_path, capsys):
     path = save_checkpoint(str(tmp_path / 'weights'), state)
     mgr = StepCheckpointManager(str(tmp_path / 'steps'))
     mgr.save(7, state)
+    join_write(mgr)
     mgr.wait_until_finished()
     want = _direct_logs(pipe, size)
     for ckpt in (path, str(tmp_path / 'steps')):

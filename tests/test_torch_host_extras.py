@@ -35,7 +35,8 @@ from nicr_mtsa_tpu_torch.data import preprocessing as pre
 from nicr_mtsa_tpu_torch.data.preprocessing import base as pre_base
 from nicr_mtsa_tpu_torch.parallel import StepCheckpointManager
 from nicr_mtsa_tpu_torch.parallel import checkpoint as ckpt_module
-from _torch_data_helpers import FIXTURE
+from _torch_data_helpers import (FIXTURE, jax_native_loaded,  # noqa: F401
+                                 join_write)
 from test_torch_data_preprocessing import assert_same
 
 torch.set_num_threads(2)
@@ -206,6 +207,7 @@ def test_step_checkpoints_keep_the_jax_steps_and_resume_bit_equal(tmp_path):
     for step in (1, 2, 3, 4):
         jmgr.save(step, {'w': jnp.ones((2,))}, extra={'epoch': step})
         mgr.save(step, state, extra={'epoch': step})
+        join_write(mgr)
         mgr.wait_until_finished()
         assert _kept_steps(tmp_path / 'port') == _kept_steps(tmp_path / 'jax')
     assert _kept_steps(tmp_path / 'port') == {3, 4}
@@ -219,8 +221,10 @@ def test_step_checkpoints_keep_the_jax_steps_and_resume_bit_equal(tmp_path):
         state, _ = pipe.train_step(state, batch,
                                    torch.Generator().manual_seed(i),
                                    batch_idx=i)
+        join_write(mgr)
         mgr.save(int(state['step']), state,
                  extra={'epoch': i, 'dwa': pipe.loss_weighting.state_dict()})
+    join_write(mgr)
     assert mgr.latest_step() == 3
     assert _kept_steps(tmp_path / 'run') == {2, 3}
     other = _tiny_pipeline()
@@ -248,12 +252,68 @@ def test_step_checkpoint_write_error_is_raised(tmp_path, monkeypatch):
     mgr = StepCheckpointManager(str(tmp_path), max_to_keep=2)
     monkeypatch.setattr(ckpt_module, '_write', broken)
     mgr.save(1, state)
+    join_write(mgr)
     with pytest.raises(OSError, match='disk full'):
         mgr.wait_until_finished()
     mgr.wait_until_finished()                  # raised once
     mgr.save(2, state)
+    join_write(mgr)
     with pytest.raises(OSError, match='disk full'):
         mgr.latest_step()
     monkeypatch.undo()
     mgr.save(3, state)
+    join_write(mgr)
     assert mgr.latest_step() == 3
+
+
+def _dead_pid():
+    """A pid, 12345 or the next above it, of no running process."""
+    pid = 12345
+    while True:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return pid
+        except PermissionError:
+            pass
+        pid += 1
+
+
+def test_killed_write_temp_file_is_no_step(tmp_path):
+    """A `step_<n>.pt.<pid>.tmp` left by a killed write is not a step:
+    the latest step stays the last whole one, which resumes bit-equal,
+    and the next save prunes the temp file."""
+    pipe = _tiny_pipeline()
+    state = pipe.create_train_state()
+    mgr = StepCheckpointManager(str(tmp_path), max_to_keep=2)
+    mgr.save(1, state, extra={'epoch': 1})
+    join_write(mgr)
+    mgr.wait_until_finished()
+    stray = tmp_path / f'step_2.pt.{_dead_pid()}.tmp'
+    stray.write_bytes(b'half a checkpoint')
+    assert mgr.latest_step() == 1
+    resumed, extra = mgr.restore(target=_tiny_pipeline().create_train_state())
+    assert extra == {'epoch': 1}
+    for group in ('params', 'batch_stats'):
+        for n, t in state[group].items():
+            assert torch.equal(t, resumed[group][n]), n
+    assert torch.equal(state['step'], resumed['step'])
+    mgr.save(3, state)
+    join_write(mgr)
+    mgr.wait_until_finished()
+    assert not stray.exists()
+    assert sorted(os.listdir(tmp_path)) == ['step_1.pt', 'step_3.pt']
+    assert mgr.latest_step() == 3
+
+
+def test_live_writers_temp_file_is_kept(tmp_path):
+    """The temp file of another process that runs still (its write in
+    flight) is no step either, and a prune leaves it in place."""
+    state = _tiny_pipeline().create_train_state()
+    mgr = StepCheckpointManager(str(tmp_path), max_to_keep=2)
+    live = tmp_path / f'step_2.pt.{os.getppid()}.tmp'
+    live.write_bytes(b'a write in flight')
+    mgr.save(1, state)
+    join_write(mgr)
+    assert mgr.latest_step() == 1
+    assert sorted(os.listdir(tmp_path)) == ['step_1.pt', live.name]

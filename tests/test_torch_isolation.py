@@ -846,3 +846,83 @@ def test_examples_raise_without_card(example):
         module.main(['--dataset', str(ROOT / 'tests' / 'fixtures' /
                                       'mini_dataset')]
                     if example == 'eval_dataset' else [])
+
+
+# the modules of the pretrained slice: checkpoint surgery, pretrained
+# backbones, the ImageNet classifier, the seeded torchvision-layout
+# state dicts, the small utilities and the task registry
+PRETRAINED_SLICE_MODULES = (
+    'nicr_mtsa_tpu_torch.utils.torch_port',
+    'nicr_mtsa_tpu_torch.utils.pretrained',
+    'nicr_mtsa_tpu_torch.utils._misc',
+    'nicr_mtsa_tpu_torch.utils._orientation',
+    'nicr_mtsa_tpu_torch.models.backbones.pretraining',
+    'nicr_mtsa_tpu_torch.testing.torchvision_state',
+    'nicr_mtsa_tpu_torch.types',
+    'nicr_mtsa_tpu_torch.multi_task',
+)
+
+
+def test_pretrained_slice_runs_with_jax_blocked(tmp_path):
+    """The pretrained slice's modules import, and a ResNet-18 checkpoint
+    on disk loads through `load_pretrained_backbone` (the path and
+    $MTSA_PRETRAINED_DIR) and grafts into a small model, with jax,
+    flax, optax and the JAX package made unimportable."""
+    code = (
+        'import os, sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        '        if name.split(".")[0] in ("jax", "flax", "optax", '
+        '"jaxlib", "nicr_mtsa_tpu"):\n'
+        '            raise ImportError("blocked: " + name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import importlib\n'
+        f'for m in {PRETRAINED_SLICE_MODULES!r}:\n'
+        '    importlib.import_module(m)\n'
+        'import torch\n'
+        'from nicr_mtsa_tpu_torch.models.multi_task import '
+        'MultiTaskModelConfig, build_model\n'
+        'from nicr_mtsa_tpu_torch.testing.torchvision_state import '
+        'resnet_state_dict\n'
+        'from nicr_mtsa_tpu_torch.utils.pretrained import '
+        'load_pretrained_backbone, merge_backbone_variables\n'
+        f'os.environ["MTSA_PRETRAINED_DIR"] = {str(tmp_path)!r}\n'
+        'torch.save(resnet_state_dict(), os.path.join('
+        'os.environ["MTSA_PRETRAINED_DIR"], "resnet18.pth"))\n'
+        'rgb = load_pretrained_backbone("resnet18", 3)\n'
+        'depth = load_pretrained_backbone("resnet18", 1, os.path.join('
+        'os.environ["MTSA_PRETRAINED_DIR"], "resnet18.pth"))\n'
+        'cfg = MultiTaskModelConfig(tasks=("semantic",), '
+        'backbone_rgb="resnet18", backbone_depth="resnet18", '
+        'resnet_block="basicblock", context_n_channels=32, '
+        'decoder_n_channels=(16, 16, 16), decoder_n_blocks=1, '
+        'input_size=(64, 96), semantic_n_classes=4)\n'
+        'm = build_model(cfg, device="cpu")\n'
+        'merge_backbone_variables(m, rgb, ("encoder", "backbone_rgb"))\n'
+        'merge_backbone_variables(m, depth, ("encoder", "backbone_depth"))\n'
+        'print(tuple(m.encoder.backbone_depth.conv1.weight.shape))\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == '(64, 1, 7, 7)'
+
+
+@pytest.mark.parametrize('phase', ['pretrained', 'pretrained_swin',
+                                   'train_normals_frames'])
+def test_chip_smoke_pretrained_phases_fail_without_card(phase):
+    """Phases 39-41 raise on a machine without a card: none falls back
+    to the CPU."""
+    import argparse
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    try:
+        cs = importlib.import_module('chip_smoke')
+    finally:
+        sys.path.remove(str(ROOT))
+    from nicr_mtsa_tpu_torch.ops import cuda as kernels
+    args = argparse.Namespace(requests=1, steps=1, train_steps=1,
+                              profile=False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(cs, phase)(args, kernels, 'no card', {})

@@ -16,7 +16,7 @@ import torch
 import _torch_port_helpers as hp
 from nicr_mtsa_tpu_torch.models.upsampling import DeferredUpsampling2
 from nicr_mtsa_tpu_torch.utils.flax_weights import (
-    flax_to_torch_state, load_flax_variables,
+    flax_to_torch_state, load_flax_variables, torch_to_flax_variables,
 )
 
 torch.set_num_threads(2)
@@ -121,15 +121,25 @@ def test_nondeferred_semantic_logits(models, outputs):
     np.testing.assert_allclose(hp.to_nhwc(got['semantic'][0]), want, **TOL)
 
 
-def _flax_module_parity(fmod, tmod, x, seed=0, **apply_kw):
-    """Init a flax module, carry its variables into `tmod`, compare."""
-    v = fmod.init(jax.random.PRNGKey(seed), jnp.asarray(x), **apply_kw)
-    v = jax.tree_util.tree_map(lambda a: np.array(a), v)
-    v = {k: dict(c) for k, c in v.items()}
+def _shared_variables(fmod, tmod, x, seed=0, **apply_kw):
+    """Flax variables of `fmod` shaped by `jax.eval_shape` (no compiled
+    init), filled from `tmod`'s initial tensors (built after a
+    `torch.manual_seed`), norms randomised, and loaded into `tmod`."""
+    tmpl = jax.eval_shape(lambda: fmod.init(
+        jax.random.PRNGKey(seed), jnp.asarray(x), **apply_kw))
+    v = {k: dict(c) for k, c in torch_to_flax_variables(tmod, tmpl).items()}
     hp._randomise(v, np.random.default_rng(seed))
-    with jax.default_matmul_precision('highest'):
-        want = np.asarray(fmod.apply(v, jnp.asarray(x), **apply_kw))
     load_flax_variables(tmod, v)
+    return v
+
+
+def _flax_module_parity(fmod, tmod, x, seed=0, **apply_kw):
+    """Carry shared variables into both modules, compare (the flax
+    apply jitted: one compile is cheaper than op-by-op dispatch)."""
+    v = _shared_variables(fmod, tmod, x, seed, **apply_kw)
+    with jax.default_matmul_precision('highest'):
+        want = np.asarray(jax.jit(lambda v, a: fmod.apply(
+            v, a, **apply_kw))(v, jnp.asarray(x)))
     with torch.no_grad():
         got = hp.to_nhwc(tmod(hp.to_nchw(x)))
     np.testing.assert_allclose(got, want, **TOL)
@@ -145,6 +155,7 @@ def test_blocks(block, stride):
     down = stride != 1
     fmod = jblock(block, planes=24 if down else 16, stride=stride,
                   use_downsample=down)
+    torch.manual_seed(0)                   # the shared weights' init
     tmod = tblock(block, n_in=16, planes=24 if down else 16,
                   stride=stride, use_downsample=down).eval()
     _flax_module_parity(fmod, tmod, x, train=False)
@@ -160,14 +171,11 @@ def test_pyramid_pooling():
     x = np.random.default_rng(4).normal(size=(2, 15, 20, 32))
     x = x.astype(np.float32)
     fmod = J(32, 24)
-    v = fmod.init(jax.random.PRNGKey(0), jnp.asarray(x))
-    v = jax.tree_util.tree_map(lambda a: np.array(a), v)
-    v = {k: dict(c) for k, c in v.items()}
-    hp._randomise(v, np.random.default_rng(0))
-    with jax.default_matmul_precision('highest'):
-        want, ctx_j = fmod.apply(v, jnp.asarray(x))
+    torch.manual_seed(0)                   # the shared weights' init
     tmod = T(32, 24).eval()
-    load_flax_variables(tmod, v)
+    v = _shared_variables(fmod, tmod, x)
+    with jax.default_matmul_precision('highest'):
+        want, ctx_j = jax.jit(fmod.apply)(v, jnp.asarray(x))
     with torch.no_grad():
         got, ctx_t = tmod(hp.to_nchw(x))
     np.testing.assert_allclose(hp.to_nhwc(got), np.asarray(want), **TOL)

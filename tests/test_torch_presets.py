@@ -49,7 +49,7 @@ from nicr_mtsa_tpu_torch.pipeline import (PanopticInferencePipeline,
 from nicr_mtsa_tpu_torch.tasks import InstanceTaskHelper
 from nicr_mtsa_tpu_torch.utils import flax_weights as fw
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 H, W = 64, 96
 TOL = dict(rtol=1e-3, atol=1e-3)
 DENSE_PRESETS = ('resnet18_rgb_semantic', 'rgbd_resnet34_nbt1d_semantic',

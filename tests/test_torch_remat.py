@@ -45,7 +45,7 @@ from nicr_mtsa_tpu_torch.pipeline import (
 from nicr_mtsa_tpu_torch.testing import build_train_batch
 from nicr_mtsa_tpu_torch.utils import flax_weights as fw
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 TASKS = ('semantic', 'instance', 'orientation', 'scene', 'panoptic')
 IS_THING = tuple(i < 8 for i in range(40))
 # dense: 2x ResNet-18 layout with NBt1D blocks (dropout 0.2 in every

@@ -52,7 +52,7 @@ from nicr_mtsa_tpu_torch.utils.flax_weights import (
     load_flax_variables, torch_to_flax_variables,
 )
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 IS_THING = tuple(i < hp.N_THING for i in range(hp.N_CLASSES))
 
 

@@ -1,10 +1,10 @@
 """Model parity of the EMSAFormer family in the PyTorch/CUDA port
 (nicr_mtsa_tpu_torch) with the JAX package, on the CPU in f32.
 
-Weights are flax variables with randomised norms and biases (the JAX
-init's for the backbones; for the presets the port's seeded init in
-the tree `jax.eval_shape` shapes, with no compiled JAX init) carried
-across with the strict `load_flax_variables`:
+Weights are flax variables with randomised norms and biases (the
+port's seeded init in the tree `jax.eval_shape` shapes, with no
+compiled JAX init) carried across with the strict
+`load_flax_variables`:
 - a small Swin backbone built directly on both sides (embed 32, depths
   (2, 2, 2, 2), head width 32), v2 multimodal RGB-D and v1 RGB: every
   stage output within 1e-3;
@@ -34,7 +34,7 @@ from nicr_mtsa_tpu_torch.models.multi_task import build_model as torch_build
 from nicr_mtsa_tpu_torch.utils.flax_weights import (load_flax_variables,
                                                   torch_to_flax_variables)
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 H, W = 64, 96
 TOL = 1e-3
 
@@ -64,10 +64,13 @@ def backbone_outputs(request):
     jb = SwinBackbone(stochastic_depth=0.0, **kw)
     rng = np.random.default_rng(3)
     x = rng.normal(size=(2, H, W, kw['n_input_channels'])).astype(np.float32)
-    v = _np_tree(jax.jit(jb.init)(jax.random.PRNGKey(0), jnp.asarray(x)), 1)
+    tb = TSwinBackbone(generator=torch.Generator().manual_seed(0),
+                       **kw).eval()
+    # shaped without a compiled init, filled from the port's seeded module
+    v = _np_tree(torch_to_flax_variables(tb, jax.eval_shape(
+        lambda: jb.init(jax.random.PRNGKey(0), jnp.asarray(x)))), 1)
     with jax.default_matmul_precision('highest'):
         want = [np.asarray(o) for o in jax.jit(jb.apply)(v, jnp.asarray(x))]
-    tb = TSwinBackbone(**kw).eval()
     load_flax_variables(tb, v)
     with torch.no_grad():
         y = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))

@@ -32,7 +32,7 @@ from nicr_mtsa_tpu_torch.pipeline import (
 from nicr_mtsa_tpu_torch.utils.flax_weights import (load_flax_variables,
                                                   torch_to_flax_variables)
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 H, W = 64, 96
 N_CLASSES, N_THING = 40, 8
 IS_THING = tuple(i < N_THING for i in range(N_CLASSES))

@@ -29,6 +29,7 @@ from nicr_mtsa_tpu_torch.data import DataLoader, mt_collate
 from nicr_mtsa_tpu_torch.data import preprocessing as pre
 from nicr_mtsa_tpu_torch.examples.train_synthetic import train_preprocessing
 from nicr_mtsa_tpu_torch.testing import SyntheticRGBDDataset, get_dummy_sample
+from _torch_data_helpers import jax_native_loaded  # noqa: F401
 from _torch_loop_helpers import IS_THING, _same, train_compose
 
 SEEDS = (0, 1, 2, 3)

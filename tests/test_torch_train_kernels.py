@@ -25,7 +25,7 @@ from nicr_mtsa_tpu.ops.pallas.window_attention import (
 )
 from nicr_mtsa_tpu_torch.ops.cuda import window_attention_core as wac
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 TOL = 1e-5
 # bf16: one bf16 ulp (2^-8) of max |.|; another f32 summation order can
 # flip the rounding of P, dS or an output value by one ulp

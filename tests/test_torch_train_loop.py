@@ -71,10 +71,11 @@ from nicr_mtsa_tpu_torch.pipeline import strip_non_arrays
 from nicr_mtsa_tpu_torch.testing import SyntheticRGBDDataset
 from nicr_mtsa_tpu_torch.utils import flax_weights as fw
 from _torch_emsanet_train_helpers import _NoDropout
+from _torch_data_helpers import jax_native_loaded  # noqa: F401
 from _torch_loop_helpers import H, IS_THING, W, _same, train_compose
 from _torch_train_helpers import randomise_norms
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 B = 2
 DWA_KEYS = ('semantic_total_loss', 'instance_center_total_loss',
             'instance_offset_total_loss', 'instance_orientation_total_loss',

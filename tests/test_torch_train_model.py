@@ -31,7 +31,7 @@ from nicr_mtsa_tpu_torch.utils.flax_weights import (
 )
 from _torch_port_helpers import _randomise
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 C, HEADS, WS = 64, 2, 8
 # name: (image H, W, shift)
 BLOCK_CASES = {'unshifted': (16, 24, 0), 'shifted': (16, 24, 4),

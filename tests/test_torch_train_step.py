@@ -45,7 +45,7 @@ from _torch_train_helpers import (grad as _grad, jax_step,
                                   left_out_of_f32_reference, noise_floor,
                                   port_step, variables)
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 
 
 @pytest.fixture(scope='module')
